@@ -1,3 +1,3 @@
-from .build import build_test_dataloader
+from .build import YOLOXDataloaderBuilder, build_test_dataloader, build_train_dataloader
 
-__all__ = ["build_test_dataloader"]
+__all__ = ["YOLOXDataloaderBuilder", "build_test_dataloader", "build_train_dataloader"]

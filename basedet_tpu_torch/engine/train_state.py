@@ -1,0 +1,88 @@
+"""Train state and the train step (counterpart of
+``basedet_tpu/engine/train_state.py``).
+
+Where the JAX package compiles forward, loss, gradient, optimizer update and
+EMA into one program over an immutable state, the port runs them eagerly and
+updates in place: the module's parameters and BN buffers, the optimizer's
+momentum, and the EMA copy of the parameters.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from basedet_tpu_torch.layers.common.function import full_f32
+
+
+def ema_momentum(cfg_ema, max_iters: int) -> float:
+    """pycls-style momentum from ALPHA (90000 = the 1x COCO schedule's
+    iterations), unless MOMENTUM is given."""
+    if cfg_ema.get("MOMENTUM", None):
+        return float(cfg_ema.MOMENTUM)
+    alpha = cfg_ema.get("ALPHA", 5e-4)
+    period = cfg_ema.get("UPDATE_PERIOD", 1)
+    return max(0.0, 1.0 - alpha * (90000 * period / max_iters))
+
+
+class TrainState:
+    """``step``, the number of steps taken; the model's optimizer; and
+    ``ema_params``, an EMA copy of the parameters by name (None without
+    EMA). The BN buffers are the module's own and are never averaged."""
+
+    def __init__(self, model, solver, ema: bool = False):
+        self.step = 0
+        self.optimizer = solver.make_optimizer(model.module)
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = (
+            {n: p.detach().clone() for n, p in model.module.named_parameters()} if ema else None
+        )
+
+    def variables(self, module: torch.nn.Module, ema: bool = False) -> Dict[str, torch.Tensor]:
+        """The module's state_dict, with the EMA parameters in place of the
+        live ones when ``ema`` and the state tracks them."""
+        sd = module.state_dict()
+        if ema and self.ema_params is not None:
+            sd.update(self.ema_params)
+        return sd
+
+
+def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
+    """The (state, batch) → metrics step: forward and losses, backward,
+    gradient clipping, SGD at ``lr = schedule(state.step)``, then the EMA of
+    the parameters. The whole step runs in IEEE f32 (TF32 off), backward
+    included. Metrics stay on the device; ``lr`` is a float."""
+    if cfg.TRAINER.AMP.get("ENABLE", False) or cfg.TRAINER.get("REMAT", False):
+        raise NotImplementedError("TRAINER.AMP and TRAINER.REMAT are not ported to basedet_tpu_torch yet")
+    ema_cfg = cfg.TRAINER.EMA
+    use_ema = bool(ema_cfg.get("ENABLE", False))
+    momentum = ema_momentum(ema_cfg, solver.max_iters) if use_ema else 0.0
+    burnin = ema_cfg.get("BURNIN_ITER", 0) if use_ema else 0
+    update_period = ema_cfg.get("UPDATE_PERIOD", 1) if use_ema else 1
+    names, params = zip(*model.module.named_parameters())
+
+    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        with full_f32():
+            total, loss_dict = model.get_losses(batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        solver.clip_grads(params)
+        lr = solver.lr_schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+
+        if use_ema and state.ema_params is not None:
+            # params exactly until burn-in, then EMA every update_period steps
+            m = 0.0 if state.step < burnin else momentum
+            if not (state.step % update_period == 0 or state.step <= burnin):
+                m = 1.0
+            ema = [state.ema_params[n] for n in names]
+            with torch.no_grad():
+                torch._foreach_mul_(ema, m)
+                torch._foreach_add_(ema, params, alpha=1.0 - m)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["lr"] = lr
+        return metrics
+
+    return train_step

@@ -17,6 +17,28 @@ import torch.nn.functional as F
 from basedet_tpu_torch.layers.common.blocks import get_activation
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running statistics as
+    flax's ``nn.BatchNorm`` does: ``r = (1 - momentum) * r + momentum * stat``
+    with the *biased* batch variance (torch's own update uses the unbiased
+    one). Normalisation (biased batch statistics in train mode, running ones
+    in eval mode) and the state-dict keys are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 writes the batch mean and unbiased variance into the
+        # scratch buffers from the same fused pass that normalises
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var * ((n - 1) / n), alpha=self.momentum)
+        return y
+
+
 class ConvBNAct(nn.Module):
     """Conv (no bias) + BatchNorm + activation: ``_ConvBNAct``. BN eps is
     YOLOX's 1e-3 (not ``cfg.MODEL.BN_EPS``, as in the JAX package), and its
@@ -27,7 +49,7 @@ class ConvBNAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride, (ksize - 1) // 2,
                               groups=groups, bias=False, device=device)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-3, momentum=0.03, device=device)
+        self.bn = FlaxBatchNorm2d(out_channels, eps=1e-3, momentum=0.03, device=device)
         self.act = get_activation(act)
 
     def forward(self, x):

@@ -1,25 +1,32 @@
-"""YOLOX inference in PyTorch (counterpart of ``basedet_tpu/models/det/yolox.py``).
+"""YOLOX in PyTorch (counterpart of ``basedet_tpu/models/det/yolox.py``):
+inference, and training with SimOTA assignment, the IoU, objectness, class
+and L1 losses and the step-seeded multiscale resize.
 
-The batch is written out where the JAX package vmaps over images. Training
-(SimOTA assignment, losses, the multiscale resize) is not ported yet.
+The batch is written out where the JAX package vmaps over images, and
+``torch.gather`` takes the place of the one-hot matmul gathers
+(``onehot_gather_rows``, ``onehot_pick_per_column``); both are exact.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from basedet_tpu_torch.layers.backbone.yolo_pafpn import YOLOPAFPN
 from basedet_tpu_torch.layers.common.anchor_generator import FastPointGenerator
 from basedet_tpu_torch.layers.common.function import full_f32, topk_scores
+from basedet_tpu_torch.layers.common.matcher import topk_dynamic_k_matching
 from basedet_tpu_torch.layers.common.post_processing import post_processing
 from basedet_tpu_torch.layers.head.yolo_head import YOLOXHead
+from basedet_tpu_torch.layers.losses import binary_cross_entropy, iou_loss, smooth_l1_loss
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.csp_darknet import CSPDarknet
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
-from basedet_tpu_torch.structures import convert_boxes
+from basedet_tpu_torch.structures import box_iou, convert_boxes
 from basedet_tpu_torch.utils.registry import registers
 
 
@@ -72,6 +79,7 @@ class YOLOX(BaseNet):
         self.point_gen = FastPointGenerator(self.strides)
         self.img_mean = None  # YOLOX consumes raw pixels
         self.img_std = None
+        self.use_l1 = bool(cfg.MODEL.get("USE_L1", False))
         m = cfg.MODEL
         module = YOLOXModule(self.num_classes, m.DEPTH_FACTOR, m.WIDTH_FACTOR, m.DEPTHWISE,
                              m.ACTIVATION, device="meta")
@@ -80,6 +88,158 @@ class YOLOX(BaseNet):
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.module.init_weights(generator)
 
+    # -- multiscale -------------------------------------------------------------
+    def target_size_for_step(self, step: int) -> Tuple[int, int]:
+        """Every SYNC_ITER steps a size from 32·[lo, hi], seeded by the step,
+        as the JAX package draws it."""
+        setting = self.cfg.AUG.TRAIN_SETTING
+        lo, hi = setting.MULTISCALE_RANGE
+        rng = np.random.RandomState(int(step) // setting.get("SYNC_ITER", 10))
+        k = rng.randint(lo, hi + 1)
+        return (32 * k, 32 * k)
+
+    def resize_batch(self, batch: Dict[str, Any], target_size: Tuple[int, int]) -> Dict[str, Any]:
+        """Bilinear resize of the images on the model's device, and of the gt
+        boxes, to target_size. Downscaling antialiases, as
+        ``jax.image.resize`` does; a batch already at that size comes back
+        as it is."""
+        images = torch.as_tensor(batch["data"]).to(self.device, torch.float32)
+        h, w = images.shape[1:3]
+        th, tw = target_size
+        if (h, w) == (th, tw):
+            return batch
+        resized = F.interpolate(images.permute(0, 3, 1, 2), size=(th, tw), mode="bilinear",
+                                align_corners=False, antialias=th < h or tw < w)
+        gt = torch.as_tensor(batch["gt_boxes"]).to(self.device, torch.float32).clone()
+        gt[..., :4] *= torch.tensor([tw / w, th / h, tw / w, th / h], device=self.device)
+        info = torch.as_tensor(batch["im_info"]).to(self.device, torch.float32).clone()
+        info[:, 0], info[:, 1] = th, tw
+        return {**batch, "data": resized.permute(0, 2, 3, 1), "gt_boxes": gt, "im_info": info}
+
+    def train_batch_mapper(self, batch: Dict[str, Any], step: int) -> Dict[str, Any]:
+        """The trainer's per-step hook: the multiscale resize for ``step``
+        (the trainer's 1-based iteration)."""
+        size = self.target_size_for_step(step)
+        self.extra_meter = {"img_size": size[0]}
+        return self.resize_batch(batch, size)
+
+    # -- assignment ---------------------------------------------------------------
+    @torch.no_grad()
+    def assign(
+        self,
+        anchors: torch.Tensor,
+        strides_vec: torch.Tensor,
+        gt: torch.Tensor,
+        num_valid: torch.Tensor,
+        pred_xcycwh: torch.Tensor,
+        cls_logits: torch.Tensor,
+        obj_logits: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """SimOTA over the batch (``_assign_single``, vmapped in the JAX
+        package): anchors (R, 2), strides_vec (R,), gt (B, K, 5), num_valid
+        (B,), pred_xcycwh (B, R, 4), cls_logits (B, R, C), obj_logits
+        (B, R, 1), all detached → fg_mask (B, R), matched_gt (B, R) int32,
+        pred_iou (B, R). No gradient flows, as under ``stop_gradient``."""
+        K, R, C = gt.shape[1], anchors.shape[0], self.num_classes
+        gt_valid = torch.arange(K, device=gt.device)[None, :] < num_valid[:, None]  # (B, K)
+        x1, y1, x2, y2 = (gt[..., i, None] for i in range(4))  # (B, K, 1)
+        ax, ay = anchors[:, 0], anchors[:, 1]
+
+        in_boxes = torch.minimum(torch.minimum(ax - x1, ay - y1), torch.minimum(x2 - ax, y2 - ay)) > 0
+        cx, cy = (x1 + x2) * 0.5, (y1 + y2) * 0.5
+        radius = 2.5 * strides_vec
+        in_centers = torch.minimum(
+            torch.minimum(ax - (cx - radius), ay - (cy - radius)),
+            torch.minimum((cx + radius) - ax, (cy + radius) - ay),
+        ) > 0
+        in_boxes &= gt_valid[..., None]
+        in_centers &= gt_valid[..., None]
+        candidate = in_boxes.any(dim=1) | in_centers.any(dim=1)  # (B, R)
+        both = in_boxes & in_centers
+
+        ious = box_iou(gt[..., :4], convert_boxes(pred_xcycwh, "xcycwh", "xyxy"))  # (B, K, R)
+        ious = torch.where(gt_valid[..., None] & candidate[:, None, :], ious, 0.0)
+
+        # classification cost via the closed-form one-hot BCE:
+        # sum_c BCE(p_c, 0) + log(1 - p_y) - log(p_y)
+        p = torch.sqrt(torch.sigmoid(cls_logits) * torch.sigmoid(obj_logits))  # (B, R, C)
+        eps = 1e-8
+        s0 = (-torch.log((1 - p).clamp(min=eps))).sum(dim=-1)  # (B, R)
+        labels0 = (gt[..., 4].to(torch.int32) - 1).clamp(0, C - 1).long()  # (B, K)
+        p_y = torch.gather(p, 2, labels0[:, None, :].expand(-1, R, -1)).transpose(1, 2)  # (B, K, R)
+        cls_cost = s0[:, None, :] + torch.log((1 - p_y).clamp(min=eps)) - torch.log(p_y.clamp(min=eps))
+
+        cost = (
+            cls_cost
+            + 3.0 * -torch.log(ious + 1e-8)
+            + 100000.0 * ~both
+            + 1e9 * ~candidate[:, None, :]
+            + 1e9 * ~gt_valid[..., None]
+        )
+        matched_gt, fg_mask = topk_dynamic_k_matching(cost, ious, gt_valid, candidate_topk=10)
+        fg_mask &= candidate
+        pred_iou = torch.gather(ious, 1, matched_gt[:, None, :].long())[:, 0]  # (B, R)
+        return fg_mask, matched_gt, pred_iou
+
+    # -- train ----------------------------------------------------------------------
+    def get_losses(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch → (total_loss, {total_loss, iou_loss, obj_loss, cls_loss,
+        l1_loss}). In train mode the BN running statistics update in place,
+        as the JAX package returns its new ``batch_stats``."""
+        inputs = self.pre_process(batch, train=True)
+        logits_l, offsets_l, objs_l = self.module(inputs["image"])
+        grids_l, strides_l = self.point_gen([tuple(x.shape[2:]) for x in logits_l], self.device)
+        anchors = torch.cat(grids_l, dim=0)  # (R, 2) pixels
+        strides_vec = torch.cat(strides_l, dim=0)  # (R,)
+
+        C = self.num_classes
+        cls_logits = torch.cat([_flatten_level(x, C) for x in logits_l], dim=1)  # (B, R, C)
+        raw_offsets = torch.cat([_flatten_level(x, 4) for x in offsets_l], dim=1)  # (B, R, 4)
+        obj_logits = torch.cat([_flatten_level(x, 1) for x in objs_l], dim=1)[..., 0]  # (B, R)
+
+        xy = raw_offsets[..., :2] * strides_vec[None, :, None] + anchors[None]
+        wh = torch.exp(raw_offsets[..., 2:4]) * strides_vec[None, :, None]
+        pred_xcycwh = torch.cat([xy, wh], dim=-1)
+
+        gt_boxes = inputs["gt_boxes"]
+        num_valid = inputs["img_info"][:, 4].to(torch.int32)
+        fg_mask, matched_gt, pred_iou = self.assign(
+            anchors, strides_vec, gt_boxes, num_valid, pred_xcycwh.detach(),
+            cls_logits.detach(), obj_logits.detach()[..., None],
+        )
+
+        matched = gather_rows(gt_boxes, matched_gt.long())  # (B, R, 5)
+        num_fg = fg_mask.sum().to(torch.float32).clamp(min=1.0)
+
+        gt_xcycwh = convert_boxes(matched[..., :4], "xyxy", "xcycwh")
+        loss_iou = (
+            torch.sum(iou_loss(pred_xcycwh, gt_xcycwh, box_mode="xcycwh", loss_type="square_iou")
+                      * fg_mask) / num_fg * 5.0
+        )
+        loss_obj = torch.sum(binary_cross_entropy(obj_logits, fg_mask.to(obj_logits.dtype))) / num_fg
+        labels0 = (matched[..., 4].to(torch.int32) - 1).clamp(0, C - 1).long()
+        cls_target = F.one_hot(labels0, C).to(cls_logits.dtype) * pred_iou[..., None]
+        loss_cls = torch.sum(
+            binary_cross_entropy(cls_logits, cls_target) * fg_mask[..., None]
+        ) / num_fg
+
+        if self.use_l1:
+            cx_t = ((matched[..., 0] + matched[..., 2]) * 0.5 - anchors[None, :, 0]) / strides_vec
+            cy_t = ((matched[..., 1] + matched[..., 3]) * 0.5 - anchors[None, :, 1]) / strides_vec
+            w_t = torch.log((matched[..., 2] - matched[..., 0]).clamp(min=1e-8) / strides_vec)
+            h_t = torch.log((matched[..., 3] - matched[..., 1]).clamp(min=1e-8) / strides_vec)
+            l1_target = torch.stack([cx_t, cy_t, w_t, h_t], dim=-1)
+            loss_l1 = torch.sum(
+                smooth_l1_loss(raw_offsets, l1_target, beta=0.0) * fg_mask[..., None]
+            ) / num_fg
+        else:
+            loss_l1 = torch.zeros((), device=self.device)
+
+        total = loss_iou + loss_obj + loss_cls + loss_l1
+        return total, {"total_loss": total, "iou_loss": loss_iou, "obj_loss": loss_obj,
+                       "cls_loss": loss_cls, "l1_loss": loss_l1}
+
+    # -- eval -----------------------------------------------------------------------
     def post_process(
         self,
         logits_l: List[torch.Tensor],

@@ -12,71 +12,24 @@ therefore moves all pairwise work into one fully parallel launch (a
 only a bit-OR walk over that mask for the sequential part, one block per image
 with the ``removed`` bitmap in shared memory. See ``csrc/nms.cu``.
 
-The kernel is built from the repository's source with ``nvcc`` at first use,
-into ``basedet_tpu_torch/_build/`` under a name that carries the source's hash
-(delete that directory to force a rebuild), and bound with ``ctypes``.
+The kernel is built from the repository's source at first use and bound with
+``ctypes`` (``ops/_build.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+from basedet_tpu_torch.ops._build import CSRC, load_library
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for root in (CUDA_HOME, "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the NMS kernel needs the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbasedet_nms_{digest.hexdigest()[:16]}.so"
-
-
-def build_library() -> Tuple[Path, str]:
-    """Compile ``csrc/nms.cu`` into a shared library unless it is already
-    built. Returns the library's path and the compiler's output (ptxas
-    register and shared-memory report), empty when nothing was compiled."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+SOURCE = CSRC / "nms.cu"
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()[0]))
+    lib = load_library(SOURCE)
     fn = lib.basedet_nms_keep
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -1,0 +1,29 @@
+"""Learning-rate schedules as step → lr functions (counterpart of
+``basedet_tpu/solver/schedules.py``). The step is the 0-based count of steps
+taken before the one the LR is for. Only YOLOX's schedule is ported."""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+
+def yolox_cosine_lr(
+    base_lr: float,
+    total_iters: int,
+    warmup_iters: int,
+    no_aug_iters: int,
+    min_lr_ratio: float = 0.05,
+) -> Callable[[int], float]:
+    """Quadratic warm-up → cosine → floor at min_lr for the no-aug tail."""
+    min_lr = base_lr * min_lr_ratio
+    cos_end = total_iters - no_aug_iters
+
+    def schedule(step: int) -> float:
+        if step >= cos_end:
+            return min_lr
+        if step < warmup_iters:
+            return base_lr * min(max(step / max(warmup_iters, 1), 0.0), 1.0) ** 2
+        progress = min(max((step - warmup_iters) / max(cos_end - warmup_iters, 1), 0.0), 1.0)
+        return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * progress))
+
+    return schedule

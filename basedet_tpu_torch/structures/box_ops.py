@@ -31,3 +31,13 @@ def clip_boxes(boxes: torch.Tensor, h: torch.Tensor, w: torch.Tensor) -> torch.T
         [torch.minimum(x1, w), torch.minimum(y1, h), torch.minimum(x2, w), torch.minimum(y2, h)],
         dim=-1,
     )
+
+
+def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU of matched (..., 4) box pairs; 0 where the union is not positive."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:4], boxes2[..., 2:4])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    return torch.where(union > 0, inter / union.clamp(min=1e-12), 0.0)

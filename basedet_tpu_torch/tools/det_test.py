@@ -4,10 +4,15 @@
         [--device cuda] [KEY VALUE ...]
 
 Options go before the config overrides. ``-w`` takes a ``torch.save``d
-state_dict or a pickle of the JAX variable tree with numpy leaves. The device
+state_dict (``det_train``'s ``dumped_model.pt``), a training checkpoint, or a
+pickle of the JAX variable tree with numpy leaves; without it, the checkpoint
+that ``GLOBAL.CKPT_SAVE_DIR/last_checkpoint`` names. ``--eval-ema`` evaluates
+a training checkpoint's EMA weights too, after its live ones. The device
 defaults to ``cuda`` and is never swapped for another.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -21,11 +26,10 @@ from basedet_tpu_torch.utils.registry import build_evaluator, build_model
 def main(args=None):
     parser = default_parser("basedet_tpu_torch test")
     parser.add_argument("--device", default="cuda", help="torch device to run on")
+    parser.add_argument("--eval-ema", action="store_true")
     args = parser.parse_args(args)
     if args.debug:
         raise ValueError("--debug configures JAX; basedet_tpu_torch runs eagerly already")
-    if args.weights is None:
-        raise ValueError("-w is required: reading training checkpoints is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available; pass --device cpu explicitly")
@@ -35,10 +39,18 @@ def main(args=None):
     cfg.MODEL.BATCHSIZE = 1  # as the reference's det_test
     setup_logger(cfg.GLOBAL.OUTPUT_DIR, file_prefix="test_log")
 
+    weights = args.weights
+    if weights is None:
+        with open(os.path.join(cfg.GLOBAL.CKPT_SAVE_DIR, "last_checkpoint")) as f:
+            weights = os.path.join(cfg.GLOBAL.CKPT_SAVE_DIR, f.read().strip())
     model = build_model(cfg, device)
-    model.load_weights(args.weights)
-    results = BaseTester(model, build_test_dataloader(cfg), build_evaluator(cfg)).test()
+    tester = BaseTester(model, build_test_dataloader(cfg), build_evaluator(cfg))
+    model.load_weights(weights)
+    results = tester.test()
     logger.info(f"eval results: {results}")
+    if args.eval_ema:
+        model.load_weights(weights, ema=True)
+        logger.info(f"eval results (EMA): {tester.test()}")
     return results
 
 

@@ -1,3 +1,3 @@
-from .registry import build_evaluator, build_model, registers
+from .registry import build_evaluator, build_model, build_trainer, registers
 
-__all__ = ["build_evaluator", "build_model", "registers"]
+__all__ = ["build_evaluator", "build_model", "build_trainer", "registers"]

@@ -1,5 +1,6 @@
 """basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
-the GPU machine: its det_test runs in a subprocess that cannot import them."""
+the GPU machine: its det_test and det_train run in a subprocess that cannot
+import them."""
 import json
 import os
 import re
@@ -10,7 +11,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2")
 
-_SCRIPT = r"""
+_BLOCK = r"""
 import importlib, json, pkgutil, sys
 
 BLOCKED = {blocked!r}
@@ -21,7 +22,9 @@ class _Block:
             raise ImportError("blocked import: " + name)
 
 sys.meta_path.insert(0, _Block())
+"""
 
+_SCRIPT = _BLOCK + r"""
 import torch
 import basedet_tpu_torch
 for info in pkgutil.walk_packages(basedet_tpu_torch.__path__, "basedet_tpu_torch."):
@@ -42,18 +45,43 @@ print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules
 """
 
 
-def test_det_test_runs_without_jax(tmp_path):
-    script = _SCRIPT.format(blocked=BLOCKED, out=str(tmp_path))
+_TRAIN_SCRIPT = _BLOCK + r"""
+from basedet_tpu_torch.tools import det_train
+
+opts = ["MODEL.WIDTH_FACTOR", "0.25", "MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8",
+        "DATA.TRAIN.name", "dummy", "AUG.TRAIN_SETTING.INPUT_SIZE", "(64,64)",
+        "AUG.TRAIN_SETTING.MULTISCALE_RANGE", "(2,3)", "SOLVER.MAX_EPOCH", "1",
+        "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
+        "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
+trainer = det_train.main(["-f", "playground/yolox_s/config.py", "--device", "cpu", *opts])
+print(json.dumps({{"steps": trainer.state.step,
+                   "loss": trainer.meters["total_loss"].latest,
+                   "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+def _run_blocked(script):
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_det_test_runs_without_jax(tmp_path):
+    out = _run_blocked(_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path)))
     assert out["leaked"] == []
     assert out["results"]["num_detections"] > 0
     records = json.loads((tmp_path / "predict_coco.json").read_text())
     assert len(records) == out["results"]["num_detections"]
     assert {r["image_id"] for r in records} == set(range(8))
+
+
+def test_det_train_runs_without_jax(tmp_path):
+    out = _run_blocked(_TRAIN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path)))
+    assert out["leaked"] == []
+    assert out["steps"] == 2 and out["loss"] > 0
+    assert (tmp_path / "ckpt" / "dumped_model.pt").exists()
 
 
 def test_port_sources_never_import_jax():
