@@ -1,14 +1,12 @@
-"""Data loaders (counterpart of ``basedet_tpu/data/build.py``).
-``basedet_tpu.data`` needs cv2 and cannot be imported where the port runs, so
-the port builds its loaders here. Only the synthetic ``dummy`` dataset is
-ported; any other is refused."""
+"""Data loaders (counterpart of ``basedet_tpu/data/build.py``). Only the
+synthetic ``dummy`` dataset is ported; any other is refused."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from basedet_tpu.utils.dummy import DummyLoader
+from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.registry import registers
 
 

@@ -1,7 +1,7 @@
 """Hook lists (counterpart of ``basedet_tpu/engine/build.py``)."""
 from __future__ import annotations
 
-from basedet_tpu.utils import logger
+from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.engine.hooks import BaseHook, CheckpointHook, LoggerHook, LRSchedulerHook
 from basedet_tpu_torch.utils.registry import registers
 

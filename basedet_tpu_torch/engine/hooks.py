@@ -10,7 +10,7 @@ import time
 
 import torch
 
-from basedet_tpu.utils import logger
+from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.registry import registers
 
 

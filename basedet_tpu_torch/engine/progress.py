@@ -1,6 +1,5 @@
-"""Epoch/iter progress of the trainer and its hooks (a copy of
-``basedet_tpu/engine/progress.py``: importing that module runs
-``basedet_tpu/engine/__init__.py``, which imports JAX)."""
+"""Epoch/iter progress of the trainer and its hooks (the port's own copy of
+``basedet_tpu/engine/progress.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

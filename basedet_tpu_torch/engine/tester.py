@@ -1,7 +1,7 @@
 """BaseTester: evaluation-loop façade (counterpart of ``basedet_tpu/engine/tester.py``)."""
 from __future__ import annotations
 
-from basedet_tpu.utils import logger
+from basedet_tpu_torch.utils.logger import logger
 
 
 class BaseTester:

@@ -5,7 +5,8 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from basedet_tpu.utils import MeterBuffer, logger
+from basedet_tpu_torch.utils.logger import logger
+from basedet_tpu_torch.utils.meters import MeterBuffer
 from basedet_tpu_torch.engine.progress import Progress
 from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
 from basedet_tpu_torch.solver.build import iters_per_epoch

@@ -1,0 +1,54 @@
+"""Feature Pyramid Network in NCHW (counterpart of ``basedet_tpu/layers/backbone/fpn.py``):
+lateral 1x1 and output 3x3 convs over the bottom-up features, a bilinear
+top-down pass, and the ``p6`` top block (a stride-2 subsample of the last
+level). Only what Faster R-CNN uses is ported: no norm, and always the
+``p6`` top block.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def upsample_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Bilinear resize of x to like's spatial size with half-pixel centres,
+    as ``jax.image.resize(..., "bilinear")`` upsamples (its border weights
+    renormalise to the clamp that ``align_corners=False`` does)."""
+    return F.interpolate(x, size=like.shape[-2:], mode="bilinear", align_corners=False)
+
+
+class FPN(nn.Module):
+    """Bottom-up features {name: (B, C_in, H, W)} fine→coarse → {p<k>: (B,
+    out_channels, H, W)}, with p<last + 1> from the ``p6`` top block. Convs
+    are named as the flax ones (``fpn_lateral_<name>``, ``fpn_output_<name>``)."""
+
+    def __init__(self, in_features: Sequence[str], in_channels: Sequence[int],
+                 strides: Sequence[int], out_channels: int = 256, norm=None, device=None):
+        super().__init__()
+        if norm:
+            raise NotImplementedError(f"FPN with norm {norm!r} is not ported to basedet_tpu_torch yet")
+        self.in_features = tuple(in_features)
+        self.strides = tuple(strides)
+        for name, cin in zip(self.in_features, in_channels):
+            self.add_module(f"fpn_lateral_{name}", nn.Conv2d(cin, out_channels, 1, device=device))
+            self.add_module(f"fpn_output_{name}",
+                            nn.Conv2d(out_channels, out_channels, 3, padding=1, device=device))
+
+    def forward(self, bottom_up: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        results: List[torch.Tensor] = []
+        prev = None
+        for name in self.in_features[::-1]:  # coarse → fine
+            lateral = getattr(self, f"fpn_lateral_{name}")(bottom_up[name])
+            if prev is not None:
+                lateral = lateral + upsample_like(prev, lateral)
+            prev = lateral
+            results.append(getattr(self, f"fpn_output_{name}")(lateral))
+        out_names = [f"p{int(math.log2(s))}" for s in self.strides]
+        outputs = dict(zip(out_names, results[::-1]))
+        last = int(math.log2(self.strides[-1]))
+        outputs[f"p{last + 1}"] = outputs[f"p{last}"][:, :, ::2, ::2]
+        return outputs

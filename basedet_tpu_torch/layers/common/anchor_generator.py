@@ -1,11 +1,66 @@
-"""YOLOX point grids (counterpart of ``FastPointGenerator`` in
-``basedet_tpu/layers/common/anchor_generator.py``)."""
+"""Anchor boxes and point grids (counterparts of ``DefaultAnchorGenerator`` and
+``FastPointGenerator`` in ``basedet_tpu/layers/common/anchor_generator.py``)."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+@dataclass(frozen=True)
+class DefaultAnchorGenerator:
+    """Scale x ratio base anchors replicated over the stride grid: base
+    anchors of area scale^2 and aspect ratio h/w, centred at
+    (offset + grid) * stride, scale-major then ratio per location, each level
+    (H*W*A, 4) xyxy in grid-major order. Built in numpy exactly as the JAX
+    package builds them, then moved to the device."""
+
+    anchor_scales: Sequence[Sequence[float]] = ((32,), (64,), (128,), (256,), (512,))
+    anchor_ratios: Sequence[Sequence[float]] = ((0.5, 1, 2),)
+    strides: Sequence[int] = (4, 8, 16, 32, 64)
+    offset: float = 0.0
+
+    def _per_level(self, vals):
+        vals = [list(v) for v in vals]
+        if len(vals) == 1:
+            vals = vals * len(self.strides)
+        if len(vals) != len(self.strides):
+            raise ValueError(f"{len(vals)} anchor specs for {len(self.strides)} levels")
+        return vals
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self._per_level(self.anchor_scales)[0]) * len(self._per_level(self.anchor_ratios)[0])
+
+    def base_anchors(self) -> List[np.ndarray]:
+        out = []
+        for scales, ratios in zip(self._per_level(self.anchor_scales),
+                                  self._per_level(self.anchor_ratios)):
+            anchors = []
+            for s in scales:
+                area = float(s) ** 2
+                for r in ratios:
+                    w = math.sqrt(area / r)
+                    h = r * w
+                    anchors.append([-w / 2.0, -h / 2.0, w / 2.0, h / 2.0])
+            out.append(np.asarray(anchors, np.float32))
+        return out
+
+    def __call__(self, feat_sizes: Sequence[Tuple[int, int]], device) -> List[torch.Tensor]:
+        """[(H, W), ...] per level → [(H*W*A, 4) xyxy anchors] on device."""
+        outs = []
+        for (h, w), stride, base in zip(feat_sizes, self.strides, self.base_anchors()):
+            shift = self.offset * stride
+            gx, gy = np.meshgrid(shift + stride * np.arange(w, dtype=np.float32),
+                                 shift + stride * np.arange(h, dtype=np.float32))
+            gx, gy = gx.reshape(-1), gy.reshape(-1)
+            grids = np.stack([gx, gy, gx, gy], axis=1)
+            anchors = (grids[:, None, :] + base[None, :, :]).reshape(-1, 4)
+            outs.append(torch.from_numpy(anchors).to(device))
+        return outs
 
 
 @dataclass(frozen=True)

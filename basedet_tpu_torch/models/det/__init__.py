@@ -1,3 +1,4 @@
+from .faster_rcnn import FasterRCNN
 from .yolox import YOLOX
 
-__all__ = ["YOLOX"]
+__all__ = ["FasterRCNN", "YOLOX"]

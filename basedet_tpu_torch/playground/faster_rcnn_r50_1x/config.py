@@ -1,0 +1,9 @@
+"""Faster R-CNN R50-FPN 800px 1x, the port's config (user config protocol — subclass and override)."""
+from basedet_tpu_torch.configs import FasterRCNNConfig
+
+
+class Cfg(FasterRCNNConfig):
+    def __init__(self):
+        super().__init__()
+        self.GLOBAL.OUTPUT_DIR = "logs/faster_rcnn_r50_1x"
+        self.GLOBAL.CKPT_SAVE_DIR = "logs/faster_rcnn_r50_1x/ckpt"

@@ -41,3 +41,10 @@ def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(boxes1) + box_area(boxes2) - inter
     return torch.where(union > 0, inter / union.clamp(min=1e-12), 0.0)
+
+
+def nonempty_mask(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """Mask of boxes with both sides > threshold (a mask in place of a
+    filter, for static shapes)."""
+    wh = boxes[..., 2:4] - boxes[..., :2]
+    return (wh[..., 0] > threshold) & (wh[..., 1] > threshold)

@@ -1,6 +1,5 @@
-"""Command-line entry points of the port. ``import_config`` is the JAX
-package's config loader, host code that imports without JAX, re-exported so
-that scripts driving the port name only the port."""
-from basedet_tpu.tools.misc import import_config
+"""Command-line entry points of the port. ``import_config`` loads a user
+config file (``class Cfg``) by path."""
+from basedet_tpu_torch.tools.misc import import_config
 
 __all__ = ["import_config"]

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from basedet_tpu.tools.misc import apply_common_flags, default_parser, import_config
-from basedet_tpu.utils import logger, setup_logger
+from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config
+from basedet_tpu_torch.utils.logger import logger, setup_logger
 from basedet_tpu_torch.utils.registry import build_trainer
 
 
@@ -21,8 +21,6 @@ def main(args=None):
     parser = default_parser("basedet_tpu_torch train")
     parser.add_argument("--device", default="cuda", help="torch device to run on")
     args = parser.parse_args(args)
-    if args.debug:
-        raise ValueError("--debug configures JAX; basedet_tpu_torch runs eagerly already")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available; pass --device cpu explicitly")

@@ -1,17 +1,50 @@
 """The port's own registries (counterpart of ``basedet_tpu/utils/registry.py``).
 
-They reuse the JAX package's ``Registry`` class and hold the port's classes
-under the same names (``MODEL.NAME``, ``TEST.EVALUATOR_NAME``,
-``DATA.BUILDER_NAME``, ``SOLVER.BUILDER_NAME``, ``HOOKS.BUILDER_NAME``,
-``TRAINER.NAME``), so one config file drives both packages."""
+``Registry`` is a copy of the JAX package's class, cut to what the port
+uses. The registries hold the port's classes under the same names
+(``MODEL.NAME``, ``TEST.EVALUATOR_NAME``, ``DATA.BUILDER_NAME``,
+``SOLVER.BUILDER_NAME``, ``HOOKS.BUILDER_NAME``, ``TRAINER.NAME``), so a
+config tree of either package builds the port."""
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from basedet_tpu.utils.registry import Registry
+
+class Registry:
+    """Name -> object map filled by the ``@registry.register()`` decorator."""
+
+    def __init__(self, name: str):
+        self._name = name
+        self._map: Dict[str, Any] = {}
+
+    def register(self, obj: Optional[Any] = None, name: Optional[str] = None):
+        """Use as ``@reg.register()`` decorator or ``reg.register(obj)``."""
+        if obj is None:
+            def deco(o, _name=name):
+                self._do_register(_name or o.__name__, o)
+                return o
+            return deco
+        self._do_register(name or obj.__name__, obj)
+        return obj
+
+    def _do_register(self, name: str, obj: Any) -> None:
+        if name in self._map and self._map[name] is not obj:
+            raise KeyError(f"{name!r} already registered in registry {self._name!r}")
+        self._map[name] = obj
+
+    def get(self, name: str) -> Any:
+        if name not in self._map:
+            raise KeyError(
+                f"{name!r} not found in registry {self._name!r}; "
+                f"known: {sorted(self._map)}"
+            )
+        return self._map[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._map
 
 
 class _Registers:

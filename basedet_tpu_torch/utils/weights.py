@@ -3,10 +3,17 @@
 Pure numpy and torch. A flax leaf ``{collection}/a/b/.../leaf`` maps to the
 key ``a.b....name``, with ``BatchNorm_0`` called ``bn`` and the leaf renamed:
 conv ``kernel`` HWIO → ``weight`` OIHW (depthwise ``(k, k, 1, C)`` →
-``(C, 1, k, k)`` by the same transpose), BN ``scale/bias`` (params) and
-``mean/var`` (batch_stats) → ``weight/bias/running_mean/running_var``.
-Each BN also gets torch's ``num_batches_tracked`` buffer (0), which has no JAX
-counterpart.
+``(C, 1, k, k)`` by the same transpose), ``Dense`` ``kernel`` (in, out) →
+``Linear.weight`` (out, in), BN ``scale/bias`` (params) and ``mean/var``
+(batch_stats) → ``weight/bias/running_mean/running_var``. Each BN also gets
+torch's ``num_batches_tracked`` buffer (0), which has no JAX counterpart.
+The ``frozen`` collection of ``FrozenBatchNorm_<i>`` (scale, bias, mean,
+var) maps to that module's buffers of the same four torch names; the module
+keeps its flax name.
+
+A ``Dense`` kernel's rows keep their order: the port's box head flattens
+RoIAlign's channels-last (ph, pw, C) output in the same (h, w, c) order as
+the flax ``fc1``.
 """
 from __future__ import annotations
 
@@ -16,21 +23,41 @@ import numpy as np
 import torch
 
 _BN = "BatchNorm_0"
+_FROZEN_BN = "FrozenBatchNorm_"
 _TO_TORCH = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("frozen", "scale"): "weight",
+    ("frozen", "bias"): "bias",
+    ("frozen", "mean"): "running_mean",
+    ("frozen", "var"): "running_var",
 }
+# (torch name, owning module kind) → (collection, flax leaf)
 _TO_JAX = {
-    ("weight", False): ("params", "kernel"),
-    ("bias", False): ("params", "bias"),
-    ("weight", True): ("params", "scale"),
-    ("bias", True): ("params", "bias"),
-    ("running_mean", True): ("batch_stats", "mean"),
-    ("running_var", True): ("batch_stats", "var"),
+    ("weight", None): ("params", "kernel"),
+    ("bias", None): ("params", "bias"),
+    ("weight", "bn"): ("params", "scale"),
+    ("bias", "bn"): ("params", "bias"),
+    ("running_mean", "bn"): ("batch_stats", "mean"),
+    ("running_var", "bn"): ("batch_stats", "var"),
+    **{(name, "frozen"): ("frozen", leaf) for (coll, leaf), name in _TO_TORCH.items()
+       if coll == "frozen"},
 }
+
+
+def _kernel_to_torch(path: str, value: np.ndarray) -> np.ndarray:
+    if value.ndim == 4:  # conv HWIO → OIHW
+        return value.transpose(3, 2, 0, 1)
+    if value.ndim == 2:  # Dense (in, out) → Linear (out, in)
+        return value.T
+    raise ValueError(f"{path}: expected an HWIO conv or (in, out) Dense kernel, got {value.shape}")
+
+
+def _kernel_to_jax(value: np.ndarray) -> np.ndarray:
+    return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
 
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -53,9 +80,7 @@ def state_dict_from_jax(
         if name is None or not mods:
             raise KeyError(f"no torch counterpart for {'/'.join([collection, *mods, leaf])}")
         if leaf == "kernel":
-            if value.ndim != 4:
-                raise ValueError(f"{'/'.join(mods)}: expected an HWIO conv kernel, got {value.shape}")
-            value = value.transpose(3, 2, 0, 1)
+            value = _kernel_to_torch("/".join(mods), value)
         is_bn = mods[-1] == _BN
         key = ".".join(["bn" if m == _BN else m for m in mods] + [name])
         if key in sd:
@@ -80,16 +105,20 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     tree: Dict[str, dict] = {}
     for key, tensor in sd.items():
         *mods, name = key.split(".")
-        is_bn = bool(mods) and mods[-1] == "bn"
-        if name == "num_batches_tracked" and is_bn:
+        kind = None
+        if mods and mods[-1] == "bn":
+            kind = "bn"
+        elif mods and mods[-1].startswith(_FROZEN_BN):
+            kind = "frozen"
+        if name == "num_batches_tracked" and kind == "bn":
             continue
-        target = _TO_JAX.get((name, is_bn))
+        target = _TO_JAX.get((name, kind))
         if target is None or not mods:
             raise KeyError(f"no JAX counterpart for {key}")
         collection, leaf = target
         value = tensor.detach().cpu().numpy()
         if leaf == "kernel":
-            value = value.transpose(2, 3, 1, 0)
+            value = _kernel_to_jax(value)
         node = tree.setdefault(collection, {})
         for m in mods:
             node = node.setdefault(_BN if m == "bn" else m, {})

@@ -5,14 +5,19 @@
 
 Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
-     sets no precision: the port's YOLOXModule and train step run in IEEE f32
-     (TF32 off) by themselves, and phases 5 and 8 hold them to the CPU;
-  2. build both kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu
-     and csrc/matching.cu, with their ptxas reports;
+     sets no precision: the port's models and train step run in IEEE f32
+     (TF32 off) by themselves, and phases 5, 8 and 13 hold them to the CPU;
+  2. build the three kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
+     csrc/matching.cu and csrc/roi_align.cu, with their ptxas reports;
   3. hold the NMS kernel to its plain PyTorch version on the card, exactly,
-     on random batches at the eval slice's shape and on edge cases; time both;
+     on random batches at the YOLOX eval shape, at Faster R-CNN's two shapes
+     (RPN, K = 4819, and the final class-aware NMS, K = 2000) and on edge
+     cases; time both;
   4. the same for the SimOTA matching kernel, at the train slice's shape
      (8, 100, 8400) and on edge cases and one 832x832 case;
+  4b. hold the RoIAlign kernel to its plain version within 1e-5 of
+     max(1, max|F|), at Faster R-CNN's eval shape (B = 1 and 2, R = 1000,
+     C = 256, the levels of an 800x1344 input) and on edge cases; time both;
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
@@ -28,9 +33,19 @@ Run from the root of the repository. Phases, each of which raises on failure:
      statistics;
   9. time YOLOX-S f32 inference at batch 1 and batch 32, and one f32 train
      step at batch 8 of 640x640 split into its parts, with peak memory;
- 10. with --profile DIR only: a torch.profiler pass over inference at both
-     batch sizes, kernel tables written to DIR, busy time and idle share;
- 11. print the kernel report, the card, and the result line.
+ 10. with --profile DIR only: a torch.profiler pass over YOLOX-S inference
+     at both batch sizes, kernel tables written to DIR, busy time and idle
+     share;
+ 11. Faster R-CNN R50-FPN (full width, random weights from a seed with the
+     frozen BN statistics, affine and biases spread) through det_test over 8
+     requests of one 800x1333 image; check the RoIAlign kernel ran 8 times
+     and the NMS kernel 16, their plain versions never, and RoIs landed on
+     every level P2-P5;
+ 12. hold its card inference to a CPU run of the same weights and image:
+     proposals and detections slot by slot;
+ 13. time its inference at batch 1 and batch 8, split into backbone+FPN,
+     RPN+proposals, RoIAlign, box head and post-process, with peak memory;
+ 14. print the kernel report, the card, and the result line.
 """
 import argparse
 import concurrent.futures
@@ -47,7 +62,16 @@ import numpy as np
 import torch
 
 SEED = 0
-CONFIG = "playground/yolox_s/config.py"
+CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
+FRCNN_CONFIG = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
+FRCNN_IMAGE = (800, 1333)  # padded to 800x1344: P2 200x336 ... P6 13x21
+FRCNN_RPN_K, FRCNN_RPN_T = 1000 * 4 + 13 * 21 * 3, 0.7  # 4 levels x top-1000 + all of P6
+FRCNN_FINAL_K, FRCNN_FINAL_T = 2000, 0.5
+ROI_R, ROI_C, ROI_STRIDES = 1000, 256, (4, 8, 16, 32)
+ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
+FRCNN_ATOL, FRCNN_AGREE = 1e-3, 0.95
+# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 SLICE_B, SLICE_K, SLICE_T = 8, 3000, 0.65  # YOLOX-S eval: 3 levels x top-1000, IoU 0.65
 HEAD_ATOL = 1e-3
 MATCH_B, MATCH_K, MATCH_M = 8, 100, 8400  # YOLOX-S train: batch 8, MAX_INSTANCES 100, 640x640
@@ -91,10 +115,17 @@ def phase_device():
     return card
 
 
-def phase_build():
-    from basedet_tpu_torch.ops import _build, matching_kernel, nms_kernel
+def bound(bytes_moved, ops):
+    """The least time (ms) the card could take: bytes over the memory rate
+    or f32 operations over the f32 rate, whichever is larger, and which."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE]
+
+def phase_build():
+    from basedet_tpu_torch.ops import _build, matching_kernel, nms_kernel, roi_align_kernel
+
+    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE]
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)  # show the build from this checkout
 
@@ -138,6 +169,8 @@ def _kernel_cases():
         boxes = _random_boxes(rng, SLICE_B, SLICE_K, clustered=seed % 2 == 1)
         cases.append((f"slice seed{seed}", boxes, rng.uniform(size=(SLICE_B, SLICE_K)) > 0.1, SLICE_T))
     cases.append(("K=1037", _random_boxes(rng, 3, 1037, True), rng.uniform(size=(3, 1037)) > 0.3, 0.5))
+    for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T)):
+        cases.append((name, _random_boxes(rng, 2, K, True), rng.uniform(size=(2, K)) > 0.05, t))
     cases.append(("K=1", _random_boxes(rng, 2, 1, False), np.ones((2, 1), bool), SLICE_T))
     cases.append(("all invalid", _random_boxes(rng, 2, 500, True), np.zeros((2, 500), bool), SLICE_T))
     same = np.broadcast_to(np.float32([10, 20, 110, 220]), (2, 300, 4)).copy()
@@ -154,7 +187,19 @@ def _kernel_cases():
     return cases
 
 
-def phase_kernel():
+def nms_bound(valid, keep):
+    """NMS's bound on valid (B, K) and this run's keep (B, K): boxes and
+    valid read once, keep written once; ~15 f32 operations per IoU test, and
+    the fewest tests greedy NMS needs on this data: each kept box against
+    every kept box before it, each suppressed valid box against one (its
+    suppressor)."""
+    B, K = valid.shape
+    kept = keep.sum(1).double()
+    suppressed = valid.sum(1).double() - kept
+    return bound(B * K * (16 + 1 + 1), 15 * float((kept * (kept - 1) / 2 + suppressed).sum()))
+
+
+def phase_kernel(card):
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     worst = 0
@@ -174,11 +219,24 @@ def phase_kernel():
     v = torch.ones(SLICE_B, SLICE_K, dtype=torch.bool, device="cuda")
     ms = cuda_ms(lambda: nms_keep(b, v, SLICE_T), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: nms_keep_plain(b, v, SLICE_T), reps=3, warmup=1)
-    kept = nms_keep(b, v, SLICE_T).sum(1).tolist()
+    keep = nms_keep(b, v, SLICE_T)
+    kept = keep.sum(1).tolist()
+    bound_ms, bound_by = nms_bound(v, keep)
     log(f"[kernel] {n_cases} cases equal; B={SLICE_B} K={SLICE_K} t={SLICE_T} (clustered, "
         f"kept per image {min(kept)}-{max(kept)} of {SLICE_K}): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per call")
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per call, bound {bound_ms:.6f} ms "
+        f"({bound_by}) | {card}")
+    for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T)):
+        b = torch.from_numpy(_random_boxes(rng, 1, K, True)).cuda()
+        v = torch.ones(1, K, dtype=torch.bool, device="cuda")
+        k_ms = cuda_ms(lambda: nms_keep(b, v, t), reps=50, warmup=5)
+        p_ms = cuda_ms(lambda: nms_keep_plain(b, v, t), reps=2, warmup=1)
+        keep = nms_keep(b, v, t)
+        k_bound, k_by = nms_bound(v, keep)
+        log(f"[kernel] {name} B=1 K={K} t={t} (clustered, {int(keep.sum())} kept): kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms per call, bound {k_bound:.6f} ms ({k_by}) | {card}")
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def _matching_case(rng, B, K, M, valid):
@@ -243,7 +301,14 @@ def phase_matching(card):
             f"plain {plain_ms:.3f} ms per call | {card}")
     log(f"[match] {len(cases)} cases equal")
     ms, plain_ms = times["slice 3 valid"]  # det_train's dummy batches carry 3 boxes per image
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+    valid_rows = int(cases[0][3].sum())
+    # cost and ious read once for valid rows, best gt (i32) and fg (bool)
+    # written per anchor; ~2 operations per element read
+    bound_ms, bound_by = bound(valid_rows * MATCH_M * 8 + MATCH_B * MATCH_M * 5,
+                               2 * valid_rows * MATCH_M)
+    log(f"[match] bound at 3 valid gts per image: {bound_ms:.5f} ms ({bound_by}) | {card}")
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 @torch.no_grad()
@@ -520,10 +585,11 @@ def phase_train_timing(weights, card):
         f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
 
 
-def _timing_batch(bs):
+def _timing_batch(bs, size=(640, 640)):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    data = torch.rand(bs, 640, 640, 3, device="cuda", generator=gen) * 255
-    info = torch.tensor([[640, 640, 640, 640, 0]], dtype=torch.float32, device="cuda").repeat(bs, 1)
+    h, w = size
+    data = torch.rand(bs, h, w, 3, device="cuda", generator=gen) * 255
+    info = torch.tensor([[h, w, h, w, 0]], dtype=torch.float32, device="cuda").repeat(bs, 1)
     return {"data": data, "im_info": info}
 
 
@@ -585,14 +651,315 @@ def phase_profile(model, card, out_dir, totals):
         log(f"[profile]   largest: {top}")
 
 
+def _proposal_rois(rng, B, R):
+    """(B, R, 4) proposal-like boxes on the 800x1333 image: sqrt(area)
+    log-uniform in 8-800 px, aspect 1/2-2, clipped to the image; a tenth are
+    zero-area padding, as the RPN pads its empty slots."""
+    h, w = FRCNN_IMAGE
+    side = np.exp(rng.uniform(np.log(8), np.log(800), (B, R)))
+    ar = np.exp(rng.uniform(np.log(0.5), np.log(2.0), (B, R)))
+    bw, bh = side * np.sqrt(ar), side / np.sqrt(ar)
+    cx, cy = rng.uniform(0, w, (B, R)), rng.uniform(0, h, (B, R))
+    rois = np.stack([np.clip(cx - bw / 2, 0, w), np.clip(cy - bh / 2, 0, h),
+                     np.clip(cx + bw / 2, 0, w), np.clip(cy + bh / 2, 0, h)], -1)
+    rois[rng.uniform(size=(B, R)) < 0.1] = 0.0
+    return rois.astype(np.float32)
+
+
+def _edge_rois():
+    """(1, R, 4): sqrt(area) exactly on the level boundaries 112, 224 and
+    448 (and 56, 896, clipped), zero-area padding, boxes partly and wholly
+    outside the image, sub-pixel boxes, boxes on the last row and column of
+    every level (the padded input is 800x1344)."""
+    H, W = 800, 1344
+    rows = [[0, 0, 0, 0], [300, 200, 300, 200], [-40, -60, 100, 90], [1200, 700, 1500, 900],
+            [-300, -300, -10, -20], [2000, 900, 2100, 1000], [10.2, 20.7, 10.6, 21.0],
+            [3.0, 3.0, 3.25, 3.5], [W - 3, H - 2, W, H], [0, H - 1, W, H], [W - 1, 0, W, H],
+            [0, 0, W, H], [W - 40, H - 40, W + 20, H + 20]]
+    for side in (56, 112, 224, 448, 896):
+        for x, y in ((0, 0), (17, 33), (W - side, H - side)):
+            for r in (0.25, 1.0, 4.0):
+                rows.append([x, y, x + side * r ** 0.5, y + side / r ** 0.5])
+    return np.float32(rows)[None]
+
+
+def _roi_feats(gen, B):
+    return [torch.randn(B, ROI_C, h, w, device="cuda", generator=gen) for h, w in ROI_LEVELS]
+
+
+def roi_align_touched(feats, rois, levels, output_size=(7, 7)):
+    """The (level, b, y, x) feature rows that some RoI's taps read with a
+    nonzero weight, counted from the plain version's per-axis weights: a RoI
+    reads the product of the rows and the columns its samples touch."""
+    from basedet_tpu_torch.ops.roi_align import _axis_weights
+
+    ph, pw = output_size
+    touched = 0
+    for li, (f, stride) in enumerate(zip(feats, ROI_STRIDES)):
+        H, W = f.shape[-2:]
+        box = rois / stride - 0.5
+        mask = (levels == li).float()
+        py = _axis_weights(box[..., 1], (box[..., 3] - box[..., 1]) / ph, ph, 2, H, mask)
+        px = _axis_weights(box[..., 0], (box[..., 2] - box[..., 0]) / pw, pw, 2, W, mask)
+        rows, cols = (py != 0).any(-2).float(), (px != 0).any(-2).float()  # (B, R, H), (B, R, W)
+        touched += int((torch.einsum("bry,brx->byx", rows, cols) > 0).sum())
+    return touched
+
+
+def roi_align_bound(feats, rois, levels):
+    """RoIAlign's bound: the output written once, the rois and level ids
+    read once, and the C channels of every feature row that some RoI's taps
+    touch read once (``roi_align_touched``); 16 taps x (2 multiplies + 1
+    add) + 4 sample weights per output element in f32."""
+    B, R = levels.shape
+    out_elems = B * R * 7 * 7 * ROI_C
+    feat_bytes = roi_align_touched(feats, rois, levels) * ROI_C * 4
+    t = bound(out_elems * 4 + feat_bytes + B * R * 20, out_elems * (16 * 3 + 4 * 4))
+    return (*t, feat_bytes)
+
+
+def _check_roi_align(name, feats, rois):
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+
+    levels = roi_level_assignment(rois, 2, 5)
+    got = multilevel_roi_align(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    want = multilevel_roi_align_plain(feats, rois, levels, ROI_STRIDES)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * max(1.0, max(float(f.abs().max()) for f in feats))
+    per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f"[roi] {name:16s} B={rois.shape[0]} R={rois.shape[1]} C={feats[0].shape[1]}, RoIs per level "
+        f"P2-P5 {per_level}: max |kernel - plain| {err:.3e} (tol {tol:.3e})")
+    check(err <= tol, f"RoIAlign kernel differs from its plain version by {err} on case {name!r}")
+    return err
+
+
+def phase_roi_align(card):
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+
+    rng, gen = np.random.RandomState(SEED), torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    for B in (1, 2):
+        feats = _roi_feats(gen, B)
+        rois = torch.from_numpy(_proposal_rois(rng, B, ROI_R)).cuda()
+        worst = max(worst, _check_roi_align("slice", feats, rois))
+    worst = max(worst, _check_roi_align("edges", _roi_feats(gen, 1), torch.from_numpy(_edge_rois()).cuda()))
+    big = [f * 1000.0 for f in _roi_feats(gen, 1)]  # the tolerance scales with max |F|
+    worst = max(worst, _check_roi_align("edges |F|~4e3", big, torch.from_numpy(_edge_rois()).cuda()))
+
+    feats = _roi_feats(gen, 1)
+    rois = torch.from_numpy(_proposal_rois(rng, 1, ROI_R)).cuda()
+    levels = roi_level_assignment(rois, 2, 5)
+    ms = cuda_ms(lambda: multilevel_roi_align(feats, rois, levels, ROI_STRIDES), reps=50, warmup=5)
+    copy_ms = cuda_ms(lambda: [f.permute(0, 2, 3, 1).contiguous() for f in feats], reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: multilevel_roi_align_plain(feats, rois, levels, ROI_STRIDES), reps=3, warmup=1)
+    bound_ms, bound_by, feat_bytes = roi_align_bound(feats, rois, levels)
+    log(f"[roi] B=1 R={ROI_R} C={ROI_C} levels {ROI_LEVELS}: wrapper {ms:.4f} ms per call (of which "
+        f"the channels-last copy of P2-P5 alone {copy_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {feat_bytes / 1e6:.1f} MB of the "
+        f"{sum(f.numel() * 4 for f in feats) / 1e6:.1f} MB of P2-P5 touched) | {card}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+@torch.no_grad()
+def randomise_frcnn(module, generator):
+    """Draw the frozen BN statistics and affine and every conv and fc bias
+    from generator, as ``randomise`` does for YOLOX-S; raise the RPN's
+    box-size biases by log 3, so that a proposal spans about three times its
+    anchor's side and the proposals reach every pooling level P2-P5 (with
+    the plain init all 1000 land on P2, the top-scoring anchors being the
+    small ones); and spread the class logits' biases by 2, so that some
+    classes clear the 0.05 score threshold of an untrained head (whose
+    softmax over 81 classes gives ~0.012)."""
+    from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
+
+    for m in module.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if getattr(m, "bias", None) is not None:
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+    module.rpn.rpn_bbox_offsets.bias.view(-1, 4)[:, 2:].add_(math.log(3.0))  # (dx, dy, dw, dh) per anchor
+    bias = module.rcnn.pred_cls.bias
+    bias.add_(torch.empty_like(bias).normal_(0.0, 2.0, generator=generator))
+
+
+def make_frcnn_weights(out_dir):
+    """Full-width Faster R-CNN R50-FPN on the card with random weights from
+    SEED, spread by ``randomise_frcnn``, saved as a state_dict."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(FRCNN_CONFIG)
+    cfg.merge(_frcnn_opts(out_dir))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise_frcnn(model.module, generator)
+    weights = os.path.join(out_dir, "faster_rcnn_r50_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"[frcnn] {FRCNN_CONFIG}: {cfg.MODEL.BACKBONE.NAME} (FrozenBN, freeze_at "
+        f"{cfg.MODEL.BACKBONE.FREEZE_AT}), FPN {cfg.MODEL.FPN.OUT_CHANNELS}, RPN top "
+        f"{cfg.MODEL.RPN.TEST_PREV_NMS_TOPK}/{cfg.MODEL.RPN.TEST_POST_NMS_TOPK}, "
+        f"{cfg.DATA.NUM_CLASSES} classes, {n_params} parameters, random from seed {SEED}")
+    return cfg, model, weights
+
+
+def _frcnn_opts(out_dir):
+    return ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "GLOBAL.OUTPUT_DIR", out_dir]
+
+
+def phase_frcnn_slice(out_dir, weights):
+    """det_test on full-width Faster R-CNN over 8 requests; the RoIAlign and
+    NMS counts are zeroed just before and read just after."""
+    from basedet_tpu_torch.models.det import faster_rcnn
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+    from basedet_tpu_torch.tools import det_test
+
+    def level_counts(args, out):  # RoIs with positive area (proposals, not padding) per level
+        rois = args[1]
+        area = (rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1])
+        levels = roi_level_assignment(rois, 2, 5)
+        return torch.bincount(levels[area > 0].long(), minlength=4).tolist()
+
+    multilevel_roi_align.launches, multilevel_roi_align_plain.calls = 0, 0
+    nms_keep.launches, nms_keep_plain.calls = 0, 0
+    t0 = time.perf_counter()
+    with recording(faster_rcnn, "pool_rois_multilevel", level_counts) as levels, \
+            nms_counts() as seen:
+        results = det_test.main(["-f", FRCNN_CONFIG, "-w", weights, "--device", "cuda",
+                                 *_frcnn_opts(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    roi_launches, roi_plain = multilevel_roi_align.launches, multilevel_roi_align_plain.calls
+    nms_launches, nms_plain = nms_keep.launches, nms_keep_plain.calls
+
+    with open(os.path.join(out_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    per_level = np.sum(levels, axis=0).tolist()
+    check(len(records) >= 1, "Faster R-CNN det_test gave no detections")
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), "non-finite detections")
+    check({r["image_id"] for r in records} == set(range(8)), "not every request was answered")
+    check(roi_launches == 8, f"the RoIAlign kernel launched {roi_launches} times for 8 requests")
+    check(roi_plain == 0, f"the plain RoIAlign ran {roi_plain} times on the main path")
+    check(nms_launches == 16, f"the NMS kernel launched {nms_launches} times for 8 requests")
+    check(nms_plain == 0, f"the plain NMS ran {nms_plain} times on the main path")
+    check(all(n > 0 for n in per_level), f"RoIs per level P2-P5 {per_level}: a level got none")
+    rpn, final = seen[0::2], seen[1::2]
+    log(f"[frcnn] det_test Faster R-CNN R50-FPN on 8 requests of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
+        f"(padded 800x1344): {results}, {len(records)} finite detections in {seconds:.2f} s; "
+        f"RoIAlign kernel launches {roi_launches}, plain calls {roi_plain}; NMS kernel launches "
+        f"{nms_launches}, plain calls {nms_plain}; RPN NMS kept per image {_kept_range(rpn)}, final "
+        f"NMS kept {_kept_range(final)}; proposals per level P2-P5 over the 8 requests {per_level}")
+    return roi_launches, nms_launches
+
+
+def _frcnn_stages(model, batch):
+    """The RPN's proposals and valid flags and the detections of one batch,
+    on the CPU."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    with torch.inference_mode(), full_f32():
+        x = model.pre_process(batch)
+        feats = model.module.features(x["image"])
+        proposals, valid = model.module.proposals(feats, x["img_info"])
+    dets = {k: v.cpu() for k, v in model.inference(batch).items()}
+    return proposals.cpu(), valid.cpu(), dets
+
+
+def _slot_agreement(cpu_boxes, cpu_valid, gpu_boxes, gpu_valid, extra=None):
+    """Fraction of the CPU's valid slots whose card slot is valid with every
+    coordinate within FRCNN_ATOL (and ``extra`` true), and the largest
+    coordinate difference over those matched slots."""
+    close = (gpu_boxes - cpu_boxes).abs().amax(-1)
+    ok = cpu_valid & gpu_valid & (close <= FRCNN_ATOL)
+    if extra is not None:
+        ok &= extra
+    frac = float(ok.sum()) / max(int(cpu_valid.sum()), 1)
+    return frac, float(close[ok].max()) if ok.any() else 0.0
+
+
+def phase_frcnn_card_vs_cpu(cfg, model, weights):
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import build_test_dataloader
+
+    cpu = build_model(cfg, "cpu")
+    cpu.load_weights(weights)
+    batch = next(iter(build_test_dataloader(cfg)))  # det_test's first request
+    batch = {k: batch[k] for k in ("data", "im_info")}
+    t0 = time.perf_counter()
+    c_prop, c_valid, c_dets = _frcnn_stages(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    g_prop, g_valid, g_dets = _frcnn_stages(model, batch)
+    prop_frac, prop_err = _slot_agreement(c_prop, c_valid, g_prop, g_valid)
+    same = ((g_dets["box_labels"] == c_dets["box_labels"])
+            & ((g_dets["box_scores"] - c_dets["box_scores"]).abs() <= FRCNN_ATOL))
+    det_frac, det_err = _slot_agreement(c_dets["boxes"], c_dets["valid"], g_dets["boxes"],
+                                        g_dets["valid"], same)
+    score_err = float((g_dets["box_scores"] - c_dets["box_scores"])[same & c_dets["valid"]].abs().max())
+    log(f"[parity] Faster R-CNN card vs CPU, f32, one {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} image (CPU "
+        f"run {cpu_s:.1f} s, plain RoIAlign): proposals {int(c_valid.sum())} CPU / {int(g_valid.sum())} "
+        f"card valid, {prop_frac:.4f} of slots matched, max |dbox| {prop_err:.3e} on them; detections "
+        f"{int(c_dets['valid'].sum())} CPU / {int(g_dets['valid'].sum())} card, {det_frac:.4f} of "
+        f"slots matched (label, |dbox|, |dscore| <= {FRCNN_ATOL}), max |dbox| {det_err:.3e}, max "
+        f"|dscore| {score_err:.3e} on them")
+    check(bool(g_dets["valid"].any()) and torch.isfinite(g_dets["boxes"]).all(),
+          "card detections empty or non-finite")
+    check(prop_frac >= FRCNN_AGREE, f"only {prop_frac:.3f} of the CPU's proposals matched on the card")
+    check(det_frac >= FRCNN_AGREE, f"only {det_frac:.3f} of the CPU's detections matched on the card")
+
+
+def phase_frcnn_timing(model, card):
+    """Faster R-CNN f32 inference at batch 1 and 8 of 800x1333, input on the
+    card: the whole request and its stages, each timed alone on the previous
+    stage's outputs."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+
+    m = model.module
+    launches = multilevel_roi_align.launches
+    for bs, reps in ((1, 20), (8, 5)):
+        batch = _timing_batch(bs, FRCNN_IMAGE)
+        total = cuda_ms(lambda: model.inference(batch), reps=reps, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        model.inference(batch)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode(), full_f32():
+            x = model.pre_process(batch)
+            image, info = x["image"], x["img_info"]
+            t_feat = cuda_ms(lambda: m.features(image), reps=reps, warmup=2)
+            feats = m.features(image)
+            t_prop = cuda_ms(lambda: m.proposals(feats, info), reps=reps, warmup=2)
+            proposals, valid = m.proposals(feats, info)
+            t_pool = cuda_ms(lambda: m.pool(feats, proposals), reps=reps, warmup=2)
+            pooled = m.pool(feats, proposals)
+            t_head = cuda_ms(lambda: m.box_head(pooled, proposals), reps=reps, warmup=2)
+            boxes, scores = m.box_head(pooled, proposals)
+            t_post = cuda_ms(lambda: model.post_process(boxes, scores, valid, info), reps=reps, warmup=2)
+        log(f"[timing] Faster R-CNN R50-FPN f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch {bs}: "
+            f"{total:.3f} ms per batch ({1000 * bs / total:.2f} img/s); backbone+FPN {t_feat:.3f}, "
+            f"RPN+proposals {t_prop:.3f}, RoIAlign {t_pool:.3f}, box head {t_head:.3f}, post-process "
+            f"{t_post:.3f} ms (each alone, means of {reps}); peak memory {peak / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
+    check(multilevel_roi_align.launches > launches, "Faster R-CNN timing ran no RoIAlign kernel")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference, tables into DIR")
     args = parser.parse_args()
     card = phase_device()
     phase_build()
-    kernel = phase_kernel()
+    kernel = phase_kernel(card)
     matching = phase_matching(card)
+    roi = phase_roi_align(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg, model, weights = make_weights(out_dir)
         match_launches, dumped = phase_train(out_dir, weights)
@@ -600,17 +967,28 @@ def main():
         phase_card_vs_cpu(cfg, model, weights)
         phase_train_vs_cpu(weights)
         phase_train_timing(weights, card)
+        frcnn_cfg, frcnn, frcnn_weights = make_frcnn_weights(out_dir)
+        roi_launches, frcnn_nms_launches = phase_frcnn_slice(out_dir, frcnn_weights)
+        phase_frcnn_card_vs_cpu(frcnn_cfg, frcnn, frcnn_weights)
     totals = phase_timing(model, card)
     if args.profile:
         phase_profile(model, card, args.profile, totals)
+    phase_frcnn_timing(frcnn, card)
+    log(f"[report] nms_keep launches: {launches} on YOLOX-S det_test + {frcnn_nms_launches} on "
+        f"Faster R-CNN det_test")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
-        "replaces": "basedet_tpu/ops/nms_pallas.py:26", "launches": launches,
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "replaces": "basedet_tpu/ops/nms_pallas.py:26", "launches": launches + frcnn_nms_launches,
+        **{k: kernel[k] for k in keys},
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
         "replaces": "basedet_tpu/ops/matching_pallas.py:31", "launches": match_launches,
-        "max_abs_err": matching["max_abs_err"], "ms": matching["ms"], "plain_ms": matching["plain_ms"],
+        **{k: matching[k] for k in keys},
+    }, {
+        "name": "multilevel_roi_align", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
+        "replaces": "basedet_tpu/ops/roi_align_window.py:257", "launches": roi_launches,
+        **{k: roi[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

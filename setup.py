@@ -5,7 +5,7 @@ setup(
     version="0.1.0",
     description="TPU-native object detection framework in JAX/XLA/Pallas",
     packages=find_packages(exclude=("tests",)),
-    package_data={"basedet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"basedet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "playground/*/config.py"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     entry_points={

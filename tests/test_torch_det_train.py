@@ -8,7 +8,7 @@ import torch
 
 from basedet_tpu_torch.tools import det_test, det_train
 
-CONFIG = "playground/yolox_s/config.py"
+CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 
 
 def _opts(out):
