@@ -1,7 +1,8 @@
-// Multilevel RoIAlign forward for Hopper (sm_90a), bound through a plain C entry.
+// Multilevel RoIAlign for Hopper (sm_90a), forward and backward, bound through
+// plain C entries.
 //
-// Replaces the two Pallas forwards of the JAX package, which compute one
-// function: basedet_tpu/ops/roi_align_window.py::_fwd_kernel_win (Morton-
+// The forward replaces the two Pallas forwards of the JAX package, which
+// compute one function: basedet_tpu/ops/roi_align_window.py::_fwd_kernel_win (Morton-
 // clustered windows, reached via pool_rois_window) and
 // basedet_tpu/ops/roi_align_pallas.py::_fwd_kernel (the dense separable
 // fallback). That function is multilevel_roi_align_batched
@@ -31,6 +32,21 @@
 // the plain version's operations in its order (compiled with -fmad=false,
 // so no FMA contracts them), which keeps lo, hi and the lerp weights
 // identical; only the order of the 16 products' sum differs.
+//
+// The backward (roi_align_bwd_kernel, at the end of the file) replaces the
+// two Pallas backwards, basedet_tpu/ops/roi_align_window.py::_bwd_kernel_win
+// and basedet_tpu/ops/roi_align_pallas.py::_bwd_kernel: the adjoint of the
+// forward in the features,
+//   dF_l[b, y, x, c] = sum over the RoIs r of level l and the bins (i, j) of
+//                      Py[r, i, y] * Px[r, j, x] * g[b, r, i, j, c],
+// and no gradient for the RoIs. It lives in this file so that both
+// directions take their taps from the one axis_tap and roi_geometry. On this
+// card the work is a scatter: one thread per element of g adds its 16
+// weighted copies into a zero-filled channels-last dF with atomicAdd, in one
+// launch for every level and image. The TPU kernels' chunked accumulators,
+// window clustering, group masks and dense weight matmuls are not carried
+// over. The atomics make the order of each sum, and so its last bits, vary
+// from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +63,13 @@ struct Levels {
   int w[kMaxLevels];
   float scale[kMaxLevels];  // 1 / stride, exact (powers of two)
   int n;
+};
+
+// The levels of the backward: the geometry of `Levels` (its feature
+// pointers unused) and where each level's gradient goes.
+struct LevelsOut {
+  Levels in;
+  float* grad[kMaxLevels];
 };
 
 // Row (or column) index pair and weights of one sample along one axis, as
@@ -78,6 +101,52 @@ __device__ __forceinline__ Tap axis_tap(float start, float bin, int p, int s,
   return t;
 }
 
+// One RoI on its level: the level id (clamped to the levels present), the
+// box's start in feature coordinates (scaled by 1/stride, shifted by -0.5)
+// and the bin sizes, in the plain version's operations and order.
+struct Geometry {
+  int level;
+  float x1, y1, bin_h, bin_w;
+};
+
+__device__ __forceinline__ Geometry roi_geometry(const Levels& lv,
+                                                 const float* __restrict__ rois,
+                                                 const int* __restrict__ levels,
+                                                 long long br, int ph, int pw) {
+  Geometry g;
+  const int l = levels[br];
+  g.level = l < 0 ? 0 : (l >= lv.n ? lv.n - 1 : l);
+  const float sc = lv.scale[g.level];
+  const float* roi = rois + br * 4;
+  g.x1 = __fsub_rn(__fmul_rn(roi[0], sc), 0.5f);
+  g.y1 = __fsub_rn(__fmul_rn(roi[1], sc), 0.5f);
+  const float x2 = __fsub_rn(__fmul_rn(roi[2], sc), 0.5f);
+  const float y2 = __fsub_rn(__fmul_rn(roi[3], sc), 0.5f);
+  g.bin_h = __fdiv_rn(__fsub_rn(y2, g.y1), static_cast<float>(ph));
+  g.bin_w = __fdiv_rn(__fsub_rn(x2, g.x1), static_cast<float>(pw));
+  return g;
+}
+
+// The element (b, r, i, j, c) that thread `idx` of a flat launch over
+// B*R*ph*pw*C owns; br = b * R + r.
+struct Element {
+  int c, j, i, b;
+  long long br;
+};
+
+__device__ __forceinline__ Element element_of(long long idx, int R, int C,
+                                              int ph, int pw) {
+  Element e;
+  e.c = static_cast<int>(idx % C);
+  long long rest = idx / C;
+  e.j = static_cast<int>(rest % pw);
+  rest /= pw;
+  e.i = static_cast<int>(rest % ph);
+  e.br = rest / ph;
+  e.b = static_cast<int>(e.br / R);
+  return e;
+}
+
 __global__ void __launch_bounds__(kThreads)
 roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
                      const int* __restrict__ levels, int B, int R, int C,
@@ -85,36 +154,20 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
   const long long total = (long long)B * R * ph * pw * C;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int c = static_cast<int>(idx % C);
-  long long rest = idx / C;
-  const int j = static_cast<int>(rest % pw);
-  rest /= pw;
-  const int i = static_cast<int>(rest % ph);
-  const long long br = rest / ph;  // b * R + r
-  const int b = static_cast<int>(br / R);
+  const Element e = element_of(idx, R, C, ph, pw);
+  const Geometry g = roi_geometry(lv, rois, levels, e.br, ph, pw);
+  const int H = lv.h[g.level], W = lv.w[g.level];
 
-  int l = levels[br];
-  l = l < 0 ? 0 : (l >= lv.n ? lv.n - 1 : l);
-  const int H = lv.h[l], W = lv.w[l];
-  const float sc = lv.scale[l];
-  const float* roi = rois + br * 4;
-  const float x1 = __fsub_rn(__fmul_rn(roi[0], sc), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(roi[1], sc), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(roi[2], sc), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(roi[3], sc), 0.5f);
-  const float bin_h = __fdiv_rn(__fsub_rn(y2, y1), static_cast<float>(ph));
-  const float bin_w = __fdiv_rn(__fsub_rn(x2, x1), static_cast<float>(pw));
-
-  const float* f = lv.feat[l] + (size_t)b * H * W * C + c;
+  const float* f = lv.feat[g.level] + (size_t)e.b * H * W * C + e.c;
   float acc = 0.f;
 #pragma unroll
   for (int sy = 0; sy < kSampling; ++sy) {
-    const Tap ty = axis_tap(y1, bin_h, i, sy, H);
+    const Tap ty = axis_tap(g.y1, g.bin_h, e.i, sy, H);
     const float* row_lo = f + (size_t)ty.lo * W * C;
     const float* row_hi = f + (size_t)ty.hi * W * C;
 #pragma unroll
     for (int sx = 0; sx < kSampling; ++sx) {
-      const Tap tx = axis_tap(x1, bin_w, j, sx, W);
+      const Tap tx = axis_tap(g.x1, g.bin_w, e.j, sx, W);
       const float top = __fadd_rn(__fmul_rn(tx.wlo, __ldg(row_lo + (size_t)tx.lo * C)),
                                   __fmul_rn(tx.whi, __ldg(row_lo + (size_t)tx.hi * C)));
       const float bot = __fadd_rn(__fmul_rn(tx.wlo, __ldg(row_hi + (size_t)tx.lo * C)),
@@ -123,6 +176,61 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
     }
   }
   out[idx] = acc;
+}
+
+// One thread per element (b, r, i, j, c) of g: its 2x2 samples' four
+// corners each receive weight * g. Consecutive threads take consecutive
+// channels, so each of the 16 atomicAdds of a warp lands on 32 consecutive
+// floats of dF. An element of g that is exactly 0 (the rows that the loss
+// weighs 0) adds nothing and is skipped, as is a sample outside the level.
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
+                     const float* __restrict__ rois,
+                     const int* __restrict__ levels, int B, int R, int C,
+                     int ph, int pw) {
+  const long long total = (long long)B * R * ph * pw * C;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const float gv = grad[idx];
+  if (gv == 0.f) return;
+  const Element e = element_of(idx, R, C, ph, pw);
+  const Geometry g = roi_geometry(lv.in, rois, levels, e.br, ph, pw);
+  const int H = lv.in.h[g.level], W = lv.in.w[g.level];
+
+  float* d = lv.grad[g.level] + (size_t)e.b * H * W * C + e.c;
+#pragma unroll
+  for (int sy = 0; sy < kSampling; ++sy) {
+    const Tap ty = axis_tap(g.y1, g.bin_h, e.i, sy, H);
+    if (ty.wlo == 0.f && ty.whi == 0.f) continue;
+    float* row_lo = d + (size_t)ty.lo * W * C;
+    float* row_hi = d + (size_t)ty.hi * W * C;
+    const float glo = __fmul_rn(ty.wlo, gv), ghi = __fmul_rn(ty.whi, gv);
+#pragma unroll
+    for (int sx = 0; sx < kSampling; ++sx) {
+      const Tap tx = axis_tap(g.x1, g.bin_w, e.j, sx, W);
+      if (tx.wlo == 0.f && tx.whi == 0.f) continue;
+      atomicAdd(row_lo + (size_t)tx.lo * C, __fmul_rn(tx.wlo, glo));
+      atomicAdd(row_lo + (size_t)tx.hi * C, __fmul_rn(tx.whi, glo));
+      atomicAdd(row_hi + (size_t)tx.lo * C, __fmul_rn(tx.wlo, ghi));
+      atomicAdd(row_hi + (size_t)tx.hi * C, __fmul_rn(tx.whi, ghi));
+    }
+  }
+}
+
+// Levels past n_levels repeat the last one, so that a clamped level id
+// always finds a valid entry.
+Levels make_levels(const float* const* feats, const int* heights,
+                   const int* widths, const int* strides, int n_levels) {
+  Levels lv;
+  lv.n = n_levels;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    const int k = l < n_levels ? l : n_levels - 1;
+    lv.feat[l] = feats ? feats[k] : nullptr;
+    lv.h[l] = heights[k];
+    lv.w[l] = widths[k];
+    lv.scale[l] = 1.f / static_cast<float>(strides[k]);
+  }
+  return lv;
 }
 
 }  // namespace
@@ -143,19 +251,38 @@ extern "C" int basedet_roi_align_fwd(const float* const* feats,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = (long long)B * R * ph * pw * C;
   if (total <= 0) return 0;
-  Levels lv;
-  lv.n = n_levels;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const int k = l < n_levels ? l : n_levels - 1;
-    lv.feat[l] = feats[k];
-    lv.h[l] = heights[k];
-    lv.w[l] = widths[k];
-    lv.scale[l] = 1.f / static_cast<float>(strides[k]);
-  }
+  const Levels lv = make_levels(feats, heights, widths, strides, n_levels);
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   roi_align_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       lv, rois, levels, B, R, C, ph, pw, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grads: n_levels device pointers to channels-last (B, H_l, W_l, C) f32,
+// zero-filled by the caller, into which the kernel adds; grad_out
+// (B, R, ph, pw, C) f32; the rest as for the forward. Launches on `stream`,
+// does not synchronise, returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for more levels than the kernel holds.
+extern "C" int basedet_roi_align_bwd(float* const* grads, const int* heights,
+                                     const int* widths, const int* strides,
+                                     int n_levels, const float* grad_out,
+                                     const float* rois, const int* levels,
+                                     int B, int R, int C, int ph, int pw,
+                                     void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = (long long)B * R * ph * pw * C;
+  if (total <= 0) return 0;
+  LevelsOut lv;
+  lv.in = make_levels(nullptr, heights, widths, strides, n_levels);
+  for (int l = 0; l < kMaxLevels; ++l)
+    lv.grad[l] = grads[l < n_levels ? l : n_levels - 1];
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  roi_align_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      lv, grad_out, rois, levels, B, R, C, ph, pw);
   return static_cast<int>(cudaGetLastError());
 }

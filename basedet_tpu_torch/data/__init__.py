@@ -1,3 +1,9 @@
-from .build import YOLOXDataloaderBuilder, build_test_dataloader, build_train_dataloader
+from .build import (
+    DataloaderBuilder,
+    YOLOXDataloaderBuilder,
+    build_test_dataloader,
+    build_train_dataloader,
+)
 
-__all__ = ["YOLOXDataloaderBuilder", "build_test_dataloader", "build_train_dataloader"]
+__all__ = ["DataloaderBuilder", "YOLOXDataloaderBuilder", "build_test_dataloader",
+           "build_train_dataloader"]

@@ -22,20 +22,24 @@ def _forever(loader) -> Iterator[Dict[str, np.ndarray]]:
         yield from loader
 
 
-def build_train_dataloader(cfg) -> Iterator[Dict[str, np.ndarray]]:
-    """``dummy``: an endless stream of synthetic batches of ``BATCHSIZE``
-    images at ``AUG.TRAIN_SETTING.INPUT_SIZE``, gt padded to
-    ``DATA.MAX_INSTANCES``, as the JAX package's YOLOX builder gives them on
-    one device."""
+def _dummy_train_stream(cfg, image_size) -> Iterator[Dict[str, np.ndarray]]:
     name = cfg.DATA.TRAIN.get("name", "dummy")
     if name != "dummy":
         _refuse(name, "DATA.TRAIN.name")
     return _forever(DummyLoader(
         batch_size=cfg.MODEL.BATCHSIZE,
-        image_size=tuple(cfg.AUG.TRAIN_SETTING.INPUT_SIZE),
+        image_size=tuple(image_size),
         max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
         num_classes=cfg.DATA.NUM_CLASSES,
     ))
+
+
+def build_train_dataloader(cfg) -> Iterator[Dict[str, np.ndarray]]:
+    """``dummy``: an endless stream of synthetic batches of ``BATCHSIZE``
+    images at ``AUG.TRAIN_SETTING.INPUT_SIZE``, gt padded to
+    ``DATA.MAX_INSTANCES``, as the JAX package's YOLOX builder gives them on
+    one device."""
+    return _dummy_train_stream(cfg, cfg.AUG.TRAIN_SETTING.INPUT_SIZE)
 
 
 @registers.dataloader.register()
@@ -43,6 +47,18 @@ class YOLOXDataloaderBuilder:
     @classmethod
     def build(cls, cfg):
         return build_train_dataloader(cfg)
+
+
+@registers.dataloader.register()
+class DataloaderBuilder:
+    """The default detection loader. ``dummy``: an endless stream of
+    synthetic batches of ``BATCHSIZE`` images at ``DATA.DUMMY_IMAGE_SIZE``
+    (512x512 unless set), as the JAX package's ``DataloaderBuilder`` gives
+    them on one device."""
+
+    @classmethod
+    def build(cls, cfg):
+        return _dummy_train_stream(cfg, cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512)))
 
 
 def build_test_dataloader(cfg, dataset_name: Optional[str] = None):

@@ -50,7 +50,12 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     """The (state, batch) → metrics step: forward and losses, backward,
     gradient clipping, SGD at ``lr = schedule(state.step)``, then the EMA of
     the parameters. The whole step runs in IEEE f32 (TF32 off), backward
-    included. Metrics stay on the device; ``lr`` is a float."""
+    included. Metrics stay on the device; ``lr`` is a float.
+
+    A model that samples (``draws_per_step``: Faster R-CNN's anchors and
+    RoIs) is handed ``cfg.SEED`` (42 unless set) and the step, from which it
+    seeds its draw, as the JAX package folds the step into its key: a step's
+    draw does not depend on what ran before it."""
     if cfg.TRAINER.AMP.get("ENABLE", False) or cfg.TRAINER.get("REMAT", False):
         raise NotImplementedError("TRAINER.AMP and TRAINER.REMAT are not ported to basedet_tpu_torch yet")
     ema_cfg = cfg.TRAINER.EMA
@@ -59,10 +64,13 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     burnin = ema_cfg.get("BURNIN_ITER", 0) if use_ema else 0
     update_period = ema_cfg.get("UPDATE_PERIOD", 1) if use_ema else 1
     names, params = zip(*model.module.named_parameters())
+    seed = cfg.get("SEED", None) or 42
+    draws = getattr(model, "draws_per_step", False)
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         with full_f32():
-            total, loss_dict = model.get_losses(batch)
+            randomness = {"seed": seed, "step": state.step} if draws else {}
+            total, loss_dict = model.get_losses(batch, **randomness)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
         solver.clip_grads(params)

@@ -15,6 +15,20 @@ def topk_scores(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return values[..., :k], indices[..., :k]
 
 
+def first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the maximum along ``dim``, the lowest index among equal
+    maxima, as ``jnp.argmax`` gives it. ``torch.argmax`` and ``torch.max``
+    promise no order among ties on CUDA, and ties are the common case where
+    this is used: an anchor or proposal that overlaps no gt has IoU 0 with
+    all of them. ``x`` must hold no NaN."""
+    size = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = size
+    index = torch.arange(size, device=x.device).reshape(shape)
+    best = x.amax(dim=dim, keepdim=True)
+    return torch.where(x == best, index, size).amin(dim=dim)
+
+
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
     """cuDNN convolutions and cuBLAS matmuls in IEEE f32, TF32 off, for the

@@ -26,6 +26,10 @@ from basedet_tpu_torch.utils.weights import state_dict_from_jax
 
 
 class BaseNet:
+    # True for a model whose losses sample: the train step then hands
+    # ``get_losses`` the config's seed and the step (``seed=``, ``step=``)
+    draws_per_step = False
+
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg
         self.device = torch.device(device)

@@ -1,10 +1,18 @@
-"""Faster R-CNN inference in PyTorch (counterpart of ``basedet_tpu/models/det/faster_rcnn.py``):
-ResNet + FPN (P2-P6) → RPN head → per-level top-k, decode, clip, level-wise
-NMS (the NMS kernel) → multilevel RoIAlign over P2-P5 (the RoIAlign kernel)
-→ 2-FC box predictor → softmax and class-specific decode → top-2000 →
-class-aware NMS (the NMS kernel) → rescaled detections. The batch is written
-out where the JAX package vmaps over images. Training (RPN and R-CNN ground
-truth, sampling, losses) is not ported yet.
+"""Faster R-CNN in PyTorch (counterpart of ``basedet_tpu/models/det/faster_rcnn.py``).
+
+Inference: ResNet + FPN (P2-P6) → RPN head → per-level top-k, decode, clip,
+level-wise NMS (the NMS kernel) → multilevel RoIAlign over P2-P5 (the
+RoIAlign kernel) → 2-FC box predictor → softmax and class-specific decode →
+top-2000 → class-aware NMS (the NMS kernel) → rescaled detections.
+
+Training: the same features and RPN head → the anchors' ground truth, sampled,
+and the RPN losses → proposals from the detached RPN outputs (NMS kernel, no
+gradient) → sampling of a fixed number of RoIs from proposals and gt boxes →
+multilevel RoIAlign (forward kernel, and on the way back the backward kernel)
+→ box predictor → R-CNN losses. Targets and proposals are computed without
+gradient. The sampling noise is an argument (``layers/common/sampling.py``).
+
+The batch is written out where the JAX package vmaps over images.
 """
 from __future__ import annotations
 
@@ -19,11 +27,18 @@ from basedet_tpu_torch.layers.backbone.fpn import FPN
 from basedet_tpu_torch.layers.common.anchor_generator import DefaultAnchorGenerator
 from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
 from basedet_tpu_torch.layers.common.function import full_f32, topk_scores
+from basedet_tpu_torch.layers.common.matcher import Matcher
 from basedet_tpu_torch.layers.common.post_processing import post_processing
-from basedet_tpu_torch.layers.head.rcnn import RCNNPredictor
+from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
+from basedet_tpu_torch.layers.head.rcnn import RCNNPredictor, rcnn_losses, rcnn_sample
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
-from basedet_tpu_torch.models.det.rpn import RPNHead, find_top_proposals
+from basedet_tpu_torch.models.det.rpn import (
+    RPNHead,
+    find_top_proposals,
+    rpn_ground_truth,
+    rpn_losses,
+)
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
 from basedet_tpu_torch.ops.roi_align_kernel import pool_rois_multilevel
 from basedet_tpu_torch.structures import BoxCoder
@@ -31,9 +46,12 @@ from basedet_tpu_torch.utils.registry import registers
 
 
 class FasterRCNNModule(nn.Module):
-    """The eval branch of the JAX package's ``FasterRCNNModule``, split into
-    its stages (``features``, ``proposals``, ``pool``, ``box_head``) so that
-    each can be run and timed alone; ``forward`` runs them all."""
+    """The JAX package's ``FasterRCNNModule``, split into its stages so that
+    each can be run and timed alone and fed another run's inputs:
+    ``features``, ``proposals``, ``pool`` and ``box_head``, which ``forward``
+    runs for inference, and ``rpn_targets``, ``rpn_loss``, ``sample`` and
+    ``head_losses``, which ``losses`` runs with them for training. The frozen
+    BN and the frozen stages stay frozen in train mode."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -56,6 +74,11 @@ class FasterRCNNModule(nn.Module):
         self.rpn_coder = BoxCoder(tuple(m.RPN_BOX_REG.MEAN), tuple(m.RPN_BOX_REG.STD))
         self.rcnn_coder = BoxCoder(tuple(m.RCNN_BOX_REG.MEAN), tuple(m.RCNN_BOX_REG.STD))
         self.rpn_cfg = m.RPN
+        self.rcnn_cfg = m.RCNN
+        self.matcher = Matcher(tuple(m.MATCHER.THRESHOLDS), tuple(m.MATCHER.LABELS),
+                               m.MATCHER.ALLOW_LOW_QUALITY)
+        self.rpn_beta = m.LOSSES.RPN_SMOOTH_L1_BETA
+        self.rcnn_beta = m.LOSSES.RCNN_SMOOTH_L1_BETA
         self.pool_features = tuple(m.RCNN.IN_FEATURES)
         self.pool_strides = tuple(m.RCNN.STRIDES)
         self.pool_size = tuple(m.ROI_POOLER.SIZE)
@@ -98,16 +121,52 @@ class FasterRCNNModule(nn.Module):
         """image (B, 3, H, W) → FPN levels {p2..p6: (B, C, H_l, W_l)}."""
         return self.fpn(self.bottom_up(image))
 
-    def proposals(self, feats: Dict[str, torch.Tensor], img_info: torch.Tensor):
-        """RPN head, then top-k, decode, clip and NMS per image → (proposals
-        (B, P, 4), valid (B, P))."""
-        features = [feats[n] for n in self.level_names]
-        logits_l, offsets_l = self.rpn(features)
+    def rpn_head(self, feats: Dict[str, torch.Tensor]):
+        """→ per level objectness logits (B, R_l) and offsets (B, R_l, 4)."""
+        return self.rpn([feats[n] for n in self.level_names])
+
+    @torch.no_grad()
+    def proposals(self, feats: Dict[str, torch.Tensor], img_info: torch.Tensor,
+                  train: bool = False, rpn_out=None):
+        """RPN head (or its outputs ``rpn_out``, detached here), then top-k,
+        decode, clip and NMS per image → (proposals (B, P, 4), valid (B, P)),
+        with the train or the test top-k budgets. No gradient: the NMS
+        kernel has none, and the JAX package stops it here too."""
+        logits_l, offsets_l = self.rpn_head(feats) if rpn_out is None else rpn_out
         r = self.rpn_cfg
+        prev_k, post_k = ((r.TRAIN_PREV_NMS_TOPK, r.TRAIN_POST_NMS_TOPK) if train
+                          else (r.TEST_PREV_NMS_TOPK, r.TEST_POST_NMS_TOPK))
         proposals, _, valid = find_top_proposals(
-            logits_l, offsets_l, self.anchors(features), img_info[:, :2], self.rpn_coder,
-            r.TEST_PREV_NMS_TOPK, r.TEST_POST_NMS_TOPK, r.NMS_THRESHOLD)
+            [x.detach() for x in logits_l], [x.detach() for x in offsets_l],
+            self.anchors([feats[n] for n in self.level_names]), img_info[:, :2], self.rpn_coder,
+            prev_k, post_k, r.NMS_THRESHOLD)
         return proposals, valid
+
+    def rpn_targets(self, feats: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
+                    num_gt: torch.Tensor, noise_pos: torch.Tensor, noise_neg: torch.Tensor):
+        """Labels (B, R) and offsets (B, R, 4) of all anchors of all levels,
+        positives and negatives sampled with the two (B, R) noises."""
+        r = self.rpn_cfg
+        anchors = torch.cat(self.anchors([feats[n] for n in self.level_names]), dim=0)
+        return rpn_ground_truth(noise_pos, noise_neg, anchors, gt_boxes, num_gt, self.matcher,
+                                self.rpn_coder, r.NUM_SAMPLE_ANCHORS,
+                                int(r.POSITIVE_ANCHOR_RATIO * r.NUM_SAMPLE_ANCHORS))
+
+    def rpn_loss(self, rpn_out, labels: torch.Tensor, offsets: torch.Tensor):
+        """→ (objectness loss, box loss) of the RPN head's outputs."""
+        logits_l, offsets_l = rpn_out
+        return rpn_losses(torch.cat(logits_l, dim=1), torch.cat(offsets_l, dim=1), labels, offsets,
+                          self.rpn_beta)
+
+    def sample(self, proposals: torch.Tensor, valid: torch.Tensor, gt_boxes: torch.Tensor,
+               num_gt: torch.Tensor, noise_fg: torch.Tensor, noise_bg: torch.Tensor,
+               noise_tie: torch.Tensor):
+        """→ rois (B, N, 4), labels (B, N), targets (B, N, 4), weights (B, N)
+        with N = RCNN.NUM_ROIS, from the proposals and the gt boxes."""
+        c = self.rcnn_cfg
+        return rcnn_sample(noise_fg, noise_bg, noise_tie, proposals, valid, gt_boxes, num_gt,
+                           c.NUM_ROIS, c.FG_RATIO, c.FG_THRESHOLD, c.BG_THRESHOLD_HIGH,
+                           c.BG_THRESHOLD_LOW, self.rcnn_coder)
 
     def pool(self, feats: Dict[str, torch.Tensor], proposals: torch.Tensor) -> torch.Tensor:
         """Multilevel RoIAlign → (B, P, ph, pw, C)."""
@@ -122,6 +181,38 @@ class FasterRCNNModule(nn.Module):
         scores = torch.softmax(logits, dim=-1)[:, 1:]
         boxes = self.rcnn_coder.decode(proposals.reshape(-1, 4)[:, None, :], deltas)
         return boxes.reshape(B, P, self.num_classes, 4), scores.reshape(B, P, self.num_classes)
+
+    def head_losses(self, pooled: torch.Tensor, labels: torch.Tensor, targets: torch.Tensor,
+                    weights: torch.Tensor):
+        """pooled (B, N, ph, pw, C) and the sampled labels, targets and
+        weights → (classification loss, box loss)."""
+        logits, deltas = self.rcnn(pooled.flatten(0, 1))
+        return rcnn_losses(logits, deltas, labels.flatten(), targets.flatten(0, 1), weights.flatten(),
+                           self.rcnn_beta)
+
+    @full_f32()
+    def losses(self, image: torch.Tensor, img_info: torch.Tensor, gt_boxes: torch.Tensor,
+               noise: Optional[Dict[str, torch.Tensor]] = None, seed: int = 42,
+               step: int = 0) -> Dict[str, torch.Tensor]:
+        """The train branch: the four losses and their sum. The sampling
+        noise is ``noise`` when given (as ``draw_sampling_noise`` returns it
+        for this batch's anchors and its proposals plus gt rows), else drawn
+        on the image's device from (seed, step)."""
+        num_gt = img_info[:, 4].to(torch.int64)
+        feats = self.features(image)
+        rpn_out = self.rpn_head(feats)
+        if noise is None:
+            noise = draw_sampling_noise(
+                seed, step, image.shape[0], sum(x.shape[1] for x in rpn_out[0]),
+                self.rpn_cfg.TRAIN_POST_NMS_TOPK + gt_boxes.shape[1], image.device)
+        labels, offsets = self.rpn_targets(feats, gt_boxes, num_gt, noise["rpn_pos"], noise["rpn_neg"])
+        rpn_cls, rpn_reg = self.rpn_loss(rpn_out, labels, offsets)
+        proposals, valid = self.proposals(feats, img_info, train=True, rpn_out=rpn_out)
+        rois, roi_labels, targets, weights = self.sample(
+            proposals, valid, gt_boxes, num_gt, noise["rcnn_fg"], noise["rcnn_bg"], noise["rcnn_tie"])
+        rcnn_cls, rcnn_reg = self.head_losses(self.pool(feats, rois), roi_labels, targets, weights)
+        return {"total_loss": rpn_cls + rpn_reg + rcnn_cls + rcnn_reg, "rpn_cls_loss": rpn_cls,
+                "rpn_reg_loss": rpn_reg, "rcnn_cls_loss": rcnn_cls, "rcnn_reg_loss": rcnn_reg}
 
     @full_f32()
     def forward(self, image: torch.Tensor, img_info: torch.Tensor):
@@ -142,10 +233,18 @@ class FasterRCNN(BaseNet):
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.module.init_weights(generator)
 
-    def get_losses(self, batch):
-        raise NotImplementedError(
-            "Faster R-CNN training is not ported to basedet_tpu_torch yet: it comes with the "
-            "next slice (RPN/R-CNN ground truth and losses, RoIAlign backward kernels)")
+    draws_per_step = True
+
+    def get_losses(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None, seed: int = 42,
+                   step: int = 0):
+        """→ (total, {total_loss, rpn_cls_loss, rpn_reg_loss, rcnn_cls_loss,
+        rcnn_reg_loss}), differentiable in the trainable parameters. The
+        sampling noise is ``noise`` when given, else drawn from (seed,
+        step): see ``FasterRCNNModule.losses``."""
+        inputs = self.pre_process(batch, train=True)
+        losses = self.module.losses(inputs["image"], inputs["img_info"], inputs["gt_boxes"],
+                                    noise, seed, step)
+        return losses["total_loss"], losses
 
     def post_process(self, boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
                      img_info: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -9,15 +9,22 @@ outside ``[-1, size]``, the 1/S average and the level mask, and
 
     pooled[i, j, c] = sum_y sum_x Py[i, y] Px[j, x] F[c, y, x].
 
-This is the plain version of the CUDA kernel in ``ops/roi_align_kernel.py``
-and the CPU path of its wrapper. Features are NCHW per level; the output is
-(B, R, ph, pw, C), channels last, as the JAX package gives it, so that the
-box head flattens it in the same (h, w, c) order.
+Its adjoint in the features, from the same weights, is
+
+    dF[c, y, x] = sum_r sum_i sum_j Py[r, i, y] Px[r, j, x] g[r, i, j, c];
+
+the RoIs get no gradient, as in the JAX package.
+
+These are the plain versions of the two CUDA kernels in
+``ops/roi_align_kernel.py`` and the CPU path of their wrappers. Features are
+NCHW per level; the output is (B, R, ph, pw, C), channels last, as the JAX
+package gives it, so that the box head flattens it in the same (h, w, c)
+order.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -64,6 +71,27 @@ def _axis_weights(lo_coord: torch.Tensor, bin_size: torch.Tensor, pool_dim: int,
     return w.sum(-2) * mask[..., None, None]  # (..., P, size)
 
 
+def _level_weights(rois: torch.Tensor, levels: torch.Tensor, level: int, stride: int,
+                   size: Tuple[int, int], output_size: Tuple[int, int],
+                   sampling_ratio: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``Py`` (B, R, ph, H) and ``Px`` (B, R, pw, W) of one level, zero for
+    the RoIs of other levels."""
+    (H, W), (ph, pw) = size, output_size
+    scale = 1.0 / stride
+    x1 = rois[..., 0] * scale - 0.5  # aligned: half-pixel shift
+    y1 = rois[..., 1] * scale - 0.5
+    x2 = rois[..., 2] * scale - 0.5
+    y2 = rois[..., 3] * scale - 0.5
+    mask = (levels == level).to(torch.float32)
+    # divisors as tensors: PyTorch multiplies a CUDA tensor by the
+    # reciprocal of a Python-number divisor, an ulp off IEEE division
+    # (the kernel's), and at P2's coordinates an ulp is 3e-5 px
+    bin_h = (y2 - y1) / torch.tensor(float(ph), device=rois.device)
+    bin_w = (x2 - x1) / torch.tensor(float(pw), device=rois.device)
+    return (_axis_weights(y1, bin_h, ph, sampling_ratio, H, mask),
+            _axis_weights(x1, bin_w, pw, sampling_ratio, W, mask))
+
+
 def multilevel_roi_align_plain(
     features: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -76,24 +104,11 @@ def multilevel_roi_align_plain(
     coordinates, levels (B, R) 0-based level ids → (B, R, ph, pw, C) f32.
     ``multilevel_roi_align_plain.calls`` counts its calls."""
     multilevel_roi_align_plain.calls += 1
-    ph, pw = output_size
     out = None
     with full_f32():
         for li, (feat, stride) in enumerate(zip(features, strides)):
-            B, C, H, W = feat.shape
-            scale = 1.0 / stride
-            x1 = rois[..., 0] * scale - 0.5  # aligned: half-pixel shift
-            y1 = rois[..., 1] * scale - 0.5
-            x2 = rois[..., 2] * scale - 0.5
-            y2 = rois[..., 3] * scale - 0.5
-            mask = (levels == li).to(torch.float32)
-            # divisors as tensors: PyTorch multiplies a CUDA tensor by the
-            # reciprocal of a Python-number divisor, an ulp off IEEE division
-            # (the kernel's), and at P2's coordinates an ulp is 3e-5 px
-            bin_h = (y2 - y1) / torch.tensor(float(ph), device=rois.device)
-            bin_w = (x2 - x1) / torch.tensor(float(pw), device=rois.device)
-            py = _axis_weights(y1, bin_h, ph, sampling_ratio, H, mask)  # (B, R, ph, H)
-            px = _axis_weights(x1, bin_w, pw, sampling_ratio, W, mask)  # (B, R, pw, W)
+            py, px = _level_weights(rois, levels, li, stride, feat.shape[-2:], output_size,
+                                    sampling_ratio)
             t = torch.einsum("briy,bcyx->brixc", py, feat.float())
             o = torch.einsum("brjx,brixc->brijc", px, t)
             out = o if out is None else out + o
@@ -101,3 +116,31 @@ def multilevel_roi_align_plain(
 
 
 multilevel_roi_align_plain.calls = 0
+
+
+def multilevel_roi_align_backward_plain(
+    grad: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    strides: Sequence[int],
+    sizes: Sequence[Tuple[int, int]],
+    sampling_ratio: int = 2,
+) -> List[torch.Tensor]:
+    """The gradient of :func:`multilevel_roi_align_plain` in its features:
+    grad (B, R, ph, pw, C) f32 and the forward's rois, levels and strides,
+    with ``sizes`` the (H_l, W_l) per level → dF per level (B, C, H_l, W_l)
+    f32, zero where no RoI of the level lands.
+    ``multilevel_roi_align_backward_plain.calls`` counts its calls."""
+    multilevel_roi_align_backward_plain.calls += 1
+    output_size = tuple(grad.shape[2:4])
+    out = []
+    with full_f32():
+        for li, (size, stride) in enumerate(zip(sizes, strides)):
+            py, px = _level_weights(rois, levels, li, stride, tuple(size), output_size,
+                                    sampling_ratio)
+            t = torch.einsum("brjx,brijc->brixc", px, grad.float())
+            out.append(torch.einsum("briy,brixc->bcyx", py, t))
+    return out
+
+
+multilevel_roi_align_backward_plain.calls = 0

@@ -1,4 +1,4 @@
-from .build import Solver, YOLOXSolver
-from .schedules import yolox_cosine_lr
+from .build import DefaultSolver, DetSolver, Solver, YOLOXSolver
+from .schedules import multistep_lr, yolox_cosine_lr
 
-__all__ = ["Solver", "YOLOXSolver", "yolox_cosine_lr"]
+__all__ = ["DefaultSolver", "DetSolver", "Solver", "YOLOXSolver", "multistep_lr", "yolox_cosine_lr"]

@@ -6,18 +6,24 @@
 Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
-     (TF32 off) by themselves, and phases 5, 8 and 13 hold them to the CPU;
-  2. build the three kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
-     csrc/matching.cu and csrc/roi_align.cu, with their ptxas reports;
+     (TF32 off) by themselves, and phases 7, 8, 12 and 12b hold them to the CPU;
+  2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
+     csrc/matching.cu and csrc/roi_align.cu (RoIAlign's forward and backward
+     in one library), with their ptxas reports;
   3. hold the NMS kernel to its plain PyTorch version on the card, exactly,
-     on random batches at the YOLOX eval shape, at Faster R-CNN's two shapes
-     (RPN, K = 4819, and the final class-aware NMS, K = 2000) and on edge
-     cases; time both;
+     on random batches at the YOLOX eval shape, at Faster R-CNN's three
+     shapes (the RPN's at eval, K = 4819, and at training, B = 2 and
+     K = 8819, and the final class-aware NMS, K = 2000) and on edge cases;
+     time both;
   4. the same for the SimOTA matching kernel, at the train slice's shape
      (8, 100, 8400) and on edge cases and one 832x832 case;
   4b. hold the RoIAlign kernel to its plain version within 1e-5 of
      max(1, max|F|), at Faster R-CNN's eval shape (B = 1 and 2, R = 1000,
      C = 256, the levels of an 800x1344 input) and on edge cases; time both;
+  4c. hold the RoIAlign backward kernel to its plain version within 2e-5 of
+     max(1, max|dF|) (ROI_BWD_RTOL says why not 1e-5), at Faster R-CNN's train shape (B = 2, R = 512, C = 256)
+     on proposal-like RoIs, on edge cases and on 512 identical RoIs (the most
+     contended atomics); time both;
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
@@ -37,14 +43,24 @@ Run from the root of the repository. Phases, each of which raises on failure:
      at both batch sizes, kernel tables written to DIR, busy time and idle
      share;
  11. Faster R-CNN R50-FPN (full width, random weights from a seed with the
-     frozen BN statistics, affine and biases spread) through det_test over 8
-     requests of one 800x1333 image; check the RoIAlign kernel ran 8 times
-     and the NMS kernel 16, their plain versions never, and RoIs landed on
-     every level P2-P5;
+     frozen BN statistics, affine and biases spread) through det_train:
+     batch 2 of 800x1333, 4 steps; check that per step the RoIAlign forward
+     kernel, its backward kernel and the NMS kernel each ran once and the
+     plain versions never, that the losses are finite and that the sampled
+     RoIs landed on every level P2-P5; then det_test on its dumped weights
+     over 8 requests of one 800x1333 image: the RoIAlign kernel 8 times, the
+     NMS kernel 16, their plain versions never, proposals on every level;
  12. hold its card inference to a CPU run of the same weights and image:
      proposals and detections slot by slot;
+ 12b. hold one train step on the card to one on the CPU, same weights, batch
+     and sampling noise (drawn once, copied): the RPN labels and losses
+     directly, and the R-CNN stages, the total's gradient norm included, on
+     the CPU run's proposals (a few proposal slots differ between the
+     devices, after which the two would sample other RoIs);
  13. time its inference at batch 1 and batch 8, split into backbone+FPN,
      RPN+proposals, RoIAlign, box head and post-process, with peak memory;
+     and one train step at batch 2, split by the module's stage methods,
+     with the RoIAlign backward's own time, images/s and peak memory;
  14. print the kernel report, the card, and the result line.
 """
 import argparse
@@ -67,6 +83,17 @@ FRCNN_CONFIG = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 FRCNN_IMAGE = (800, 1333)  # padded to 800x1344: P2 200x336 ... P6 13x21
 FRCNN_RPN_K, FRCNN_RPN_T = 1000 * 4 + 13 * 21 * 3, 0.7  # 4 levels x top-1000 + all of P6
 FRCNN_FINAL_K, FRCNN_FINAL_T = 2000, 0.5
+FRCNN_TRAIN_B, FRCNN_TRAIN_R = 2, 512  # MODEL.BATCHSIZE, RCNN.NUM_ROIS
+FRCNN_TRAIN_RPN_K = 2000 * 4 + 13 * 21 * 3  # 4 levels x TRAIN_PREV_NMS_TOPK + all of P6
+FRCNN_ANCHORS = 3 * (200 * 336 + 100 * 168 + 50 * 84 + 25 * 42 + 13 * 21)  # 268,569 at 800x1344
+FRCNN_CANDIDATES = 1000 + 100  # TRAIN_POST_NMS_TOPK proposals + MAX_INSTANCES gt rows
+RPN_LABEL_AGREE = 0.999
+# RoIAlign backward against its plain version, as a share of max(1, max|dF|). 1e-5 holds where a
+# pixel sums a few hundred terms; the proposal-like case's 102 zero-area padding RoIs all land on
+# P2's corner pixel, which sums ~5,000 terms to |dF| ~ 195: there the kernel measured 5.4e-6 off the
+# plain version and 2.3e-6 off its own second run (the atomics' order), too close to 1e-5 to hold
+# on every run (NVIDIA H100 80GB HBM3, 700.00 W)
+ROI_BWD_RTOL = 2e-5
 ROI_R, ROI_C, ROI_STRIDES = 1000, 256, (4, 8, 16, 32)
 ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
 FRCNN_ATOL, FRCNN_AGREE = 1e-3, 0.95
@@ -169,7 +196,8 @@ def _kernel_cases():
         boxes = _random_boxes(rng, SLICE_B, SLICE_K, clustered=seed % 2 == 1)
         cases.append((f"slice seed{seed}", boxes, rng.uniform(size=(SLICE_B, SLICE_K)) > 0.1, SLICE_T))
     cases.append(("K=1037", _random_boxes(rng, 3, 1037, True), rng.uniform(size=(3, 1037)) > 0.3, 0.5))
-    for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T)):
+    for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T),
+                       ("frcnn rpn train", FRCNN_TRAIN_RPN_K, FRCNN_RPN_T)):
         cases.append((name, _random_boxes(rng, 2, K, True), rng.uniform(size=(2, K)) > 0.05, t))
     cases.append(("K=1", _random_boxes(rng, 2, 1, False), np.ones((2, 1), bool), SLICE_T))
     cases.append(("all invalid", _random_boxes(rng, 2, 500, True), np.zeros((2, 500), bool), SLICE_T))
@@ -226,14 +254,16 @@ def phase_kernel(card):
         f"kept per image {min(kept)}-{max(kept)} of {SLICE_K}): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per call, bound {bound_ms:.6f} ms "
         f"({bound_by}) | {card}")
-    for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T)):
-        b = torch.from_numpy(_random_boxes(rng, 1, K, True)).cuda()
-        v = torch.ones(1, K, dtype=torch.bool, device="cuda")
+    for name, B, K, t in (("frcnn rpn", 1, FRCNN_RPN_K, FRCNN_RPN_T),
+                          ("frcnn final", 1, FRCNN_FINAL_K, FRCNN_FINAL_T),
+                          ("frcnn rpn train", FRCNN_TRAIN_B, FRCNN_TRAIN_RPN_K, FRCNN_RPN_T)):
+        b = torch.from_numpy(_random_boxes(rng, B, K, True)).cuda()
+        v = torch.ones(B, K, dtype=torch.bool, device="cuda")
         k_ms = cuda_ms(lambda: nms_keep(b, v, t), reps=50, warmup=5)
         p_ms = cuda_ms(lambda: nms_keep_plain(b, v, t), reps=2, warmup=1)
         keep = nms_keep(b, v, t)
         k_bound, k_by = nms_bound(v, keep)
-        log(f"[kernel] {name} B=1 K={K} t={t} (clustered, {int(keep.sum())} kept): kernel "
+        log(f"[kernel] {name} B={B} K={K} t={t} (clustered, {int(keep.sum())} kept): kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.3f} ms per call, bound {k_bound:.6f} ms ({k_by}) | {card}")
     return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
@@ -764,6 +794,78 @@ def phase_roi_align(card):
                 library_ms=None)
 
 
+def roi_align_bwd_bound(grad, sizes):
+    """The RoIAlign backward's bound: g, the rois and the level ids read
+    once, every level's dF written once; per element of g, 4 samples' weights
+    (4 multiplies) and 16 taps x (1 multiply + 1 add) in f32."""
+    B, R = grad.shape[:2]
+    d_bytes = sum(B * h * w * grad.shape[-1] * 4 for h, w in sizes)
+    t = bound(grad.numel() * 4 + d_bytes + B * R * 20, grad.numel() * (16 * 2 + 4))
+    return (*t, d_bytes)
+
+
+def _check_roi_align_bwd(name, grad, rois):
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    levels = roi_level_assignment(rois, 2, 5)
+    got = multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    torch.cuda.synchronize()
+    want = multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    again = multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rerun = max(float((g - a).abs().max()) for g, a in zip(got, again))
+    biggest = max(float(w.abs().max()) for w in want)
+    tol = ROI_BWD_RTOL * max(1.0, biggest)
+    per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f"[roi-bwd] {name:16s} B={rois.shape[0]} R={rois.shape[1]} C={grad.shape[-1]}, RoIs per level "
+        f"P2-P5 {per_level}: max |kernel - plain| {err:.3e} (tol {tol:.3e}, max |dF| {biggest:.3e}); "
+        f"two runs of the kernel differ by {rerun:.3e} (the atomics' order)")
+    check(all(g.shape == w.shape for g, w in zip(got, want)), "RoIAlign backward: wrong dF shapes")
+    check(err <= tol, f"RoIAlign backward kernel differs from its plain version by {err} on case {name!r}")
+    return err
+
+
+def phase_roi_align_bwd(card):
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    rng, gen = np.random.RandomState(SEED + 2), torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, R = FRCNN_TRAIN_B, FRCNN_TRAIN_R
+
+    def grad_like(rois):
+        return torch.randn(*rois.shape[:2], 7, 7, ROI_C, device="cuda", generator=gen)
+
+    spread_rois = torch.from_numpy(_proposal_rois(rng, B, R)).cuda()
+    same_rois = torch.from_numpy(np.broadcast_to(np.float32([301.3, 211.7, 642.9, 505.1]), (B, R, 4)).copy()).cuda()
+    edge_rois = torch.from_numpy(_edge_rois()).cuda()
+    worst = 0.0
+    for name, rois in (("proposal-like", spread_rois), ("edges", edge_rois), ("identical RoIs", same_rois)):
+        worst = max(worst, _check_roi_align_bwd(name, grad_like(rois), rois))
+    worst = max(worst, _check_roi_align_bwd("edges |g|~1e3", grad_like(edge_rois) * 1000.0, edge_rois))
+
+    times = {}
+    for name, rois in (("proposal-like", spread_rois), ("identical RoIs", same_rois)):
+        grad, levels = grad_like(rois), roi_level_assignment(rois, 2, 5)
+        ms = cuda_ms(lambda: multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS),
+                     reps=30, warmup=5)
+        plain_ms = cuda_ms(lambda: multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS),
+                           reps=3, warmup=1)
+        times[name] = (ms, plain_ms)
+    zero_ms = cuda_ms(lambda: torch.zeros(sum(B * h * w * ROI_C for h, w in ROI_LEVELS), device="cuda"),
+                      reps=30, warmup=5)
+    grad = grad_like(spread_rois)
+    bound_ms, bound_by, d_bytes = roi_align_bwd_bound(grad, ROI_LEVELS)
+    ms, plain_ms = times["proposal-like"]
+    log(f"[roi-bwd] B={B} R={R} C={ROI_C} levels {ROI_LEVELS}: wrapper {ms:.4f} ms per call on "
+        f"proposal-like RoIs (of which the zero-fill of dF alone {zero_ms:.4f} ms), plain {plain_ms:.3f} ms; "
+        f"on {R} identical RoIs {times['identical RoIs'][0]:.4f} ms, plain {times['identical RoIs'][1]:.3f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {grad.numel() * 4 / 1e6:.1f} MB of g read, "
+        f"{d_bytes / 1e6:.1f} MB of dF written) | {card}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 @torch.no_grad()
 def randomise_frcnn(module, generator):
     """Draw the frozen BN statistics and affine and every conv and fc bias
@@ -814,6 +916,76 @@ def _frcnn_opts(out_dir):
             "GLOBAL.OUTPUT_DIR", out_dir]
 
 
+def _frcnn_train_opts(out_dir, weights):
+    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "MODEL.BATCHSIZE", str(FRCNN_TRAIN_B), "SOLVER.MAX_EPOCH", "1",
+            "SOLVER.NUM_IMAGE_PER_EPOCH", str(4 * FRCNN_TRAIN_B), "GLOBAL.LOG_INTERVAL", "1",
+            "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR", out_dir,
+            "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "frcnn_ckpt")]
+
+
+def phase_frcnn_train(out_dir, weights):
+    """det_train on full-width Faster R-CNN, 4 steps of 2 images of 800x1333;
+    the RoIAlign (forward and backward) and NMS counts are zeroed just before
+    and read just after."""
+    from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNN, FasterRCNNModule
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from basedet_tpu_torch.ops.roi_align import (multilevel_roi_align_backward_plain,
+                                                 multilevel_roi_align_plain, roi_level_assignment)
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align, multilevel_roi_align_backward
+    from basedet_tpu_torch.tools import det_train
+
+    def sampled(args, out):  # per step: foreground, background, sampled RoIs per level P2-P5
+        rois, labels, _, weights = out
+        levels = roi_level_assignment(rois, 2, 5)
+        return (int((labels > 0).sum()), int((labels == 0).sum()),
+                torch.bincount(levels[weights > 0].long(), minlength=4).tolist())
+
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    kernels = (multilevel_roi_align, multilevel_roi_align_backward, nms_keep)
+    plains = (multilevel_roi_align_plain, multilevel_roi_align_backward_plain, nms_keep_plain)
+    with recording(FasterRCNNModule, "sample", sampled) as samples, \
+            recording(FasterRCNN, "get_losses", keep_losses) as losses, nms_counts() as seen:
+        for fn in kernels:
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", FRCNN_CONFIG, "--device", "cuda", *_frcnn_train_opts(out_dir, weights)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [fn.launches for fn in kernels]
+        plain_calls = [fn.calls for fn in plains]
+
+    steps = trainer.state.step
+    ckpt = os.path.join(out_dir, "frcnn_ckpt")
+    per_level = np.sum([s[2] for s in samples], axis=0).tolist()
+    check(steps == 4 and len(losses) == 4, f"Faster R-CNN det_train took {steps} steps, not 4")
+    check(launches == [steps] * 3, f"RoIAlign forward, backward and NMS kernels launched {launches} "
+                                   f"times in {steps} steps")
+    check(plain_calls == [0, 0, 0], f"plain versions ran {plain_calls} times on the main path")
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
+    check(all(len(step) == 5 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
+    # the synthetic gt boxes reach P3 and P4 (sqrt(area) up to ~410 px) and an untrained RPN's best
+    # 1000 of 8819 candidates are mostly P2's: mixed levels in each launch, not every level
+    check(sum(n > 0 for n in per_level) >= 3, f"sampled RoIs per level P2-P5 {per_level}: fewer than 3 levels")
+    check(all(fg > 0 and bg > 0 for fg, bg, _ in samples), f"a step sampled no foreground or background: {samples}")
+    check(len(seen) == steps and all(len(call) == FRCNN_TRAIN_B for call in seen),
+          f"NMS saw {[len(call) for call in seen]} images per call, not {FRCNN_TRAIN_B} in each of {steps}")
+    for name in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, name)), f"Faster R-CNN det_train wrote no {name}")
+    per_step = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items())
+                         for step in losses)
+    log(f"[frcnn-train] det_train Faster R-CNN R50-FPN, 4 steps of {FRCNN_TRAIN_B} images "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} (padded 800x1344), f32, in {seconds:.2f} s; kernel launches: "
+        f"RoIAlign forward {launches[0]}, RoIAlign backward {launches[1]}, NMS {launches[2]}; plain calls "
+        f"{plain_calls}; lr {trainer.meters['lr'].latest:.4g} (step 3 of the 500-step warm-up); losses per "
+        f"step: {per_step}; sampled per step (foreground, background of {FRCNN_TRAIN_B * FRCNN_TRAIN_R} "
+        f"rows): {[s[:2] for s in samples]}; sampled RoIs per level P2-P5 over the 4 steps {per_level}; "
+        f"RPN NMS kept per image {_kept_range(seen)}; checkpoints latest.pt, epoch_1.pt, dumped_model.pt written")
+    return launches, os.path.join(ckpt, "dumped_model.pt")
+
+
 def phase_frcnn_slice(out_dir, weights):
     """det_test on full-width Faster R-CNN over 8 requests; the RoIAlign and
     NMS counts are zeroed just before and read just after."""
@@ -853,7 +1025,7 @@ def phase_frcnn_slice(out_dir, weights):
     check(nms_plain == 0, f"the plain NMS ran {nms_plain} times on the main path")
     check(all(n > 0 for n in per_level), f"RoIs per level P2-P5 {per_level}: a level got none")
     rpn, final = seen[0::2], seen[1::2]
-    log(f"[frcnn] det_test Faster R-CNN R50-FPN on 8 requests of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
+    log(f"[frcnn] det_test Faster R-CNN R50-FPN with {os.path.basename(weights)} on 8 requests of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
         f"(padded 800x1344): {results}, {len(records)} finite detections in {seconds:.2f} s; "
         f"RoIAlign kernel launches {roi_launches}, plain calls {roi_plain}; NMS kernel launches "
         f"{nms_launches}, plain calls {nms_plain}; RPN NMS kept per image {_kept_range(rpn)}, final "
@@ -916,6 +1088,164 @@ def phase_frcnn_card_vs_cpu(cfg, model, weights):
     check(det_frac >= FRCNN_AGREE, f"only {det_frac:.3f} of the CPU's detections matched on the card")
 
 
+def _frcnn_train_setup(weights, device):
+    """Full-width Faster R-CNN in train mode with ``weights``, its train
+    state and step, and the first synthetic batch of 2 images of 800x1333."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.solver import DetSolver
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(FRCNN_CONFIG)
+    cfg.merge(_frcnn_train_opts(".", weights))
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    model.train()
+    solver = DetSolver.build(cfg)
+    state = TrainState(model, solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def _frcnn_train_stages(model, batch, noise, proposals=None):
+    """One train forward and backward through the module's stage methods,
+    with ``proposals`` (boxes, valid) from another run in place of its own
+    when given. Returns the RPN labels, its own proposals, the sampled
+    labels, the four losses and the total's gradient norm, on the CPU."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    m = model.module
+    noise = {k: v.to(model.device) for k, v in noise.items()}
+    with full_f32():
+        x = model.pre_process(batch, train=True)
+        num_gt = x["img_info"][:, 4].long()
+        feats = m.features(x["image"])
+        rpn_out = m.rpn_head(feats)
+        labels, offsets = m.rpn_targets(feats, x["gt_boxes"], num_gt, noise["rpn_pos"], noise["rpn_neg"])
+        rpn_cls, rpn_reg = m.rpn_loss(rpn_out, labels, offsets)
+        own = m.proposals(feats, x["img_info"], train=True, rpn_out=rpn_out)
+        boxes, valid = own if proposals is None else (t.to(model.device) for t in proposals)
+        rois, roi_labels, targets, weights = m.sample(
+            boxes, valid, x["gt_boxes"], num_gt, noise["rcnn_fg"], noise["rcnn_bg"], noise["rcnn_tie"])
+        rcnn_cls, rcnn_reg = m.head_losses(m.pool(feats, rois), roi_labels, targets, weights)
+        m.zero_grad(set_to_none=True)
+        (rpn_cls + rpn_reg + rcnn_cls + rcnn_reg).backward()
+    norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in m.parameters() if p.grad is not None)))
+    losses = {k: float(v.detach()) for k, v in
+              dict(rpn_cls=rpn_cls, rpn_reg=rpn_reg, rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg).items()}
+    return dict(rpn_labels=labels.cpu(), proposals=tuple(t.cpu() for t in own), roi_labels=roi_labels.cpu(),
+                losses=losses, grad_norm=norm)
+
+
+def phase_frcnn_train_vs_cpu(weights):
+    """One Faster R-CNN train step on the CPU and on the card: same weights,
+    batch and noise (a CPU and a CUDA generator give different streams, so it
+    is drawn once on the CPU and copied). The card's R-CNN stages run on the
+    CPU run's proposals."""
+    from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
+
+    noise = draw_sampling_noise(42, 0, FRCNN_TRAIN_B, FRCNN_ANCHORS, FRCNN_CANDIDATES, "cpu")
+    model, _, _, batch = _frcnn_train_setup(weights, "cpu")
+    t0 = time.perf_counter()
+    cpu = _frcnn_train_stages(model, batch, noise)
+    cpu_s = time.perf_counter() - t0
+    model = _frcnn_train_setup(weights, "cuda")[0]
+    gpu = _frcnn_train_stages(model, batch, noise, proposals=cpu["proposals"])
+
+    agree = float((gpu["rpn_labels"] == cpu["rpn_labels"]).float().mean())
+    prop_frac, prop_err = _slot_agreement(*cpu["proposals"], *gpu["proposals"])
+    same_rois = bool((gpu["roi_labels"] == cpu["roi_labels"]).all())
+    rel = {k: abs(gpu["losses"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["losses"].items()}
+    norm_rel = abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    labels = cpu["rpn_labels"]
+    log(f"[parity] Faster R-CNN train step card vs CPU, f32, batch {FRCNN_TRAIN_B} of "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} (CPU run {cpu_s:.1f} s, plain RoIAlign forward and backward), "
+        f"same noise: RPN labels agree on {agree:.6f} of {labels.numel()} anchors (min {RPN_LABEL_AGREE}; CPU "
+        f"{int((labels == 1).sum())} positives, {int((labels == 0).sum())} negatives sampled); the card's own "
+        f"train proposals match {prop_frac:.4f} of the CPU's slots (max |dbox| {prop_err:.3e}); on the CPU's "
+        f"proposals: sampled labels equal {same_rois} ({int((cpu['roi_labels'] > 0).sum())} foreground, "
+        f"{int((cpu['roi_labels'] == 0).sum())} background); losses card "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in gpu['losses'].items())} / CPU "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in cpu['losses'].items())}, worst rel diff "
+        f"{max(rel.values()):.3e} (tol {LOSS_RTOL}); gradient norm {gpu['grad_norm']:.6f} card / "
+        f"{cpu['grad_norm']:.6f} CPU, rel diff {norm_rel:.3e} (tol {GRAD_NORM_RTOL})")
+    check(all(math.isfinite(v) for v in gpu["losses"].values()), "non-finite Faster R-CNN losses on the card")
+    check(agree >= RPN_LABEL_AGREE, f"only {agree:.6f} of the RPN labels agree between card and CPU")
+    check(same_rois, "the sampled RoI labels differ between card and CPU on the same proposals and noise")
+    check(max(rel.values()) <= LOSS_RTOL, f"Faster R-CNN train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"Faster R-CNN gradient norms differ by {norm_rel:.3e}")
+
+
+def phase_frcnn_train_timing(weights, card):
+    """One f32 Faster R-CNN train step at batch 2 of 800x1333 (input already
+    on the card): the stage methods each timed alone on the previous stage's
+    outputs, gradients enabled; get_losses, get_losses with backward and the
+    whole step as nested prefixes; and the RoIAlign backward alone on the
+    arguments a real backward gave it."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
+    from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNNModule
+    from basedet_tpu_torch.ops.roi_align import roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    model, state, step, batch = _frcnn_train_setup(weights, "cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    noise = draw_sampling_noise(42, 0, FRCNN_TRAIN_B, FRCNN_ANCHORS, FRCNN_CANDIDATES, "cuda")
+    m, reps = model.module, 10
+
+    def timed(fn):
+        def run():
+            with full_f32():
+                return fn()
+        return cuda_ms(run, reps=reps, warmup=2), run()
+
+    x = model.pre_process(batch, train=True)
+    image, info, gt = x["image"], x["img_info"], x["gt_boxes"]
+    num_gt = info[:, 4].long()
+    t_feat, feats = timed(lambda: m.features(image))
+    t_rpn, rpn_out = timed(lambda: m.rpn_head(feats))
+    t_targets, _ = timed(lambda: m.rpn_loss(rpn_out, *m.rpn_targets(feats, gt, num_gt, noise["rpn_pos"],
+                                                                       noise["rpn_neg"])))
+    t_prop, (proposals, valid) = timed(lambda: m.proposals(feats, info, train=True, rpn_out=rpn_out))
+    t_sample, (rois, roi_labels, targets, weights) = timed(lambda: m.sample(
+        proposals, valid, gt, num_gt, noise["rcnn_fg"], noise["rcnn_bg"], noise["rcnn_tie"]))
+    t_pool, pooled = timed(lambda: m.pool(feats, rois))
+    t_head, _ = timed(lambda: m.head_losses(pooled, roi_labels, targets, weights))
+    del feats, rpn_out, pooled
+
+    def losses_backward():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch, noise=noise)[0].backward()
+
+    t_loss, _ = timed(lambda: model.get_losses(batch, noise=noise)[0])
+    t_fb, _ = timed(losses_backward)
+    # the gradient that reaches the pooled features in a real backward, and its RoIs
+    grads = []
+    with recording(FasterRCNNModule, "pool", lambda args, out: (out.register_hook(grads.append), args[2])[1]) as pooled_rois, \
+            full_f32():
+        losses_backward()
+    g, rois = grads[-1].contiguous(), pooled_rois[-1]
+    levels = roi_level_assignment(rois, 2, 5)
+    t_roi_bwd = cuda_ms(lambda: multilevel_roi_align_backward(g, rois, levels, ROI_STRIDES, ROI_LEVELS),
+                        reps=30, warmup=3)
+    launches = multilevel_roi_align_backward.launches
+    torch.cuda.reset_peak_memory_stats()
+    t_step = cuda_ms(lambda: step(state, batch), reps=reps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    check(multilevel_roi_align_backward.launches > launches,
+          "Faster R-CNN train timing ran no RoIAlign backward kernel")
+    nonzero = float((g != 0).float().mean())
+    log(f"[timing] Faster R-CNN R50-FPN f32 train step, batch {FRCNN_TRAIN_B} of "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: {t_step:.3f} ms per step ({1000 * FRCNN_TRAIN_B / t_step:.2f} "
+        f"img/s); stages each alone, gradients enabled: backbone+FPN {t_feat:.3f}, RPN head {t_rpn:.3f}, "
+        f"RPN targets+losses {t_targets:.3f}, proposals {t_prop:.3f}, sampling {t_sample:.3f}, RoIAlign "
+        f"{t_pool:.3f}, box head+losses {t_head:.3f} ms; get_losses {t_loss:.3f} ms, backward "
+        f"{t_fb - t_loss:.3f} ms (of which the RoIAlign backward {t_roi_bwd:.3f} ms, timed alone on the "
+        f"step's own g, {nonzero:.3f} of it nonzero), SGD {t_step - t_fb:.3f} ms (differences of means "
+        f"of {reps} runs of nested prefixes); peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
+
+
 def phase_frcnn_timing(model, card):
     """Faster R-CNN f32 inference at batch 1 and 8 of 800x1333, input on the
     card: the whole request and its stages, each timed alone on the previous
@@ -960,6 +1290,7 @@ def main():
     kernel = phase_kernel(card)
     matching = phase_matching(card)
     roi = phase_roi_align(card)
+    roi_bwd = phase_roi_align_bwd(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg, model, weights = make_weights(out_dir)
         match_launches, dumped = phase_train(out_dir, weights)
@@ -968,18 +1299,23 @@ def main():
         phase_train_vs_cpu(weights)
         phase_train_timing(weights, card)
         frcnn_cfg, frcnn, frcnn_weights = make_frcnn_weights(out_dir)
-        roi_launches, frcnn_nms_launches = phase_frcnn_slice(out_dir, frcnn_weights)
+        (train_roi, train_roi_bwd, train_nms), frcnn_dumped = phase_frcnn_train(out_dir, frcnn_weights)
+        roi_launches, frcnn_nms_launches = phase_frcnn_slice(out_dir, frcnn_dumped)
         phase_frcnn_card_vs_cpu(frcnn_cfg, frcnn, frcnn_weights)
+        phase_frcnn_train_vs_cpu(frcnn_weights)
+        phase_frcnn_train_timing(frcnn_weights, card)
     totals = phase_timing(model, card)
     if args.profile:
         phase_profile(model, card, args.profile, totals)
     phase_frcnn_timing(frcnn, card)
-    log(f"[report] nms_keep launches: {launches} on YOLOX-S det_test + {frcnn_nms_launches} on "
-        f"Faster R-CNN det_test")
+    log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {train_nms} on "
+        f"Faster R-CNN det_train + {frcnn_nms_launches} on its det_test; multilevel_roi_align {train_roi} "
+        f"on det_train + {roi_launches} on det_test")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
-        "replaces": "basedet_tpu/ops/nms_pallas.py:26", "launches": launches + frcnn_nms_launches,
+        "replaces": "basedet_tpu/ops/nms_pallas.py:26",
+        "launches": launches + train_nms + frcnn_nms_launches,
         **{k: kernel[k] for k in keys},
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
@@ -987,8 +1323,13 @@ def main():
         **{k: matching[k] for k in keys},
     }, {
         "name": "multilevel_roi_align", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
-        "replaces": "basedet_tpu/ops/roi_align_window.py:257", "launches": roi_launches,
-        **{k: roi[k] for k in keys},
+        "replaces": "basedet_tpu/ops/roi_align_window.py:257 and basedet_tpu/ops/roi_align_pallas.py:54",
+        "launches": train_roi + roi_launches, **{k: roi[k] for k in keys},
+    }, {
+        "name": "multilevel_roi_align_backward", "route": "cuda",
+        "source": "basedet_tpu_torch/csrc/roi_align.cu",
+        "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94",
+        "launches": train_roi_bwd, **{k: roi_bwd[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

@@ -1,6 +1,7 @@
-"""``det_train`` of the port end to end on the CPU, at a tiny size: tiny
-YOLOX-S (width 0.25) on synthetic 96² batches of 2, multiscale live (64-128),
-two epochs of two steps; then ``det_test`` on what it wrote."""
+"""``det_train`` of the port end to end on the CPU, at a tiny size, then
+``det_test`` on what it wrote: tiny YOLOX-S (width 0.25) on synthetic 96²
+batches of 2, multiscale live (64-128), two epochs of two steps; and tiny
+Faster R-CNN (as tests/tiny.py shrinks it) on 128x192 batches of 2, likewise."""
 import json
 import math
 
@@ -9,6 +10,7 @@ import torch
 from basedet_tpu_torch.tools import det_test, det_train
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
+FRCNN_CONFIG = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 
 
 def _opts(out):
@@ -49,3 +51,50 @@ def test_det_train_then_det_test_on_cpu(tmp_path):
     # no -w: the checkpoint last_checkpoint names, its live then its EMA weights
     assert det_test.main(["-f", CONFIG, "--eval-ema", "--device", "cpu",
                           *_opts(tmp_path)])["num_detections"] > 0
+
+
+def frcnn_opts(out):
+    """Tiny Faster R-CNN; score threshold 0 so that a barely trained head's
+    ~1/81 class scores give detections."""
+    return ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64",
+            "MODEL.RPN.TRAIN_PREV_NMS_TOPK", "200", "MODEL.RPN.TRAIN_POST_NMS_TOPK", "100",
+            "MODEL.RPN.TEST_PREV_NMS_TOPK", "200", "MODEL.RPN.TEST_POST_NMS_TOPK", "100",
+            "MODEL.RCNN.NUM_ROIS", "64", "MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8",
+            "DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", "(128,192)",
+            "TEST.CLS_THRESHOLD", "0.0", "SOLVER.MAX_EPOCH", "2", "SOLVER.NUM_IMAGE_PER_EPOCH", "4",
+            "GLOBAL.LOG_INTERVAL", "1", "GLOBAL.OUTPUT_DIR", str(out),
+            "GLOBAL.CKPT_SAVE_DIR", str(out / "ckpt")]
+
+
+def test_faster_rcnn_det_train_then_det_test_on_cpu(tmp_path):
+    trainer = det_train.main(["-f", FRCNN_CONFIG, "--device", "cpu", *frcnn_opts(tmp_path)])
+    assert trainer.state.step == 4 and trainer.progress.current_iter == 4
+    for k in ("total_loss", "rpn_cls_loss", "rpn_reg_loss", "rcnn_cls_loss", "rcnn_reg_loss"):
+        assert math.isfinite(trainer.meters[k].latest) and trainer.meters[k].latest > 0, k
+    # step 3 of a 500-step linear warm-up from 0.001 of BASIC_LR x BATCHSIZE
+    base = trainer.solver.base_lr
+    assert base == 0.02 / 16 * 2
+    assert abs(trainer.meters["lr"].latest - base * (0.001 + 0.999 * 3 / 500)) <= 1e-12
+    assert not trainer.ema_enabled and trainer.state.ema_params is None
+    # FrozenBN and the frozen stages stay as built; the rest moved
+    module = trainer.model.module
+    assert not module.bottom_up.conv1.weight.requires_grad
+    assert module.rcnn.fc1.weight.grad is not None and module.bottom_up.conv1.weight.grad is None
+
+    ckpt_dir = tmp_path / "ckpt"
+    assert (ckpt_dir / "last_checkpoint").read_text() == "epoch_2.pt"
+    ckpt = torch.load(ckpt_dir / "latest.pt", weights_only=True)
+    assert ckpt["step"] == 4 and ckpt["ema"] is None
+    dumped = torch.load(ckpt_dir / "dumped_model.pt", weights_only=True)
+    live = module.state_dict()
+    assert dumped.keys() == live.keys()
+    for k, v in dumped.items():
+        assert torch.equal(v, live[k]), k
+
+    results = det_test.main(["-f", FRCNN_CONFIG, "-w", str(ckpt_dir / "dumped_model.pt"),
+                             "--device", "cpu", *frcnn_opts(tmp_path)])
+    records = json.loads((tmp_path / "predict_coco.json").read_text())
+    assert results["num_detections"] == len(records) > 0
+    assert {r["image_id"] for r in records} == set(range(8))
+    # no -w: the checkpoint that last_checkpoint names
+    assert det_test.main(["-f", FRCNN_CONFIG, "--device", "cpu", *frcnn_opts(tmp_path)])["num_detections"] > 0

@@ -1,5 +1,5 @@
 """The port's Faster R-CNN inference (basedet_tpu_torch) against the JAX
-package on the CPU.
+package on the CPU; tests/test_torch_faster_rcnn_train.py holds its training.
 
 Tiny Faster R-CNN (``tests/tiny.shrink``: resnet10, FPN width 64, one anchor
 per location, RPN top-k 200 before and 100 after NMS) on two 128x192
@@ -204,11 +204,6 @@ def test_detections_match(frcnn):
     assert want["valid"].sum() > 10
     assert got["valid"].sum() == want["valid"].sum()
     assert match_detections(want, got) >= 0.99
-
-
-def test_get_losses_names_the_next_slice(frcnn):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        frcnn["port"].get_losses({})
 
 
 def test_boxcoder_against_jax_and_golden():

@@ -1,7 +1,7 @@
 """basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
-its host code: its det_test (YOLOX-S and tiny Faster R-CNN) and det_train run
-in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
+its host code: its det_test and its det_train (YOLOX-S and tiny Faster R-CNN
+each) run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
 blocked."""
 import json
@@ -52,11 +52,9 @@ print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules
 _TRAIN_SCRIPT = _BLOCK + r"""
 from basedet_tpu_torch.tools import det_train
 
-opts = ["MODEL.WIDTH_FACTOR", "0.25", "MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8",
-        "DATA.TRAIN.name", "dummy", "AUG.TRAIN_SETTING.INPUT_SIZE", "(64,64)",
-        "AUG.TRAIN_SETTING.MULTISCALE_RANGE", "(2,3)", "SOLVER.MAX_EPOCH", "1",
-        "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
-        "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
+opts = {opts!r} + ["MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8", "DATA.TRAIN.name", "dummy",
+                   "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
+                   "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
 trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *opts])
 print(json.dumps({{"steps": trainer.state.step,
                    "loss": trainer.meters["total_loss"].latest,
@@ -102,11 +100,29 @@ def test_faster_rcnn_det_test_runs_without_jax(tmp_path):
     _det_test_blocked(tmp_path, "faster_rcnn")
 
 
-def test_det_train_runs_without_jax(tmp_path):
-    out = _run_blocked(_TRAIN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=YOLOX))
+_TRAIN_OPTS = {
+    "yolox_s": (YOLOX, ["MODEL.WIDTH_FACTOR", "0.25", "AUG.TRAIN_SETTING.INPUT_SIZE", "(64,64)",
+                        "AUG.TRAIN_SETTING.MULTISCALE_RANGE", "(2,3)"]),
+    "faster_rcnn": (FRCNN, ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64",
+                            "MODEL.RPN.TRAIN_PREV_NMS_TOPK", "200", "MODEL.RPN.TRAIN_POST_NMS_TOPK",
+                            "100", "MODEL.RCNN.NUM_ROIS", "64", "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]),
+}
+
+
+def _det_train_blocked(tmp_path, model):
+    config, opts = _TRAIN_OPTS[model]
+    out = _run_blocked(_TRAIN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts))
     assert out["leaked"] == []
     assert out["steps"] == 2 and out["loss"] > 0
     assert (tmp_path / "ckpt" / "dumped_model.pt").exists()
+
+
+def test_det_train_runs_without_jax(tmp_path):
+    _det_train_blocked(tmp_path, "yolox_s")
+
+
+def test_faster_rcnn_det_train_runs_without_jax(tmp_path):
+    _det_train_blocked(tmp_path, "faster_rcnn")
 
 
 def test_port_sources_never_import_jax():
