@@ -78,7 +78,8 @@ class TrainerConfig(ConfigDict):
         super().__init__()
         self.NAME = "DetTrainer"
         self.RESUME = False
-        # AMP = a bf16 compute policy (not ported yet: the port refuses it)
+        # AMP = a bf16 compute policy (layers/precision.py); FUSED_BN, absent by
+        # default, adds the fused CSP chain under it
         self.AMP = dict(ENABLE=False, DYNAMIC_SCALE=False, DTYPE="bfloat16")
         self.EMA = dict(
             ENABLE=False,

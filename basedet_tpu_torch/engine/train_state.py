@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from basedet_tpu_torch.layers.common.function import full_f32
+from basedet_tpu_torch.layers.precision import policy_from_cfg, precision_policy
 
 
 def ema_momentum(cfg_ema, max_iters: int) -> float:
@@ -49,15 +50,23 @@ class TrainState:
 def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """The (state, batch) → metrics step: forward and losses, backward,
     gradient clipping, SGD at ``lr = schedule(state.step)``, then the EMA of
-    the parameters. The whole step runs in IEEE f32 (TF32 off), backward
-    included. Metrics stay on the device; ``lr`` is a float.
+    the parameters. The step runs in IEEE f32 (TF32 off), backward included,
+    unless ``TRAINER.AMP.ENABLE``: then the forward and the losses run under
+    the bf16 policy (``layers/precision.py``), as the JAX package's step
+    does, for a model that ``follows_compute_policy`` (others raise), with ``TRAINER.AMP.FUSED_BN`` choosing the fused CSP chain;
+    parameters, gradients, the solver and the EMA stay f32. Metrics stay on
+    the device; ``lr`` is a float.
 
     A model that samples (``draws_per_step``: Faster R-CNN's anchors and
     RoIs) is handed ``cfg.SEED`` (42 unless set) and the step, from which it
     seeds its draw, as the JAX package folds the step into its key: a step's
     draw does not depend on what ran before it."""
-    if cfg.TRAINER.AMP.get("ENABLE", False) or cfg.TRAINER.get("REMAT", False):
-        raise NotImplementedError("TRAINER.AMP and TRAINER.REMAT are not ported to basedet_tpu_torch yet")
+    if cfg.TRAINER.get("REMAT", False):
+        raise NotImplementedError("TRAINER.REMAT is not ported to basedet_tpu_torch yet")
+    dtype, fused_bn = policy_from_cfg(cfg)
+    if dtype is not None and not getattr(model, "follows_compute_policy", False):
+        raise NotImplementedError(f"TRAINER.AMP (--amp) is not ported for {cfg.MODEL.NAME} yet: "
+                                  f"its layers have no bf16 path")
     ema_cfg = cfg.TRAINER.EMA
     use_ema = bool(ema_cfg.get("ENABLE", False))
     momentum = ema_momentum(ema_cfg, solver.max_iters) if use_ema else 0.0
@@ -70,7 +79,8 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         with full_f32():
             randomness = {"seed": seed, "step": state.step} if draws else {}
-            total, loss_dict = model.get_losses(batch, **randomness)
+            with precision_policy(dtype, fused_bn):
+                total, loss_dict = model.get_losses(batch, **randomness)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
         solver.clip_grads(params)

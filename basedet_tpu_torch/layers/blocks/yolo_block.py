@@ -3,8 +3,10 @@
 Each submodule carries the name of its flax counterpart (``conv``, ``m_0``,
 ``dconv``...), with the flax ``BatchNorm_0`` called ``bn``, so that
 ``utils/weights.py`` maps the JAX variable tree onto ``state_dict()`` keys by
-name alone. Only the plain path is ported: the fused-BN CSP path (a
-train-mode option of the JAX package) waits for its kernel.
+name alone. Convolutions and BatchNorm follow the compute-dtype policy
+(``layers/precision.py``); under bf16 with ``TRAINER.AMP.FUSED_BN`` a
+train-mode dense SiLU ``CSPLayer`` runs the fused-BN chain
+(``layers/blocks/csp_fused.py``) on the same submodules.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision
+from basedet_tpu_torch.layers.blocks.csp_fused import csp_layer_fused
 from basedet_tpu_torch.layers.common.blocks import get_activation
 
 
@@ -22,9 +26,16 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     flax's ``nn.BatchNorm`` does: ``r = (1 - momentum) * r + momentum * stat``
     with the *biased* batch variance (torch's own update uses the unbiased
     one). Normalisation (biased batch statistics in train mode, running ones
-    in eval mode) and the state-dict keys are torch's."""
+    in eval mode) and the state-dict keys are torch's.
+
+    Under a compute dtype it is flax's ``nn.BatchNorm(dtype=...)`` instead:
+    statistics reduced in f32 as E[x²] - E[x]² (``use_fast_variance``), the
+    normalisation in f32 in flax's order, the output in the compute dtype."""
 
     def forward(self, x):
+        dt = precision.compute_dtype()
+        if dt is not None:
+            return self._forward_policy(x, dt)
         if not self.training:
             return super().forward(x)
         # momentum 1 writes the batch mean and unbiased variance into the
@@ -33,10 +44,25 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var * ((n - 1) / n), alpha=self.momentum)
+        self.update_running(mean, var * ((n - 1) / n))
         return y
+
+    def _forward_policy(self, x, dt):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(dt)
+
+    @torch.no_grad()
+    def update_running(self, mean, var) -> None:
+        """flax's running update from a batch mean and biased variance."""
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
 
 
 class ConvBNAct(nn.Module):
@@ -53,7 +79,7 @@ class ConvBNAct(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(precision.conv2d(self.conv, x)))
 
 
 class DepthwiseConvBlock(nn.Module):
@@ -131,9 +157,39 @@ class CSPLayer(nn.Module):
             self.add_module(f"m_{i}", Bottleneck(hidden, hidden, shortcut, 1.0, depthwise,
                                                  act, device=device))
         self.conv3 = ConvBNAct(2 * hidden, out_channels, 1, 1, act=act, device=device)
+        self.shortcut = shortcut
+        # the fused chain's gate, besides train mode and the policy
+        self.fusable = not depthwise and act == "silu"
 
     def forward(self, x):
+        if self.fusable and self.training and precision.fused_bn_enabled():
+            return self._fused(x)
         x1 = self.conv1(x)
         for i in range(self.n):
             x1 = getattr(self, f"m_{i}")(x1)
         return self.conv3(torch.cat([x1, self.conv2(x)], dim=1))
+
+    def _blocks(self):
+        """(key, ConvBNAct) of every conv, in ``csp_layer_fused``'s names."""
+        yield "conv1", self.conv1
+        yield "conv2", self.conv2
+        for i in range(self.n):
+            m = getattr(self, f"m_{i}")
+            yield f"m{i}a", m.conv1
+            yield f"m{i}b", m.conv2
+        yield "conv3", self.conv3
+
+    def fused_params(self):
+        """This layer's parameters under ``csp_layer_fused``'s keys
+        (``{conv1,conv2,m{i}a,m{i}b,conv3}/{w,g,b}``), the tensors themselves."""
+        return {f"{key}/{p}": t for key, block in self._blocks()
+                for p, t in (("w", block.conv.weight), ("g", block.bn.weight), ("b", block.bn.bias))}
+
+    def _fused(self, x):
+        """The fused-BN chain on this layer's own parameters, then flax's
+        running-statistics update (momentum 0.97) from its batch moments."""
+        out, moments = csp_layer_fused(self.fused_params(), x, self.n, shortcut=self.shortcut,
+                                       eps=self.conv1.bn.eps)
+        for key, block in self._blocks():
+            block.bn.update_running(*moments[key])
+        return out

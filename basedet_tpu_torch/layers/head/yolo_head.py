@@ -1,7 +1,8 @@
 """YOLOX decoupled head in NCHW (counterpart of ``YOLOXHead`` in
 ``basedet_tpu/layers/head/yolo_head.py``): per level a 1x1 stem, two cls and
 two reg convs, and cls/reg/obj 1x1 predictions with the prior-prob bias on
-cls and obj."""
+cls and obj. The predictions follow the compute-dtype policy, as the JAX
+package's ``PConv`` does: bf16 out under bf16."""
 from __future__ import annotations
 
 import math
@@ -10,6 +11,7 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
+from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.layers.blocks.yolo_block import ConvBNAct, make_conv
 
 
@@ -45,7 +47,7 @@ class YOLOXHead(nn.Module):
             for i in range(2):
                 c = getattr(self, f"cls_conv_{lv}_{i}")(c)
                 r = getattr(self, f"reg_conv_{lv}_{i}")(r)
-            logits.append(getattr(self, f"cls_pred_{lv}")(c))
-            offsets.append(getattr(self, f"reg_pred_{lv}")(r))
-            objs.append(getattr(self, f"obj_pred_{lv}")(r))
+            logits.append(precision.conv2d(getattr(self, f"cls_pred_{lv}"), c))
+            offsets.append(precision.conv2d(getattr(self, f"reg_pred_{lv}"), r))
+            objs.append(precision.conv2d(getattr(self, f"obj_pred_{lv}"), r))
         return logits, offsets, objs

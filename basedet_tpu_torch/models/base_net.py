@@ -29,6 +29,9 @@ class BaseNet:
     # True for a model whose losses sample: the train step then hands
     # ``get_losses`` the config's seed and the step (``seed=``, ``step=``)
     draws_per_step = False
+    # True for a model whose every layer follows the bf16 compute policy
+    # (``layers/precision.py``); the train step refuses TRAINER.AMP for the others
+    follows_compute_policy = False
 
     def __init__(self, cfg, device: torch.device):
         self.cfg = cfg

@@ -31,8 +31,10 @@ from basedet_tpu_torch.utils.registry import registers
 
 
 def _flatten_level(x: torch.Tensor, k: int) -> torch.Tensor:
-    """(N, A*k, H, W) → (N, H*W*A, k) in the JAX package's (h, w, a) order:
-    the channels move last before the flatten."""
+    """(N, A*k, H, W) → (N, H*W*A, k) f32 in the JAX package's (h, w, a)
+    order: the channels move last before the flatten. As in the JAX package,
+    this is where the bf16 policy's head outputs become f32: the decode, the
+    assignment and the losses run in f32."""
     n, c, h, w = x.shape
     return x.permute(0, 2, 3, 1).reshape(n, h * w * (c // k), k).float()
 
@@ -73,6 +75,8 @@ class YOLOXModule(nn.Module):
 
 @registers.models.register()
 class YOLOX(BaseNet):
+    follows_compute_policy = True
+
     def __init__(self, cfg, device, generator: Optional[torch.Generator] = None):
         super().__init__(cfg, device)
         self.strides = (8, 16, 32)

@@ -1,3 +1,10 @@
+from .fused_bn import (
+    fused_gemm_stats_backward_plain,
+    fused_gemm_stats_plain,
+    moments_to_affine,
+    stats_to_moments,
+)
+from .fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
 from .nms import NEG_INF, batched_nms_padded, nms_padded
 from .nms_kernel import nms_keep, nms_keep_plain
 from .roi_align import (
@@ -11,6 +18,9 @@ from .roi_align_kernel import (
     pool_rois_multilevel,
 )
 
-__all__ = ["NEG_INF", "batched_nms_padded", "multilevel_roi_align", "multilevel_roi_align_backward",
+__all__ = ["NEG_INF", "batched_nms_padded", "fused_gemm_stats", "fused_gemm_stats_backward",
+           "fused_gemm_stats_backward_plain", "fused_gemm_stats_plain", "moments_to_affine",
+           "multilevel_roi_align", "multilevel_roi_align_backward",
            "multilevel_roi_align_backward_plain", "multilevel_roi_align_plain", "nms_keep",
-           "nms_keep_plain", "nms_padded", "pool_rois_multilevel", "roi_level_assignment"]
+           "nms_keep_plain", "nms_padded", "pool_rois_multilevel", "roi_level_assignment",
+           "stats_to_moments"]

@@ -5,8 +5,10 @@
 
 Options go before the config overrides. The device defaults to ``cuda`` and
 is never swapped for another. Only the synthetic training set is ported
-(``DATA.TRAIN.name dummy``). ``--amp``, ``--remat``, ``--resume``, ``--tb``
-and ``--debug`` are refused: they are not ported yet.
+(``DATA.TRAIN.name dummy``). ``--amp`` trains YOLOX under the bf16 policy
+(``TRAINER.AMP.FUSED_BN True`` adds the fused CSP chain) and is refused for
+the other models; ``--remat``, ``--resume``, ``--tb`` and ``--debug`` are
+refused: they are not ported yet.
 """
 from __future__ import annotations
 

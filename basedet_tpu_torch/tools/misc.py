@@ -29,7 +29,7 @@ def default_parser(description: str = "basedet_tpu_torch") -> argparse.ArgumentP
     parser.add_argument("-f", "--file", type=str, required=False,
                         default="config.py", help="config file path")
     parser.add_argument("--resume", action="store_true", help="resume training")
-    parser.add_argument("--amp", action="store_true", help="enable bf16 compute")
+    parser.add_argument("--amp", action="store_true", help="bf16 compute policy (the port: YOLOX only)")
     parser.add_argument("--ema", action="store_true", help="enable model EMA")
     parser.add_argument("--tb", action="store_true", help="enable tensorboard")
     parser.add_argument("-w", "--weights", type=str, default=None,

@@ -6,10 +6,12 @@
 Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
-     (TF32 off) by themselves, and phases 7, 8, 12 and 12b hold them to the CPU;
+     (TF32 off) by themselves, or under the bf16 policy where a phase's
+     config asks for it, and phases 7, 8, 9c, 12 and 12b hold them to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
-     csrc/matching.cu and csrc/roi_align.cu (RoIAlign's forward and backward
-     in one library), with their ptxas reports;
+     csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
+     in one library) and csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
+     forward and backward), with their ptxas reports;
   3. hold the NMS kernel to its plain PyTorch version on the card, exactly,
      on random batches at the YOLOX eval shape, at Faster R-CNN's three
      shapes (the RPN's at eval, K = 4819, and at training, B = 2 and
@@ -39,9 +41,34 @@ Run from the root of the repository. Phases, each of which raises on failure:
      statistics;
   9. time YOLOX-S f32 inference at batch 1 and batch 32, and one f32 train
      step at batch 8 of 640x640 split into its parts, with peak memory;
+  9a. hold the fused 1x1-GEMM + BN-statistics kernels, forward and backward,
+     to their plain versions on the 36 fused calls of a bf16 YOLOX-S train
+     forward at batch 8 of 640x640 (every distinct shape, real activations)
+     and on edge cases (ragged M, 1-4 raw inputs, act + raw, K = N = 512,
+     K and N not multiples of 64, ds = dss = 0), within FUSED_SUM_RTOL;
+     time each shape, kernel, plain version and torch.matmul + column sums,
+     and sum them over a step;
+  9b. det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
+     steps of 8 images (832x832 after the multiscale resize): 36 forward and
+     36 backward fused launches per step, the matching kernel once, plain
+     versions never; then the kernels held to their plain versions, within
+     FUSED_SUM_RTOL, on the first backward call of each distinct 832x832
+     shape, with the inputs and cotangents the step gave it; then det_test
+     on its dumped_model.pt, in f32;
+  9c. one bf16 train step with the fused chain, batch of 2, on the card with
+     the kernels, on the card with their plain versions in their place, and
+     on the CPU (plain versions): the kernels held to their plain versions on
+     each of the card step's 36 calls (FUSED_SUM_RTOL); foreground agreement,
+     then on the CPU's assignment the card's losses, gradient and BN
+     statistics against both other steps (AMP_*: the gradient may turn no
+     further than bf16 turns it from an f32 step on the CPU);
+  9d. time the bf16 train step at batch 8 of 640x640 with the fused chain off
+     and on, beside the f32 step, with the fused kernels' share and peak
+     memory;
  10. with --profile DIR only: a torch.profiler pass over YOLOX-S inference
-     at both batch sizes, kernel tables written to DIR, busy time and idle
-     share;
+     at both batch sizes and over the train step of phases 9 and 9d (f32,
+     bf16 with the fused chain off and on), kernel tables written to DIR,
+     busy time and idle share;
  11. Faster R-CNN R50-FPN (full width, random weights from a seed with the
      frozen BN statistics, affine and biases spread) through det_train:
      batch 2 of 800x1333, 4 steps; check that per step the RoIAlign forward
@@ -61,11 +88,12 @@ Run from the root of the repository. Phases, each of which raises on failure:
      RPN+proposals, RoIAlign, box head and post-process, with peak memory;
      and one train step at batch 2, split by the module's stage methods,
      with the RoIAlign backward's own time, images/s and peak memory;
- 14. print the kernel report, the card, and the result line.
+ 14. print the kernel report (six kernels), the card, and the result line.
 """
 import argparse
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -97,13 +125,29 @@ ROI_BWD_RTOL = 2e-5
 ROI_R, ROI_C, ROI_STRIDES = 1000, 256, (4, 8, 16, 32)
 ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
 FRCNN_ATOL, FRCNN_AGREE = 1e-3, 0.95
-# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores
-PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores, dense bf16 tensor cores
+PEAK_BYTES_PER_S, PEAK_F32_PER_S, PEAK_BF16_PER_S = 3.35e12, 67e12, 989e12
 SLICE_B, SLICE_K, SLICE_T = 8, 3000, 0.65  # YOLOX-S eval: 3 levels x top-1000, IoU 0.65
 HEAD_ATOL = 1e-3
 MATCH_B, MATCH_K, MATCH_M = 8, 100, 8400  # YOLOX-S train: batch 8, MAX_INSTANCES 100, 640x640
 MATCH_M_832 = 104 * 104 + 52 * 52 + 26 * 26  # anchors at 832x832
 LOSS_RTOL, FG_AGREE, GRAD_NORM_RTOL, STATS_RTOL = 1e-3, 0.999, 1e-3, 1e-4
+# The fused kernels against their plain versions: every output is an f32 sum taken in another
+# order (tensor-core tiles and partial rows against cuBLAS and PyTorch's reductions), so each is
+# held to FUSED_SUM_RTOL of the sum of the magnitudes of its terms, propagated through the
+# prologue and epilogue, plus one ulp of its own dtype where it is rounded to bf16
+FUSED_SUM_RTOL = 2.0 ** -17
+# One bf16 train step with the fused chain (batch 2 of 640x640), card against CPU and kernels against their
+# plain versions on the card. Train-mode YOLOX-S with random weights amplifies a perturbation ~300 times into
+# the gradient (f32 card vs CPU: 2e-5 of the norm from ~6e-8 rounding), and bf16 rounds every element: the
+# CPU's bf16 gradient lies 1.11 of its norm from its f32 one on one assignment, cosine 0.43. Any difference of
+# rounding therefore spreads to that size: the kernels' step lies 0.685 of the norm from its plain-version
+# step though every one of its calls lies within FUSED_SUM_RTOL of its plain version, cuDNN's against
+# oneDNN's 0.70 (NVIDIA H100 80GB HBM3, 700.00 W). So the gradient is held to turn less than bf16 itself
+# turns it (its cosine at least the CPU's bf16-vs-f32 cosine; measured 0.75 and 0.73), the losses to
+# AMP_LOSS_RTOL (measured 5.9e-3 and 6.1e-3) and the new BN running statistics to AMP_STATS_RTOL (6.1e-4 and
+# 5.2e-4 of max(|value|, 1)); foreground agreement on each device's own assignment (SimOTA's near-ties)
+AMP_LOSS_RTOL, AMP_FG_AGREE, AMP_STATS_RTOL = 3e-2, 0.995, 1e-2
 
 
 def log(msg=""):
@@ -142,17 +186,18 @@ def phase_device():
     return card
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak_ops=PEAK_F32_PER_S):
     """The least time (ms) the card could take: bytes over the memory rate
-    or f32 operations over the f32 rate, whichever is larger, and which."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
+    or operations over their peak rate (f32 unless given), whichever is
+    larger, and which."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_build():
-    from basedet_tpu_torch.ops import _build, matching_kernel, nms_kernel, roi_align_kernel
+    from basedet_tpu_torch.ops import _build, fused_bn_kernel, matching_kernel, nms_kernel, roi_align_kernel
 
-    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE]
+    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE, fused_bn_kernel.SOURCE]
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)  # show the build from this checkout
 
@@ -361,15 +406,17 @@ def randomise(module, generator):
 
 
 @contextlib.contextmanager
-def recording(owner, name, keep=lambda args, out: args):
+def recording(owner, name, keep=lambda args, out: args, substitute=None):
     """Replace ``owner.name`` with a wrapper that calls it and records
-    ``keep(args, result)`` for each call; put it back on the way out."""
+    ``keep(args, result)`` for each call, returning the result, or
+    ``substitute(args)`` in its place where given; put it back on the way
+    out."""
     fn, calls = getattr(owner, name), []
 
     def wrapper(*args, **kwargs):
         out = fn(*args, **kwargs)
         calls.append(keep(args, out))
-        return out
+        return out if substitute is None else substitute(args)
 
     setattr(owner, name, wrapper)
     try:
@@ -516,9 +563,14 @@ def phase_card_vs_cpu(cfg, model, weights):
         f"{frac:.4f} matched (label, IoU >= 0.999, |dscore| <= 1e-4)")
 
 
-def _train_setup(weights, device, batch_size):
-    """YOLOX-S in train mode with ``weights``, its solver, state and step,
-    and the first synthetic batch of ``batch_size`` 640x640 images."""
+AMP_OPTS = {None: [], "bf16": ["TRAINER.AMP.ENABLE", "True"],
+            "fused": ["TRAINER.AMP.ENABLE", "True", "TRAINER.AMP.FUSED_BN", "True"]}
+
+
+def _train_setup(weights, device, batch_size, amp=None):
+    """YOLOX-S in train mode with ``weights``, its solver, state and step
+    (f32, or under the bf16 policy with ``amp`` "bf16" or "fused"), the first
+    synthetic batch of ``batch_size`` 640x640 images and the config."""
     from basedet_tpu_torch import build_model
     from basedet_tpu_torch.data import build_train_dataloader
     from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
@@ -526,13 +578,14 @@ def _train_setup(weights, device, batch_size):
     from basedet_tpu_torch.tools import import_config
 
     cfg = import_config(CONFIG)
-    cfg.merge(["DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(batch_size)])
+    cfg.merge(["DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(batch_size), *AMP_OPTS[amp]])
     model = build_model(cfg, device)
     model.load_weights(weights)
     model.train()
     solver = YOLOXSolver.build(cfg)
     state = TrainState(model, solver, ema=True)
-    return model, solver, state, make_train_step(model, solver, cfg), next(build_train_dataloader(cfg))
+    return (model, solver, state, make_train_step(model, solver, cfg), next(build_train_dataloader(cfg)),
+            cfg)
 
 
 def phase_train_vs_cpu(weights):
@@ -544,7 +597,7 @@ def phase_train_vs_cpu(weights):
 
     runs = {}
     for device in ("cuda", "cpu"):
-        model, solver, state, step, batch = _train_setup(weights, device, 2)
+        model, solver, state, step, batch, _ = _train_setup(weights, device, 2)
         with recording(model, "assign", lambda args, out: out[0].cpu()) as fg, \
                 recording(solver, "clip_grads", grad_norm) as norm:
             metrics = step(state, batch)
@@ -572,24 +625,33 @@ def phase_train_vs_cpu(weights):
     check(stats_rel <= STATS_RTOL, f"BN running statistics differ by {stats_rel:.3e}")
 
 
-def phase_train_timing(weights, card):
-    """One f32 train step at batch 8 of 640x640 (input already on the card,
-    multiscale pinned), as a total and split by prefix: the forward, the
+AMP_LABELS = {None: "f32", "bf16": "bf16, fused chain off", "fused": "bf16, fused chain on"}
+
+
+def phase_train_timing(weights, card, amp=None, fused_step=None):
+    """One train step at batch 8 of 640x640 (input already on the card,
+    multiscale pinned), f32 or under the bf16 policy with the fused chain off
+    or on (``amp``), as a total and split by prefix: the forward, the
     assignment alone (the matching kernel inside), get_losses (forward,
-    assignment, losses), get_losses with backward, the whole step."""
+    assignment, losses), get_losses with backward, the whole step. With the
+    chain on, ``fused_step`` (the fused kernels' times summed over one step's
+    calls, from ``phase_fused_kernels``) gives their share of the step."""
     from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.precision import policy_from_cfg, precision_policy
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
     from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching
 
-    model, _, state, step, batch = _train_setup(weights, "cuda", 8)
+    model, _, state, step, batch, cfg = _train_setup(weights, "cuda", 8, amp)
+    policy = policy_from_cfg(cfg)
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
     image = model.pre_process(batch, train=True)["image"]
 
     def forward():
-        with full_f32():
+        with full_f32(), precision_policy(*policy):
             model.module(image)
 
     def losses():
-        with full_f32():
+        with full_f32(), precision_policy(*policy):
             return model.get_losses(batch)[0]
 
     def losses_backward():
@@ -598,7 +660,7 @@ def phase_train_timing(weights, card):
 
     with recording(model, "assign", lambda args, out: args) as assigned:
         losses()
-    launches = dynamic_k_matching.launches
+    launches, fused = dynamic_k_matching.launches, fused_gemm_stats.launches
     t_fwd = cuda_ms(forward, reps=10, warmup=3)
     t_assign = cuda_ms(lambda: model.assign(*assigned[0]), reps=10, warmup=3)
     t_loss = cuda_ms(losses, reps=10, warmup=3)
@@ -607,12 +669,422 @@ def phase_train_timing(weights, card):
     t_step = cuda_ms(lambda: step(state, batch), reps=10, warmup=3)
     peak = torch.cuda.max_memory_allocated()
     check(dynamic_k_matching.launches > launches, "train timing ran no matching kernel")
-    log(f"[timing] YOLOX-S f32 train step, batch 8 of 640x640: {t_step:.3f} ms per step "
+    check((fused_gemm_stats.launches > fused) == (amp == "fused"),
+          f"{AMP_LABELS[amp]} train timing made {fused_gemm_stats.launches - fused} fused launches")
+    share = ""
+    if fused_step is not None:
+        kernels = fused_step["fwd"] + fused_step["bwd"]
+        share = (f"; the 36 + 36 fused kernel calls {kernels:.3f} ms of it ({kernels / t_step:.3f} of the "
+                 f"step, timed alone)")
+    log(f"[timing] YOLOX-S {AMP_LABELS[amp]} train step, batch 8 of 640x640: {t_step:.3f} ms per step "
         f"({8000 / t_step:.1f} img/s): forward {t_fwd:.3f} ms, assignment {t_assign:.3f} ms "
         f"(matching kernel inside), losses {t_loss - t_fwd - t_assign:.3f} ms, backward "
         f"{t_fb - t_loss:.3f} ms, SGD+EMA {t_step - t_fb:.3f} ms (parts are differences of means "
-        f"of 10 runs each); peak memory {peak / 2**30:.2f} GiB "
+        f"of 10 runs each){share}; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
+    return t_step, lambda: step(state, batch)
+
+
+# -- fused 1x1-GEMM + BN statistics (kernels #3 and #4) ------------------------------------------
+
+def _bf16_ulp(t):
+    """The spacing of bf16 at |t| (t rounded to bf16 first), f32."""
+    a = t.float().abs().bfloat16()
+    return ((a.view(torch.int16) + 1).view(torch.bfloat16).float() - a.float())
+
+
+def _fused_signature(terms):
+    """(spec, M, K per term, N) of a fused call."""
+    from basedet_tpu_torch.ops.fused_bn import flatten_terms
+
+    spec, flat = flatten_terms(terms)
+    return spec, flat[0].shape[0], tuple(t[2].shape[0] for t in terms), terms[0][2].shape[1]
+
+
+def _fused_bytes_ops(terms):
+    """Bytes (each input read once, each output written once) and tensor
+    operations of one fused forward and one backward call."""
+    from basedet_tpu_torch.ops.fused_bn import flatten_terms
+
+    _, flat = flatten_terms(terms)
+    M, N = flat[0].shape[0], terms[0][2].shape[1]
+    inputs = sum(a.numel() * a.element_size() for a in flat)
+    ks = sum(t[2].shape[0] for t in terms)
+    m_in = sum(a.numel() * 2 for a in flat if a.dim() == 2 and a.shape[0] == M)
+    vectors = sum(a.numel() * 4 for a in flat if a.dim() == 1)
+    weights = sum(t[2].numel() for t in terms)
+    fwd = (inputs + M * N * 2 + 2 * N * 4, 2 * M * ks * N)
+    # backward: inputs, y, dy read, ds, dss read; dx per M-tensor (bf16), dw f32, dscale/dshift f32
+    bwd = (inputs + 2 * M * N * 2 + 2 * N * 4 + m_in + weights * 4 + vectors, 4 * M * ks * N)
+    return fwd, bwd
+
+
+def check_fused_case(terms, dy, ds, dss):
+    """Kernels #3 and #4 against their plain versions on one call. Every
+    output's deviation is divided by its tolerance (``FUSED_SUM_RTOL`` of the
+    sum of its terms' magnitudes, propagated, plus one ulp where the output is
+    bf16); returns the largest such ratio per output, which must be <= 1, and
+    the share of y elements that differ and that differ by more than one
+    ulp."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.fused_bn import (_dsilu, _prologue, fused_gemm_stats_backward_plain,
+                                                fused_gemm_stats_plain)
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+
+    r = FUSED_SUM_RTOL
+    mm = lambda a, b: a.float().abs() @ b.float().abs()
+    with torch.no_grad(), full_f32():
+        y, s, ss = fused_gemm_stats(terms)
+        torch.cuda.synchronize()
+        yp, sp, ssp = fused_gemm_stats_plain(terms)
+        ops = [t[1] if t[0] == "act" else _prologue(t[1])[0] for t in terms]
+        absum = sum(mm(a, t[2]) for a, t in zip(ops, terms))
+        tol_y = _bf16_ulp(yp) + r * absum
+        ratios = {"y": float(((y.float() - yp.float()).abs() / tol_y).max())}
+        yf = yp.float()
+        tol_s = tol_y.sum(0) + r * yf.abs().sum(0)
+        tol_ss = (2 * yf.abs() * tol_y + tol_y * tol_y).sum(0) + r * (yf * yf).sum(0)
+        ratios["s"] = float(((s - sp).abs() / tol_s).max())
+        ratios["ss"] = float(((ss - ssp).abs() / tol_ss).max())
+        diff = y != yp
+        ulps = (y.float() - yp.float()).abs() / _bf16_ulp(yp)
+        shares = (float(diff.float().mean()), float((ulps > 1.0001).float().mean()))
+
+        got = fused_gemm_stats_backward(terms, yp, dy, ds, dss)
+        torch.cuda.synchronize()
+        want = fused_gemm_stats_backward_plain(terms, yp, dy, ds, dss)
+        dy16 = (dy.float() + ds + 2.0 * yp.float() * dss).to(torch.bfloat16)
+        tols = []  # (name, tolerance) in the order of the cotangents
+        for t, a in zip(terms, ops):
+            w = t[2]
+            dact_err = r * mm(dy16, w.t())  # dy_eff @ w^T summed in another order
+            if t[0] == "act":
+                tols.append(("dx", _bf16_ulp(want[len(tols)]) + dact_err))
+            else:
+                _, pres, xfs = _prologue(t[1])
+                dact = dy16.float() @ w.float().t()
+                for (_, sc, _), pre, xf in zip(t[1], pres, xfs):
+                    dsilu = _dsilu(pre).abs()
+                    g_abs, g_err = dact.abs() * dsilu, dact_err * dsilu
+                    tols.append(("dx", _bf16_ulp(want[len(tols)]) + g_err * sc.abs()))
+                    tols.append(("dscale", r * (g_abs * xf.abs()).sum(0) + (g_err * xf.abs()).sum(0) + 1e-30))
+                    tols.append(("dshift", r * g_abs.sum(0) + g_err.sum(0) + 1e-30))
+            tols.append(("dw", _bf16_ulp(want[len(tols)]) + r * mm(a.t(), dy16)))
+        errs = {"y": float((y.float() - yp.float()).abs().max())}
+        for (name, tol), g, w in zip(tols, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, f"fused backward: {name} {g.dtype} "
+                                                             f"{tuple(g.shape)} vs {w.dtype} {tuple(w.shape)}")
+            d = (g.float() - w.float()).abs()
+            ratios[name] = max(ratios.get(name, 0.0), float((d / tol).max()))
+            errs[name] = max(errs.get(name, 0.0), float(d.max()))
+        errs["s"], errs["ss"] = float((s - sp).abs().max()), float((ss - ssp).abs().max())
+    return ratios, shares, errs
+
+
+def check_fused_cases(tag, cases):
+    """``check_fused_case`` on each (name, terms, (dy, ds, dss)) of cases,
+    a line each; fails if any output lies beyond its tolerance. Returns the
+    largest |kernel - plain| per output."""
+    worst, worst_err, failed = {}, {}, []
+    for name, terms, cts in cases:
+        ratios, (share, share_1), errs = check_fused_case(terms, *cts)
+        for k, v in ratios.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+            worst_err[k] = max(worst_err.get(k, 0.0), errs[k])
+        log(f"[{tag}] {name:42s} y differs on {share:.5f} of elements ({share_1:.6f} by more than 1 ulp); "
+            f"max |kernel - plain| / tolerance: " + ", ".join(f"{k} {errs[k]:.2e}/{v:.3f}" for k, v in ratios.items()))
+        if any(v > 1.0 for v in ratios.values()):
+            failed.append(name)
+    check(not failed, f"fused kernels differ from their plain versions beyond tolerance on {failed}")
+    log(f"[{tag}] {len(cases)} cases within tolerance ({FUSED_SUM_RTOL:.3e} of the sums of magnitudes + 1 bf16 "
+        f"ulp); worst max |kernel - plain| / tolerance: "
+        + ", ".join(f"{k} {worst_err[k]:.3e}/{v:.3f}" for k, v in worst.items()))
+    return worst_err
+
+
+def fused_backward_calls(first_per_shape):
+    """Record the fused backward calls as (signature, terms, (dy, ds, dss)),
+    cloned: every call's, or with ``first_per_shape`` only the first of
+    each signature's (later ones as (signature, None, None))."""
+    from basedet_tpu_torch.ops import fused_bn_kernel
+
+    seen = set()
+
+    def keep(args, out):  # _backward(terms, M, N, device, y, dy, ds, dss)
+        sig = _fused_signature(args[0])
+        if first_per_shape and sig in seen:
+            return sig, None, None
+        seen.add(sig)
+        return sig, _detached_terms(args[0]), tuple(a.detach().clone() for a in args[5:8])
+
+    return recording(fused_bn_kernel, "_backward", keep)
+
+
+def _case_name(sig):
+    return (f"{'+'.join(str(x[1] if x[0] == 'raw' else 'act') for x in sig[0])} M={sig[1]} "
+            f"K={'+'.join(map(str, sig[2]))} N={sig[3]}")
+
+
+def _fused_errs(worst_err):
+    """The kernel report's max_abs_err of the forward and the backward."""
+    fwd = max(worst_err[k] for k in ("y", "s", "ss"))
+    return fwd, max(v for k, v in worst_err.items() if k not in ("y", "s", "ss"))
+
+
+def _random_fused_terms(gen, spec, M, K, N):
+    terms = []
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    for s in spec:
+        w = (randn(K, N) * K ** -0.5).bfloat16()
+        if s == "act":
+            terms.append(("act", randn(M, K).bfloat16(), w))
+        else:
+            terms.append(("raw", [(randn(M, K).bfloat16(), torch.rand(K, device="cuda", generator=gen) + 0.5,
+                                   randn(K) * 0.1) for _ in range(s)], w))
+    return terms
+
+
+def _fused_cotangents(gen, M, N, zero=False):
+    if zero:
+        return (torch.randn(M, N, device="cuda", generator=gen).bfloat16(),
+                torch.zeros(N, device="cuda"), torch.zeros(N, device="cuda"))
+    return (torch.randn(M, N, device="cuda", generator=gen).mul(1e-2).bfloat16(),
+            torch.randn(N, device="cuda", generator=gen) * 1e-4,
+            torch.randn(N, device="cuda", generator=gen) * 1e-5)
+
+
+def _detached_terms(terms):
+    return [(t[0], t[1].detach().clone() if t[0] == "act" else
+             [tuple(a.detach().clone() for a in raw) for raw in t[1]], t[2].detach().clone()) for t in terms]
+
+
+def phase_fused_kernels(weights, card):
+    """Kernels #3 and #4 against their plain versions: on the fused calls of
+    one bf16 train forward of full-width YOLOX-S at batch 8 of 640x640 (real
+    activations, every distinct shape) and on edge cases; then each distinct
+    shape timed, kernel, plain version and the library yardstick, and summed
+    over the calls of one step."""
+    from basedet_tpu_torch.layers.blocks import csp_fused
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.precision import precision_policy
+    from basedet_tpu_torch.ops.fused_bn import _prologue, fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+
+    model, _, _, _, batch, _ = _train_setup(weights, "cuda", 8, amp="fused")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    keep = lambda args, out: (_fused_signature(args[0]), _detached_terms(args[0]), out[0].detach())
+    with recording(csp_fused, "fused_gemm_stats", keep) as calls, full_f32(), \
+            precision_policy(torch.bfloat16, True):
+        model.get_losses(batch)[0].backward()
+    check(len(calls) == 36, f"one YOLOX-S forward made {len(calls)} fused calls, not 36")
+    first = {}
+    for sig, terms, y in calls:
+        first.setdefault(sig, terms)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [(f"yolox {_case_name(sig)}", terms, _fused_cotangents(gen, sig[1], sig[3]))
+             for sig, terms in first.items()]
+    for name, spec, M, K, N in (("M=1037 act", ("act",), 1037, 64, 32), ("M=1037 1 raw", (1,), 1037, 128, 64),
+                                ("2 raw", (2,), 4096, 64, 64), ("4 raw", (4,), 4096, 128, 64),
+                                ("act + raw", ("act", 1), 2048, 128, 128), ("4 raw + 1 raw", (4, 1), 3000, 256, 512),
+                                ("N=512 K=512", ("act",), 3200, 512, 512), ("K=24 N=40", (2,), 777, 24, 40)):
+        cases.append((name, _random_fused_terms(gen, spec, M, K, N), _fused_cotangents(gen, M, N)))
+    M, K, N = 5000, 96, 64
+    cases.append(("ds = dss = 0", _random_fused_terms(gen, (1, 1), M, K, N), _fused_cotangents(gen, M, N, zero=True)))
+    worst_err = check_fused_cases("fused", cases)
+
+    times = {}
+    for sig, terms in first.items():
+        dy, ds, dss = _fused_cotangents(gen, sig[1], sig[3])
+        with torch.no_grad(), full_f32():
+            y = fused_gemm_stats(terms)[0]
+            a_cat = torch.cat([t[1] if t[0] == "act" else _prologue(t[1])[0] for t in terms], 1)
+            w_cat = torch.cat([t[2] for t in terms], 0)
+
+            def library():
+                yl = torch.matmul(a_cat, w_cat).float()
+                return yl.sum(0), (yl * yl).sum(0)
+
+            times[sig] = dict(
+                fwd=cuda_ms(lambda: fused_gemm_stats(terms), reps=20, warmup=3),
+                plain=cuda_ms(lambda: fused_gemm_stats_plain(terms), reps=5, warmup=1),
+                library=cuda_ms(library, reps=20, warmup=3),
+                bwd=cuda_ms(lambda: fused_gemm_stats_backward(terms, y, dy, ds, dss), reps=20, warmup=3),
+                bwd_plain=cuda_ms(lambda: fused_gemm_stats_backward_plain(terms, y, dy, ds, dss), reps=5, warmup=1))
+        (fb, fo), (bb, bo) = _fused_bytes_ops(terms)
+        times[sig]["bound"] = bound(fb, fo, PEAK_BF16_PER_S)[0]
+        times[sig]["bwd_bound"] = bound(bb, bo, PEAK_BF16_PER_S)[0]
+        t = times[sig]
+        n = sum(1 for c in calls if c[0] == sig)
+        log(f"[fused] {n} x spec {sig[0]} M={sig[1]} K={sig[2]} N={sig[3]}: forward kernel {t['fwd']:.4f} ms "
+            f"(bound {t['bound']:.4f}, plain {t['plain']:.4f}, torch.matmul + column sums {t['library']:.4f}); "
+            f"backward kernel {t['bwd']:.4f} ms (bound {t['bwd_bound']:.4f}, plain {t['bwd_plain']:.4f}) | {card}")
+    step = {k: sum(times[c[0]][k] for c in calls) for k in ("fwd", "plain", "library", "bwd", "bwd_plain",
+                                                             "bound", "bwd_bound")}
+    fwd_bytes = sum(_fused_bytes_ops(c[1])[0][0] for c in calls)
+    bwd_bytes = sum(_fused_bytes_ops(c[1])[1][0] for c in calls)
+    log(f"[fused] per train step at batch 8 of 640x640 (36 calls each): forward kernels {step['fwd']:.3f} ms "
+        f"(bound {step['bound']:.4f} ms: {fwd_bytes / 1e9:.3f} GB; plain {step['plain']:.3f}, torch.matmul + "
+        f"column sums {step['library']:.3f}); backward kernels {step['bwd']:.3f} ms (bound {step['bwd_bound']:.4f} "
+        f"ms: {bwd_bytes / 1e9:.3f} GB; plain {step['bwd_plain']:.3f}) | {card}")
+    by = [[bound(*_fused_bytes_ops(c[1])[i], PEAK_BF16_PER_S) for c in calls] for i in (0, 1)]
+    bound_by = ["bytes" if sum(t for t, b in bs if b == "bytes") >= sum(t for t, _ in bs) / 2 else "operations"
+                for bs in by]
+    fwd_err, bwd_err = _fused_errs(worst_err)
+    fwd = dict(max_abs_err=fwd_err, ms=step["fwd"], plain_ms=step["plain"],
+               bound_ms=step["bound"], bound_by=bound_by[0], library_ms=step["library"])
+    bwd = dict(max_abs_err=bwd_err, ms=step["bwd"],
+               plain_ms=step["bwd_plain"], bound_ms=step["bwd_bound"], bound_by=bound_by[1], library_ms=None)
+    return fwd, bwd, step
+
+
+def phase_train_amp(out_dir, weights):
+    """det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
+    steps of 8 images; the fused-kernel and matching counts are zeroed just
+    before and read just after. Then kernels #3 and #4 are held to their
+    plain versions on the first backward call of each distinct shape of the
+    run (832x832 after the multiscale resize): its inputs and its cotangents
+    as the step gave them. Returns the launches, the largest |kernel - plain|
+    per output and the dumped weights."""
+    from basedet_tpu_torch.layers.blocks import csp_fused
+    from basedet_tpu_torch.layers.precision import compute_dtype
+    from basedet_tpu_torch.models.det.yolox import YOLOX
+    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+    from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching, dynamic_k_matching_plain
+    from basedet_tpu_torch.tools import det_train
+
+    ckpt = os.path.join(out_dir, "amp_ckpt")
+    opts = [*_train_opts(out_dir, weights), "GLOBAL.CKPT_SAVE_DIR", ckpt, "TRAINER.AMP.FUSED_BN", "True"]
+    kernels = (fused_gemm_stats, fused_gemm_stats_backward, dynamic_k_matching)
+    plains = (fused_gemm_stats_plain, fused_gemm_stats_backward_plain, dynamic_k_matching_plain)
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    with recording(YOLOX, "get_losses", keep_losses) as losses, \
+            recording(csp_fused, "fused_gemm_stats", lambda args, out: _fused_signature(args[0])[1]) as rows, \
+            fused_backward_calls(first_per_shape=True) as backward:
+        for fn in kernels:
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", CONFIG, "--device", "cuda", "--amp", *opts])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [fn.launches for fn in kernels]
+        plain_calls = [fn.calls for fn in plains]
+
+    steps = trainer.state.step
+    size = trainer.model.extra_meter["img_size"]
+    check(steps == 4 and len(losses) == 4, f"det_train --amp took {steps} steps, not 4")
+    check(launches == [36 * steps, 36 * steps, steps],
+          f"fused forward, fused backward and matching kernels launched {launches} times in {steps} steps")
+    check(plain_calls == [0, 0, 0], f"plain versions ran {plain_calls} times on the main path")
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
+    check(compute_dtype() is None, "the bf16 policy outlived the train step")
+    check(all(p.dtype == torch.float32 for p in trainer.model.module.parameters()), "parameters left f32")
+    check(size == 832 and rows[0] == 8 * (832 // 4) ** 2, f"the multiscale resize did not run ({size}, {rows[0]})")
+    for name in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, name)), f"det_train --amp wrote no {name}")
+    per_step = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items())
+                         for step in losses)
+    log(f"[amp-train] det_train --amp TRAINER.AMP.FUSED_BN True, YOLOX-S, 4 steps of 8 images 640x640 "
+        f"resized to {size}x{size}, bf16 policy, in {seconds:.2f} s; launches: fused forward {launches[0]}, "
+        f"fused backward {launches[1]} (36 per step, the first on {rows[0]} rows), matching {launches[2]}; "
+        f"plain calls {plain_calls}; losses per step: {per_step}; checkpoints written")
+    rows_832 = {8 * (size // stride) ** 2 for stride in (4, 8, 16, 32)}  # the CSP layers' strides
+    check(len(backward) == launches[1] and {sig[1] for sig, _, _ in backward} == rows_832,
+          f"the fused backward calls have shapes {[sig for sig, _, _ in backward]}")
+    worst_err = check_fused_cases("amp-fused", [(f"det_train step 1 {_case_name(sig)}", terms, cts)
+                                                for sig, terms, cts in backward if terms is not None])
+    return launches, worst_err, os.path.join(ckpt, "dumped_model.pt")
+
+
+def phase_amp_train_vs_cpu(weights):
+    """One bf16 train step with the fused chain, same weights and batch of 2,
+    on the CPU (plain versions), on the card (kernels, twice) and on the card
+    with the plain versions in the kernels' place. The kernels are held to
+    their plain versions on each of the card step's 36 calls, with its
+    inputs and cotangents (FUSED_SUM_RTOL). Then foreground on each device's
+    own assignment, and on the CPU's assignment the losses, gradients and BN
+    running statistics of the card's step against its plain-version step and
+    against the CPU's, within the AMP_* tolerances; an f32 step on the CPU
+    measures how far bf16 itself turns the gradient. Returns the largest
+    |kernel - plain| per output of the 36 calls."""
+    from unittest import mock
+
+    from basedet_tpu_torch.ops import fused_bn_kernel
+    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+
+    grads = lambda args, out: [p.grad.detach().double().cpu().clone() for p in args[0]]
+    plain = {"_launch_forward": lambda terms, *shape: fused_gemm_stats_plain(terms),
+             "_launch_backward": lambda terms, M, N, device, *cts: fused_gemm_stats_backward_plain(terms, *cts)}
+    counters = (fused_bn_kernel.fused_gemm_stats, fused_bn_kernel.fused_gemm_stats_backward,
+                fused_gemm_stats_plain, fused_gemm_stats_backward_plain)
+    runs, assigned, calls = {}, None, None
+    for run, device, amp in (("cpu", "cpu", "fused"), ("card", "cuda", "fused"), ("card plain", "cuda", "fused"),
+                             ("card again", "cuda", "fused"), ("cpu f32", "cpu", None)):
+        model, solver, state, step, batch, _ = _train_setup(weights, device, 2, amp=amp)
+        t0 = time.perf_counter()
+        shared = None if assigned is None else lambda args: tuple(t.to(args[0].device) for t in assigned)
+        before = [getattr(c, "launches", getattr(c, "calls", 0)) for c in counters]
+        with contextlib.ExitStack() as stack:
+            own = stack.enter_context(recording(model, "assign", lambda args, out: out, shared))
+            g = stack.enter_context(recording(solver, "clip_grads", grads))
+            if run == "card":
+                calls = stack.enter_context(fused_backward_calls(first_per_shape=False))
+            if run == "card plain":
+                for name, fn in plain.items():
+                    stack.enter_context(mock.patch.object(fused_bn_kernel, name, fn))
+            metrics = step(state, batch)
+        seconds = time.perf_counter() - t0
+        counts = [getattr(c, "launches", getattr(c, "calls", 0)) - b for c, b in zip(counters, before)]
+        want = {"cpu": [0, 0, 36, 36], "card": [36, 36, 0, 0], "card plain": [0, 0, 36, 36],
+                "card again": [36, 36, 0, 0], "cpu f32": [0] * 4}
+        check(counts == want[run], f"the {run} step made {counts} fused kernel launches and plain calls")
+        if assigned is None:
+            assigned = tuple(t.detach().cpu() for t in own[0])
+        stats = {k: v.double().cpu() for k, v in model.module.state_dict().items() if "running" in k}
+        runs[run] = ({k: float(v) for k, v in metrics.items() if k != "lr"}, own[0][0].cpu(), g[0], stats, seconds)
+    worst_err = check_fused_cases("amp-parity", [(f"card step call {i + 1} {_case_name(sig)}", terms, cts)
+                                                 for i, (sig, terms, cts) in enumerate(calls)])
+
+    norm = lambda g: math.sqrt(sum(float((t * t).sum()) for t in g))
+    dist = lambda a, b: norm([x - y for x, y in zip(a, b)]) / norm(b)
+    cos = lambda a, b: sum(float((x * y).sum()) for x, y in zip(a, b)) / (norm(a) * norm(b) or 1.0)
+    loss_rel = lambda a, b: max(abs(a[k] - v) / abs(v) for k, v in b.items() if v != 0)
+    stats_rel = lambda a, b: max(float(((a[k] - v).abs() / v.abs().clamp(min=1.0)).max()) for k, v in b.items())
+    (cpu_losses, cpu_fg, cpu_g, cpu_stats, cpu_s), (gpu_losses, gpu_fg, gpu_g, gpu_stats, _), \
+        (plain_losses, _, plain_g, plain_stats, _), (_, _, again_g, _, _), (f32_losses, _, f32_g, _, _) = \
+        runs.values()
+    agree = float((gpu_fg == cpu_fg).float().mean())
+    bf16_cos = cos(cpu_g, f32_g)
+    pairs = {"kernels vs plain versions on the card": (plain_losses, plain_g, plain_stats),
+             "card vs CPU": (cpu_losses, cpu_g, cpu_stats)}
+    seen = {name: dict(losses=loss_rel(gpu_losses, l), cos=cos(gpu_g, g), dist=dist(gpu_g, g),
+                       norm=abs(norm(gpu_g) - norm(g)) / norm(g), stats=stats_rel(gpu_stats, st))
+            for name, (l, g, st) in pairs.items()}
+    log(f"[amp-parity] bf16 train step with the fused chain, batch 2 of 640x640, on the card with the kernels, on "
+        f"the card with the plain versions in their place, and on the CPU (plain versions, {cpu_s:.1f} s): each "
+        f"device's own assignment: foreground {int(gpu_fg.sum())} card / {int(cpu_fg.sum())} CPU anchors, agreement "
+        f"{agree:.6f} of {gpu_fg.numel()} (min {AMP_FG_AGREE}); on the CPU's assignment: losses card "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in gpu_losses.items())} / card plain "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in plain_losses.items())} / CPU "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in cpu_losses.items())}; gradient norm {norm(gpu_g):.6f} card / "
+        f"{norm(plain_g):.6f} card plain / {norm(cpu_g):.6f} CPU / {norm(f32_g):.6f} CPU f32; the kernels' step run "
+        f"twice: |g - g_again| / |g_again| {dist(gpu_g, again_g):.3e}; bf16 itself, the CPU's bf16 step against its "
+        f"f32 step: losses {loss_rel(cpu_losses, f32_losses):.3e}, gradient cosine {bf16_cos:.4f}, |g_bf16 - g_f32| "
+        f"/ |g_f32| {dist(cpu_g, f32_g):.3e}")
+    for name, d in seen.items():
+        log(f"[amp-parity] {name}: losses {d['losses']:.3e} (tol {AMP_LOSS_RTOL}), gradient cosine {d['cos']:.4f} "
+            f"(min bf16's own {bf16_cos:.4f}), |g - g_other| / |g_other| {d['dist']:.3e}, gradient norm "
+            f"{d['norm']:.3e}, BN running statistics {d['stats']:.3e} of max(|value|, 1) (tol {AMP_STATS_RTOL})")
+    check(all(math.isfinite(v) for v in gpu_losses.values()), "non-finite bf16 losses on the card")
+    check(agree >= AMP_FG_AGREE, f"only {agree:.6f} of the anchors agree on foreground under bf16")
+    for name, d in seen.items():
+        check(d["losses"] <= AMP_LOSS_RTOL, f"{name}: bf16 train losses differ by {d['losses']:.3e}")
+        check(d["cos"] >= bf16_cos, f"{name}: the gradient turned further ({d['cos']:.4f}) than bf16's own "
+                                    f"{bf16_cos:.4f}")
+        check(d["stats"] <= AMP_STATS_RTOL, f"{name}: BN running statistics differ by {d['stats']:.3e}")
+    return worst_err
 
 
 def _timing_batch(bs, size=(640, 640)):
@@ -646,22 +1118,22 @@ def phase_timing(model, card):
     return totals
 
 
-def phase_profile(model, card, out_dir, totals):
-    """torch.profiler over a few inferences per batch size: device kernel time
-    per batch against the profiled wall time, and against the unprofiled
-    total of phase 6 (the profiler slows the host)."""
+def phase_profile(card, out_dir, runs):
+    """torch.profiler over a few calls of each run (name, label, fn, calls,
+    unprofiled ms): device kernel time per call against the profiled wall
+    time, and against the unprofiled time of the timing phases (the profiler
+    slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    for bs, iters in ((1, 5), (32, 3)):
-        batch = _timing_batch(bs)
+    for name, label, fn, iters, unprofiled in runs:
         for _ in range(3):
-            model.inference(batch)
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
-                model.inference(batch)
+                fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1000 / iters
         averages = prof.key_averages()
@@ -670,14 +1142,14 @@ def phase_profile(model, card, out_dir, totals):
                          key=lambda e: -getattr(e, key))
         busy = sum(getattr(e, key) for e in kernels) / 1000 / iters
         check(busy > 0, "the profiler saw no device time")
-        path = os.path.join(out_dir, f"profile_b{bs}.txt")
+        path = os.path.join(out_dir, f"profile_{name}.txt")
         with open(path, "w") as f:
-            f.write(f"YOLOX-S f32 640x640 batch {bs}, {iters} inferences | {card}\n")
+            f.write(f"{label}, {iters} calls | {card}\n")
             f.write(averages.table(sort_by=key, row_limit=60, max_name_column_width=90))
         top = ", ".join(f"{e.key[:48]} {getattr(e, key) / 1000 / iters:.3f} ms" for e in kernels[:6])
-        log(f"[profile] batch {bs}: {sum(e.count for e in kernels) / iters:.0f} device kernels per "
-            f"batch, busy {busy:.3f} ms of {wall:.3f} ms profiled wall (idle share {1 - busy / wall:.3f}; "
-            f"{1 - busy / totals[bs]:.3f} against the unprofiled {totals[bs]:.3f} ms) -> {path}")
+        log(f"[profile] {label}: {sum(e.count for e in kernels) / iters:.0f} device kernels per "
+            f"call, busy {busy:.3f} ms of {wall:.3f} ms profiled wall (idle share {1 - busy / wall:.3f}; "
+            f"{1 - busy / unprofiled:.3f} against the unprofiled {unprofiled:.3f} ms) -> {path}")
         log(f"[profile]   largest: {top}")
 
 
@@ -1283,7 +1755,7 @@ def phase_frcnn_timing(model, card):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="DIR", help="also profile inference, tables into DIR")
+    parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
     args = parser.parse_args()
     card = phase_device()
     phase_build()
@@ -1297,7 +1769,15 @@ def main():
         launches = phase_slice(out_dir, cfg, dumped)
         phase_card_vs_cpu(cfg, model, weights)
         phase_train_vs_cpu(weights)
-        phase_train_timing(weights, card)
+        steps = {None: phase_train_timing(weights, card)}
+        fused_fwd, fused_bwd, fused_step = phase_fused_kernels(weights, card)
+        (amp_fused, amp_fused_bwd, amp_match), amp_err, amp_dumped = phase_train_amp(out_dir, weights)
+        amp_nms = phase_slice(out_dir, cfg, amp_dumped)
+        for errs in (amp_err, phase_amp_train_vs_cpu(weights)):
+            for report, err in zip((fused_fwd, fused_bwd), _fused_errs(errs)):
+                report["max_abs_err"] = max(report["max_abs_err"], err)
+        steps["bf16"] = phase_train_timing(weights, card, "bf16")
+        steps["fused"] = phase_train_timing(weights, card, "fused", fused_step)
         frcnn_cfg, frcnn, frcnn_weights = make_frcnn_weights(out_dir)
         (train_roi, train_roi_bwd, train_nms), frcnn_dumped = phase_frcnn_train(out_dir, frcnn_weights)
         roi_launches, frcnn_nms_launches = phase_frcnn_slice(out_dir, frcnn_dumped)
@@ -1306,20 +1786,27 @@ def main():
         phase_frcnn_train_timing(frcnn_weights, card)
     totals = phase_timing(model, card)
     if args.profile:
-        phase_profile(model, card, args.profile, totals)
+        batches = {bs: _timing_batch(bs) for bs in (1, 32)}
+        phase_profile(card, args.profile, [
+            *((f"b{bs}", f"YOLOX-S f32 640x640 batch {bs}", functools.partial(model.inference, batches[bs]), iters,
+               totals[bs]) for bs, iters in ((1, 5), (32, 3))),
+            *((f"step_{amp or 'f32'}", f"YOLOX-S {AMP_LABELS[amp]} train step, batch 8 of 640x640", run, 3, ms)
+              for amp, (ms, run) in steps.items())])
     phase_frcnn_timing(frcnn, card)
-    log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {train_nms} on "
-        f"Faster R-CNN det_train + {frcnn_nms_launches} on its det_test; multilevel_roi_align {train_roi} "
-        f"on det_train + {roi_launches} on det_test")
+    log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
+        f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
+        f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
+        f"multilevel_roi_align {train_roi} on det_train + {roi_launches} on det_test; fused_gemm_stats and "
+        f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
         "replaces": "basedet_tpu/ops/nms_pallas.py:26",
-        "launches": launches + train_nms + frcnn_nms_launches,
+        "launches": launches + amp_nms + train_nms + frcnn_nms_launches,
         **{k: kernel[k] for k in keys},
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
-        "replaces": "basedet_tpu/ops/matching_pallas.py:31", "launches": match_launches,
+        "replaces": "basedet_tpu/ops/matching_pallas.py:31", "launches": match_launches + amp_match,
         **{k: matching[k] for k in keys},
     }, {
         "name": "multilevel_roi_align", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
@@ -1330,6 +1817,13 @@ def main():
         "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94",
         "launches": train_roi_bwd, **{k: roi_bwd[k] for k in keys},
+    }, {
+        "name": "fused_gemm_stats", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
+        "replaces": "basedet_tpu/ops/fused_bn.py:152", "launches": amp_fused, **{k: fused_fwd[k] for k in keys},
+    }, {
+        "name": "fused_gemm_stats_backward", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
+        "replaces": "basedet_tpu/ops/fused_bn.py:257", "launches": amp_fused_bwd,
+        **{k: fused_bwd[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

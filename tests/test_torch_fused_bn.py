@@ -1,0 +1,337 @@
+"""The port's fused 1x1-GEMM + BN-statistics chain (basedet_tpu_torch) against
+the JAX package on the CPU: the plain forward and backward against
+``fused_gemm_stats(..., interpret=True)`` and ``jax.vjp`` of it (the Pallas
+kernels in interpret mode), ``csp_layer_fused`` against the JAX package's, and
+the port's ``CSPLayer`` fused branch against its own unfused bf16 branch.
+
+Inputs come from numpy with fixed seeds. Tolerances:
+  * y, dx (bf16): within one bf16 ulp, on at most 1% of the elements. Both
+    sides sum exact bf16 products in f32, in another order, and silu's f32
+    rounding differs between XLA and PyTorch; either moves a value across a
+    bf16 rounding boundary now and then (measured: 1 element of 8192).
+  * s, ss: 1e-5 of the column's sum of |y| or y² (a one-ulp y moves them by
+    that much; measured 3.4e-6).
+  * dw, dscale, dshift: 1e-5 of their largest magnitude (f32 sums in another
+    order; measured 2.5e-7; dw is bf16 on both sides, and was equal).
+  * Through a whole CSP layer the bf16 roundings of the raw tensors feed the
+    next BN's statistics, so the layer is held to 2 bf16 ulps of its output
+    scale and its gradients to 1e-2 of each tensor's largest magnitude.
+
+The kernels themselves run only on the card (``-m cuda`` there); JAX is
+imported inside the fixtures, so that test also runs on the card's machine.
+"""
+import numpy as np
+import pytest
+import torch
+
+from basedet_tpu_torch.layers import precision
+from basedet_tpu_torch.layers.blocks.csp_fused import csp_layer_fused
+from basedet_tpu_torch.layers.blocks.yolo_block import CSPLayer
+from basedet_tpu_torch.ops.fused_bn import (
+    flatten_terms,
+    fused_gemm_stats_backward_plain,
+    fused_gemm_stats_plain,
+    moments_to_affine,
+    stats_to_moments,
+    unflatten_terms,
+)
+from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+
+M, K, N = 256, 32, 64
+SPECS = [("act",), (1,), (2,), ("act", 1), (1, 1)]
+
+
+def make_terms(rng, spec, m=M):
+    """numpy terms as ``tests/ops/test_fused_bn.py`` draws them."""
+    terms = []
+    for s in spec:
+        if s == "act":
+            terms.append(("act", rng.randn(m, K), rng.randn(K, N) * 0.3))
+        else:
+            raws = [(rng.randn(m, K), rng.rand(K) + 0.5, rng.randn(K) * 0.1) for _ in range(s)]
+            terms.append(("raw", raws, rng.randn(K, N) * 0.3))
+    return terms
+
+
+def _convert(terms, bf16, f32):
+    out = []
+    for t in terms:
+        if t[0] == "act":
+            out.append(("act", bf16(t[1]), bf16(t[2])))
+        else:
+            out.append(("raw", [(bf16(x), f32(s), f32(b)) for x, s, b in t[1]], bf16(t[2])))
+    return out
+
+
+def torch_terms(terms):
+    return _convert(terms, lambda a: torch.tensor(a, dtype=torch.float32).bfloat16(),
+                    lambda a: torch.tensor(a, dtype=torch.float32))
+
+
+def jax_terms(terms):
+    import jax.numpy as jnp
+
+    return _convert(terms, lambda a: jnp.asarray(a, jnp.bfloat16), lambda a: jnp.asarray(a, jnp.float32))
+
+
+def f32(a):
+    return np.array(a.float() if isinstance(a, torch.Tensor) else a.astype("float32"), np.float32)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 ulps between two bf16 tensors (+0 and -0 equal)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def assert_bf16_close(got: torch.Tensor, want: torch.Tensor, ulps=1, share=0.01):
+    d = bf16_ulps(got.contiguous(), want.contiguous())
+    assert int(d.max()) <= ulps, int(d.max())
+    assert float((d > 0).float().mean()) <= share
+
+
+@pytest.mark.parametrize("spec,m", [*[(s, M) for s in SPECS], (("act", 1), 125)],
+                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M"])
+def test_plain_forward_matches_pallas(spec, m):
+    from basedet_tpu.ops.fused_bn import fused_gemm_stats as jax_fused
+
+    terms = make_terms(np.random.RandomState(0), spec, m)
+    yj, sj, ssj = jax_fused(jax_terms(terms), interpret=True)
+    calls = fused_gemm_stats_plain.calls
+    y, s, ss = fused_gemm_stats(torch_terms(terms))
+    assert fused_gemm_stats_plain.calls == calls + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (m, N) and s.dtype == ss.dtype == torch.float32
+    assert_bf16_close(y, torch.from_numpy(f32(yj)).bfloat16())
+    yf = y.float()
+    np.testing.assert_array_less(np.abs(s.numpy() - f32(sj)), 1e-5 * yf.abs().sum(0).numpy() + 1e-30)
+    np.testing.assert_array_less(np.abs(ss.numpy() - f32(ssj)), 1e-5 * (yf * yf).sum(0).numpy() + 1e-30)
+
+
+@pytest.mark.parametrize("spec,m", [*[(s, M) for s in SPECS], (("act", 1), 125)],
+                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M"])
+def test_plain_backward_matches_pallas_vjp(spec, m):
+    """``fused_gemm_stats_backward_plain`` against ``jax.vjp`` of the Pallas
+    forward (its custom VJP, the Pallas backward in interpret mode), on one y
+    and one set of cotangents, ds and dss included."""
+    import jax
+    import jax.numpy as jnp
+    from basedet_tpu.ops.fused_bn import _flatten_terms, _fused_gemm_flat
+
+    rng = np.random.RandomState(1)
+    terms = make_terms(rng, spec, m)
+    jspec, jflat = _flatten_terms(jax_terms(terms))
+    (yj, _, _), vjp = jax.vjp(lambda *flat: _fused_gemm_flat(jspec, flat, True, 2048), *jflat)
+    dy, ds, dss = rng.randn(m, N), rng.randn(N) * 0.01, rng.randn(N) * 0.001
+    want = vjp((jnp.asarray(dy, jnp.bfloat16), jnp.asarray(ds, jnp.float32),
+                jnp.asarray(dss, jnp.float32)))
+    y = torch.from_numpy(f32(yj)).bfloat16()
+    got = fused_gemm_stats_backward(torch_terms(terms), y, torch.tensor(dy).bfloat16(),
+                                    torch.tensor(ds, dtype=torch.float32),
+                                    torch.tensor(dss, dtype=torch.float32))
+    _, flat = flatten_terms(torch_terms(terms))
+    assert len(got) == len(want) == len(flat)
+    for g, w, x in zip(got, want, flat):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        if g.dim() == 2 and g.shape[0] == m:  # dx
+            assert_bf16_close(g, torch.from_numpy(f32(w)).bfloat16())
+        else:  # dw (bf16, as the JAX VJP casts it), dscale, dshift
+            scale = np.abs(f32(w)).max()
+            assert np.abs(f32(g) - f32(w)).max() <= 1e-5 * scale
+
+
+def test_function_gradients_follow_the_backward():
+    """The autograd Function hands its cotangents to the plain backward, with
+    zeros where ds or dss arrive as None, and a gradient for every input."""
+    rng = np.random.RandomState(2)
+    terms = torch_terms(make_terms(rng, ("act", 2)))
+    spec, flat = flatten_terms(terms)
+    leaves = [a.clone().requires_grad_() for a in flat]
+    y, s, ss = fused_gemm_stats(unflatten_terms(spec, leaves))
+    dy = torch.tensor(rng.randn(M, N)).bfloat16()
+    calls = fused_gemm_stats_backward_plain.calls
+    grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)  # ds = dss = 0
+    assert fused_gemm_stats_backward_plain.calls == calls + 1
+    zero = torch.zeros(N)
+    want = fused_gemm_stats_backward_plain(terms, y.detach(), dy, zero, zero)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    # through s and ss: the stats' cotangents reach dy_eff as ds + 2·y·dss
+    (s.sum() * 0.01 + (ss * 0.001).sum()).backward()
+    want = fused_gemm_stats_backward_plain(terms, y.detach(), torch.zeros_like(dy),
+                                           torch.full((N,), 0.01), torch.full((N,), 0.001))
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    rng = np.random.RandomState(3)
+    x, w = torch.tensor(rng.randn(M, K)), torch.tensor(rng.randn(K, N))
+    with pytest.raises(ValueError):
+        fused_gemm_stats([("act", x.bfloat16(), w.float())])  # f32 weight
+    with pytest.raises(ValueError):
+        fused_gemm_stats([("act", x.bfloat16()[:, :16], w.bfloat16())])  # K mismatch
+    with pytest.raises(ValueError):
+        fused_gemm_stats([("raw", [(x.bfloat16(), torch.ones(K).double(), torch.zeros(K))],
+                           w.bfloat16())])
+    with pytest.raises(ValueError):
+        fused_gemm_stats([("raw", [(x.bfloat16(), torch.ones(K), torch.zeros(K))] * 5, w.bfloat16())])
+    with pytest.raises(ValueError):
+        fused_gemm_stats([("act", x.bfloat16(), w.bfloat16().to("meta"))])
+
+
+def test_stats_glue_matches_jax():
+    from basedet_tpu.ops.fused_bn import moments_to_affine as jaffine
+    from basedet_tpu.ops.fused_bn import stats_to_moments as jmoments
+
+    rng = np.random.RandomState(4)
+    s, ss = rng.randn(N) * 10, rng.rand(N) * 100 + 50
+    g, b = rng.rand(N) + 0.5, rng.randn(N)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    mean, var = stats_to_moments(t(s), t(ss), M)
+    jmean, jvar = jmoments(np.float32(s), np.float32(ss), M)
+    np.testing.assert_allclose(mean.numpy(), jmean, rtol=1e-6)
+    np.testing.assert_allclose(var.numpy(), jvar, rtol=1e-6)
+    sc, sh = moments_to_affine(mean, var, t(g), t(b), 1e-3)
+    jsc, jsh = jaffine(jmean, jvar, np.float32(g), np.float32(b), 1e-3)
+    np.testing.assert_allclose(sc.numpy(), jsc, rtol=1e-6)
+    np.testing.assert_allclose(sh.numpy(), jsh, rtol=1e-6, atol=1e-6)
+
+
+def _csp_pair(cin, cout, n, shortcut, seed):
+    """A flax CSPLayer's randomised variables and the port's CSPLayer with
+    the same weights, in train mode."""
+    import jax
+
+    from basedet_tpu.layers.blocks.yolo_block import CSPLayer as JCSPLayer
+    from basedet_tpu_torch.utils.weights import state_dict_from_jax
+    from tests.test_torch_yolox import _randomise
+
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(2, 8, 8, cin) * 0.5).astype(np.float32)
+    jlayer = JCSPLayer(out_channels=cout, n=n, shortcut=shortcut, train=True)
+    variables = _randomise(jlayer.init(jax.random.PRNGKey(seed), x), rng)
+    port = CSPLayer(cin, cout, n=n, shortcut=shortcut)
+    port.load_state_dict(state_dict_from_jax(variables, port.state_dict()))
+    return jlayer, variables, port.train(), x
+
+
+CSP_CASES = [(32, 32, 1, True), (32, 32, 2, True), (32, 32, 1, False), (64, 32, 1, False)]
+
+
+@pytest.mark.parametrize("cin,cout,n,shortcut", CSP_CASES,
+                         ids=["n1", "n2", "n1-no-shortcut", "pafpn-reduce"])
+def test_csp_layer_fused_matches_jax(cin, cout, n, shortcut):
+    """Output, batch moments and the gradient of every parameter against the
+    JAX package's ``csp_layer_fused`` (interpret mode) on the same weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from basedet_tpu.layers.blocks.csp_fused import csp_layer_fused as jax_csp
+    from basedet_tpu.layers.blocks.csp_fused import flax_csp_params_to_fused
+
+    _, variables, port, x = _csp_pair(cin, cout, n, shortcut, seed=n + 2 * shortcut + cin)
+    jparams = flax_csp_params_to_fused({k: jax.tree_util.tree_map(jnp.asarray, v)
+                                        for k, v in variables.items()}, n)
+    xj = jnp.asarray(x, jnp.bfloat16)
+
+    def jloss(p):
+        out, moments = jax_csp(p, xj, n, shortcut=shortcut, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) ** 2) * 1e-3, (out, moments)
+
+    (_, (jout, jmom)), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    params = port.fused_params()
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2)).bfloat16()
+    out, moments = csp_layer_fused(params, xt, n, shortcut=shortcut)
+    assert out.shape == (2, cout, 8, 8) and out.dtype == torch.bfloat16
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    got = out.permute(0, 2, 3, 1).float()
+    want = torch.from_numpy(f32(jout))
+    scale = float(want.abs().max())
+    assert float((got.detach() - want).abs().max()) <= 2 * 2**-8 * scale
+    assert set(moments) == set(jmom)
+    for key, (mean, var) in moments.items():
+        np.testing.assert_allclose(mean.detach().numpy(), f32(jmom[key][0]), rtol=1e-2,
+                                   atol=1e-2 * float(np.abs(f32(jmom[key][0])).max()))
+        np.testing.assert_allclose(var.detach().numpy(), f32(jmom[key][1]), rtol=1e-2)
+    (got.square().sum() * 1e-3).backward()
+    for key, p in params.items():
+        ref = f32(jgrads[key])
+        if key.endswith("/w"):
+            ref = ref.transpose(3, 2, 0, 1) if ref.ndim == 4 else ref.T[..., None, None]
+        ref = ref.reshape(p.shape)
+        err = np.abs(p.grad.numpy() - ref).max()
+        assert err <= 1e-2 * np.abs(ref).max(), (key, err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("n,shortcut", [(1, True), (2, False)])
+def test_csp_fused_branch_matches_unfused_bf16_branch(n, shortcut):
+    """One state_dict, two branches of the port's CSPLayer under the bf16
+    policy: outputs, parameter gradients and the new BN running statistics.
+    The fused branch takes its variance as E[y²] - E[y]² from the fused sums
+    and rounds its raw tensors to bf16, as the JAX package's does; tolerances
+    as the JAX package's own test of the two branches states them."""
+    _, _, port, x = _csp_pair(32, 32, n, shortcut, seed=7)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2))
+    runs = {}
+    for fused in (False, True):
+        layer = CSPLayer(32, 32, n=n, shortcut=shortcut).train()
+        layer.load_state_dict(port.state_dict())
+        calls = fused_gemm_stats_plain.calls
+        with precision.precision_policy(torch.bfloat16, fused_bn=fused):
+            out = layer(xt)
+        assert (fused_gemm_stats_plain.calls - calls) == (3 + n if fused else 0)
+        (out.float().square().sum() * 1e-3).backward()
+        runs[fused] = (out.detach().float(), {k: p.grad for k, p in layer.named_parameters()},
+                       {k: v for k, v in layer.state_dict().items() if "running" in k})
+    (a, ga, sa), (b, gb, sb) = runs[True], runs[False]
+    assert a.dtype == b.dtype
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=0.05, rtol=0.05)
+    assert float((a - b).abs().mean()) < 5e-3
+    for k in gb:
+        scale = max(float(gb[k].abs().max()), 1e-3)
+        assert float((ga[k] - gb[k]).abs().max()) <= 0.06 * scale, k
+    for k in sb:
+        assert not torch.equal(sb[k], port.state_dict()[k]), k  # both branches updated it
+        np.testing.assert_allclose(sa[k].numpy(), sb[k].numpy(), atol=1e-3, rtol=1e-3, err_msg=k)
+
+
+def test_csp_fused_branch_gate():
+    """The fused branch runs only in train mode, under bf16 with the switch
+    on, for a dense SiLU layer."""
+    x = torch.randn(1, 32, 4, 4)
+    cases = [(CSPLayer(32, 32), True, torch.bfloat16, True, 4),
+             (CSPLayer(32, 32), False, torch.bfloat16, True, 0),
+             (CSPLayer(32, 32), True, None, True, 0),
+             (CSPLayer(32, 32), True, torch.bfloat16, False, 0),
+             (CSPLayer(32, 32, act="relu"), True, torch.bfloat16, True, 0),
+             (CSPLayer(32, 32, depthwise=True), True, torch.bfloat16, True, 0)]
+    for layer, train, dtype, fused, want in cases:
+        layer.train(train)
+        calls = fused_gemm_stats_plain.calls
+        with precision.precision_policy(dtype, fused_bn=fused), torch.no_grad():
+            layer(x)
+        assert fused_gemm_stats_plain.calls - calls == want
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_gpu():
+    """Kernels #3 and #4 against their plain versions on the card, with the
+    tolerances of ``chip_smoke.py``'s kernel phase (``check_fused_case``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused GEMM kernels have no CPU mode")
+    from chip_smoke import check_fused_case
+
+    rng = np.random.RandomState(5)
+    for spec, m in [*[(s, M) for s in SPECS], (("act", 1), 125), ((4, 1), 300)]:
+        terms = [(t[0], [tuple(a.cuda() for a in raw) for raw in t[1]] if t[0] == "raw" else t[1].cuda(),
+                  t[2].cuda()) for t in torch_terms(make_terms(rng, spec, m))]
+        launches = fused_gemm_stats.launches, fused_gemm_stats_backward.launches
+        cts = (torch.tensor(rng.randn(m, N), dtype=torch.float32).bfloat16().cuda(),
+               torch.tensor(rng.randn(N) * 0.01, dtype=torch.float32).cuda(),
+               torch.tensor(rng.randn(N) * 0.001, dtype=torch.float32).cuda())
+        ratios, _, _ = check_fused_case(terms, *cts)
+        assert (fused_gemm_stats.launches, fused_gemm_stats_backward.launches) == (launches[0] + 1,
+                                                                                   launches[1] + 1)
+        assert all(v <= 1.0 for v in ratios.values()), (spec, m, ratios)

@@ -1,7 +1,7 @@
 """basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
-its host code: its det_test and its det_train (YOLOX-S and tiny Faster R-CNN
-each) run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
+its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
+bf16 policy with the fused CSP chain, and tiny Faster R-CNN) run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
 blocked."""
 import json
@@ -55,7 +55,7 @@ from basedet_tpu_torch.tools import det_train
 opts = {opts!r} + ["MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8", "DATA.TRAIN.name", "dummy",
                    "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
                    "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
-trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *opts])
+trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *{flags!r}, *opts])
 print(json.dumps({{"steps": trainer.state.step,
                    "loss": trainer.meters["total_loss"].latest,
                    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
@@ -109,9 +109,10 @@ _TRAIN_OPTS = {
 }
 
 
-def _det_train_blocked(tmp_path, model):
+def _det_train_blocked(tmp_path, model, flags=(), extra=()):
     config, opts = _TRAIN_OPTS[model]
-    out = _run_blocked(_TRAIN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts))
+    out = _run_blocked(_TRAIN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config,
+                                            opts=[*opts, *extra], flags=list(flags)))
     assert out["leaked"] == []
     assert out["steps"] == 2 and out["loss"] > 0
     assert (tmp_path / "ckpt" / "dumped_model.pt").exists()
@@ -123,6 +124,24 @@ def test_det_train_runs_without_jax(tmp_path):
 
 def test_faster_rcnn_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "faster_rcnn")
+
+
+def test_det_train_amp_fused_runs_without_jax(tmp_path):
+    """The bf16 policy with the fused CSP chain (its plain versions here)."""
+    _det_train_blocked(tmp_path, "yolox_s", flags=["--amp"], extra=["TRAINER.AMP.FUSED_BN", "True"])
+
+
+def test_faster_rcnn_refuses_amp(tmp_path):
+    """``--amp`` is ported for YOLOX only: Faster R-CNN's ResNet, FPN, RPN and
+    RoIAlign kernels have no bf16 path, and det_train says so by model name."""
+    import pytest
+
+    from basedet_tpu_torch.tools import det_train
+
+    config, opts = _TRAIN_OPTS["faster_rcnn"]
+    opts = [*opts, "MODEL.BATCHSIZE", "2", "DATA.TRAIN.name", "dummy", "GLOBAL.OUTPUT_DIR", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="FasterRCNN"):
+        det_train.main(["-f", config, "--device", "cpu", "--amp", *opts])
 
 
 def test_port_sources_never_import_jax():
