@@ -1,3 +1,4 @@
+from .centernet_cfg import CenterNetConfig
 from .faster_rcnn_cfg import FasterRCNNConfig
 from .yolox_cfg import (
     YOLOXConfig,
@@ -10,6 +11,7 @@ from .yolox_cfg import (
 )
 
 __all__ = [
+    "CenterNetConfig",
     "FasterRCNNConfig",
     "YOLOXConfig",
     "YOLOXLConfig",

@@ -10,9 +10,10 @@ from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.registry import registers
 
 
-def _refuse(name: str, key: str):
+def _refuse(name: str, key: str, transforms=()):
+    unported = f" and its transforms {', '.join(transforms)} are" if transforms else " is"
     raise NotImplementedError(
-        f"dataset {name!r}: COCO loading is not ported to basedet_tpu_torch yet; "
+        f"dataset {name!r}: COCO loading{unported} not ported to basedet_tpu_torch yet; "
         f"use {key} dummy"
     )
 
@@ -22,10 +23,10 @@ def _forever(loader) -> Iterator[Dict[str, np.ndarray]]:
         yield from loader
 
 
-def _dummy_train_stream(cfg, image_size) -> Iterator[Dict[str, np.ndarray]]:
+def _dummy_train_stream(cfg, image_size, transforms=()) -> Iterator[Dict[str, np.ndarray]]:
     name = cfg.DATA.TRAIN.get("name", "dummy")
-    if name != "dummy":
-        _refuse(name, "DATA.TRAIN.name")
+    if name != "dummy":  # the synthetic batches take no augmentation
+        _refuse(name, "DATA.TRAIN.name", transforms)
     return _forever(DummyLoader(
         batch_size=cfg.MODEL.BATCHSIZE,
         image_size=tuple(image_size),
@@ -54,11 +55,13 @@ class DataloaderBuilder:
     """The default detection loader. ``dummy``: an endless stream of
     synthetic batches of ``BATCHSIZE`` images at ``DATA.DUMMY_IMAGE_SIZE``
     (512x512 unless set), as the JAX package's ``DataloaderBuilder`` gives
-    them on one device."""
+    them on one device. A real dataset is refused, naming the
+    ``AUG.TRAIN_VALUE`` transforms it would take."""
 
     @classmethod
     def build(cls, cfg):
-        return _dummy_train_stream(cfg, cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512)))
+        return _dummy_train_stream(cfg, cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512)),
+                                   [t[0] for t in cfg.AUG.get("TRAIN_VALUE", ())])
 
 
 def build_test_dataloader(cfg, dataset_name: Optional[str] = None):

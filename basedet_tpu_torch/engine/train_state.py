@@ -73,7 +73,7 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     burnin = ema_cfg.get("BURNIN_ITER", 0) if use_ema else 0
     update_period = ema_cfg.get("UPDATE_PERIOD", 1) if use_ema else 1
     names, params = zip(*model.module.named_parameters())
-    seed = cfg.get("SEED", None) or 42
+    seed = cfg.get("SEED", 42)
     draws = getattr(model, "draws_per_step", False)
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:

@@ -18,51 +18,7 @@ import torch.nn.functional as F
 
 from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.layers.blocks.csp_fused import csp_layer_fused
-from basedet_tpu_torch.layers.common.blocks import get_activation
-
-
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train mode updates the running statistics as
-    flax's ``nn.BatchNorm`` does: ``r = (1 - momentum) * r + momentum * stat``
-    with the *biased* batch variance (torch's own update uses the unbiased
-    one). Normalisation (biased batch statistics in train mode, running ones
-    in eval mode) and the state-dict keys are torch's.
-
-    Under a compute dtype it is flax's ``nn.BatchNorm(dtype=...)`` instead:
-    statistics reduced in f32 as E[x²] - E[x]² (``use_fast_variance``), the
-    normalisation in f32 in flax's order, the output in the compute dtype."""
-
-    def forward(self, x):
-        dt = precision.compute_dtype()
-        if dt is not None:
-            return self._forward_policy(x, dt)
-        if not self.training:
-            return super().forward(x)
-        # momentum 1 writes the batch mean and unbiased variance into the
-        # scratch buffers from the same fused pass that normalises
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
-        self.update_running(mean, var * ((n - 1) / n))
-        return y
-
-    def _forward_policy(self, x, dt):
-        xf = x.float()
-        if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean((0, 2, 3)) - mean * mean, 0.0)
-            self.update_running(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(dt)
-
-    @torch.no_grad()
-    def update_running(self, mean, var) -> None:
-        """flax's running update from a batch mean and biased variance."""
-        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d, get_activation
 
 
 class ConvBNAct(nn.Module):

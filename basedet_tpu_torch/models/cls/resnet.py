@@ -6,10 +6,13 @@ The stem is a plain 7x7/2 convolution with padding 3, then a 3x3/2 max-pool
 with padding 1: the JAX package computes the same operator on a
 space-to-depth packing (``ops/s2d_conv.py``), a TPU layout that is not
 ported. Submodules carry the flax names (``conv1``, ``layer1_0``,
-``downsample_conv``, ``FrozenBatchNorm_<i>`` in call order), so that
-``utils/weights.py`` maps the variable tree by name. ``freeze_at`` stops
-gradients at the stage boundary, as ``lax.stop_gradient`` does there, and
-turns ``requires_grad`` off for the frozen stages' weights.
+``downsample_conv``, and a block's norms ``FrozenBatchNorm_<i>`` or, under
+``norm="BN"``, ``BatchNorm_<i>`` in call order; the stem's lone train-mode
+``BatchNorm_0`` is ``bn``, as ``utils/weights.py`` names a parent's only BN),
+so that ``utils/weights.py`` maps the variable tree by name. ``freeze_at``
+stops gradients at the stage boundary, as ``lax.stop_gradient`` does there,
+and turns ``requires_grad`` off for the frozen stages' weights; 0 freezes
+nothing.
 """
 from __future__ import annotations
 
@@ -45,19 +48,21 @@ class _Block(nn.Module):
     """Shared forward of both block types: convs in order, each followed by
     its norm (ReLU between), then the projected or identity shortcut."""
 
-    def _add_norms(self, norm, channels, device):
-        for i, c in enumerate(channels):
-            self.add_module(f"FrozenBatchNorm_{i}", norm(c, device=device))
+    def _add_norms(self, norm: str, channels, device):
+        prefix = "FrozenBatchNorm_" if norm == "FrozenBN" else "BatchNorm_"
+        self.norms = [f"{prefix}{i}" for i in range(len(channels))]
+        for name, c in zip(self.norms, channels):
+            self.add_module(name, get_norm(norm)(c, device=device))
 
     def forward(self, x):
         y = x
         for i, conv in enumerate(self.convs):
-            y = getattr(self, f"FrozenBatchNorm_{i}")(getattr(self, conv)(y))
+            y = getattr(self, self.norms[i])(getattr(self, conv)(y))
             if i < len(self.convs) - 1:
                 y = F.relu(y)
         identity = x
         if self.has_downsample:
-            identity = getattr(self, f"FrozenBatchNorm_{len(self.convs)}")(self.downsample_conv(x))
+            identity = getattr(self, self.norms[len(self.convs)])(self.downsample_conv(x))
         return F.relu(y + identity)
 
 
@@ -72,7 +77,7 @@ class BasicBlock(_Block):
         self.has_downsample = cin != channels or stride != 1
         if self.has_downsample:
             self.downsample_conv = _conv(cin, channels, 1, stride, device)
-        self._add_norms(get_norm(norm), [channels] * (3 if self.has_downsample else 2), device)
+        self._add_norms(norm, [channels] * (3 if self.has_downsample else 2), device)
 
 
 class Bottleneck(_Block):
@@ -89,7 +94,7 @@ class Bottleneck(_Block):
         if self.has_downsample:
             self.downsample_conv = _conv(cin, out_c, 1, stride, device)
         norms = [channels, channels, out_c] + ([out_c] if self.has_downsample else [])
-        self._add_norms(get_norm(norm), norms, device)
+        self._add_norms(norm, norms, device)
 
 
 class ResNet(nn.Module):
@@ -101,7 +106,8 @@ class ResNet(nn.Module):
         self.freeze_at = freeze_at
         self.out_features = tuple(out_features)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
-        self.FrozenBatchNorm_0 = get_norm(norm)(64, device=device)
+        self.stem_norm = "FrozenBatchNorm_0" if norm == "FrozenBN" else "bn"
+        self.add_module(self.stem_norm, get_norm(norm)(64, device=device))
         self.stages = []
         cin = 64
         for s, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
@@ -118,7 +124,7 @@ class ResNet(nn.Module):
             m.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        y = F.relu(self.FrozenBatchNorm_0(self.conv1(x)))
+        y = F.relu(getattr(self, self.stem_norm)(self.conv1(x)))
         y = F.max_pool2d(y, 3, 2, 1)
         if self.freeze_at >= 1:
             y = y.detach()

@@ -1,4 +1,5 @@
+from .centernet import CenterNet
 from .faster_rcnn import FasterRCNN
 from .yolox import YOLOX
 
-__all__ = ["FasterRCNN", "YOLOX"]
+__all__ = ["CenterNet", "FasterRCNN", "YOLOX"]

@@ -39,7 +39,7 @@ from basedet_tpu_torch.ops.fused_bn import (
 )
 
 SOURCE = CSRC / "fused_bn.cu"
-MAX_TERMS, MAX_RAW = 4, 4  # kMaxTerms, kMaxRaw of the source
+MAX_TERMS, MAX_RAW = 4, 16  # kMaxTerms, kMaxRaw of the source
 TILE = 64  # kTile: output tile, and the forward's rows per partial-sum row
 SPLIT_BLOCKS = 4 * 132  # weight-gradient blocks aimed at: four per SM of an H100
 

@@ -1,12 +1,21 @@
 """Weight bridge between the JAX variable tree and the port's ``state_dict``.
 
 Pure numpy and torch. A flax leaf ``{collection}/a/b/.../leaf`` maps to the
-key ``a.b....name``, with ``BatchNorm_0`` called ``bn`` and the leaf renamed:
-conv ``kernel`` HWIO → ``weight`` OIHW (depthwise ``(k, k, 1, C)`` →
-``(C, 1, k, k)`` by the same transpose), ``Dense`` ``kernel`` (in, out) →
-``Linear.weight`` (out, in), BN ``scale/bias`` (params) and ``mean/var``
-(batch_stats) → ``weight/bias/running_mean/running_var``. Each BN also gets
-torch's ``num_batches_tracked`` buffer (0), which has no JAX counterpart.
+key ``a.b....name``, module names kept, and the leaf renamed: conv ``kernel``
+HWIO → ``weight`` OIHW (depthwise ``(k, k, 1, C)`` → ``(C, 1, k, k)`` by the
+same transpose), ``Dense`` ``kernel`` (in, out) → ``Linear.weight`` (out,
+in), BN ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
+``weight/bias/running_mean/running_var``. A train-mode BN keeps its flax name
+``BatchNorm_<i>`` where its flax parent holds several (a ResNet block, a
+CenterNet ``DeconvLayer``); a parent's only one, ``BatchNorm_0``, is called
+``bn`` (YOLOX's ``ConvBNAct``, the ResNet stem). Each BN also gets torch's
+``num_batches_tracked`` buffer (0), which has no JAX counterpart.
+
+The kernel of a module named ``up_sample`` (CenterNet's 4x4 transposed
+convolution, ``SubpixelConvTranspose2x``) is stored ``(4, 4, Ci, Co)`` with
+torch's semantics: ``ConvTranspose2d.weight`` ``(Ci, Co, 4, 4)`` is its
+``transpose(2, 3, 0, 1)``, not the conv rule's, which would swap the
+channels (and raise no error, as Ci == Co there).
 The ``frozen`` collection of ``FrozenBatchNorm_<i>`` (scale, bias, mean,
 var) maps to that module's buffers of the same four torch names; the module
 keeps its flax name.
@@ -17,12 +26,15 @@ the flax ``fc1``.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 _BN = "BatchNorm_0"
+_BN_NAME = re.compile(r"BatchNorm_\d+")
+_TRANSPOSED = "up_sample"
 _FROZEN_BN = "FrozenBatchNorm_"
 _TO_TORCH = {
     ("params", "kernel"): "weight",
@@ -48,16 +60,18 @@ _TO_JAX = {
 }
 
 
-def _kernel_to_torch(path: str, value: np.ndarray) -> np.ndarray:
-    if value.ndim == 4:  # conv HWIO → OIHW
-        return value.transpose(3, 2, 0, 1)
+def _kernel_to_torch(path: str, value: np.ndarray, transposed: bool) -> np.ndarray:
+    if value.ndim == 4:  # transposed conv (kh, kw, Ci, Co) → (Ci, Co, kh, kw); conv HWIO → OIHW
+        return value.transpose(2, 3, 0, 1) if transposed else value.transpose(3, 2, 0, 1)
     if value.ndim == 2:  # Dense (in, out) → Linear (out, in)
         return value.T
     raise ValueError(f"{path}: expected an HWIO conv or (in, out) Dense kernel, got {value.shape}")
 
 
-def _kernel_to_jax(value: np.ndarray) -> np.ndarray:
-    return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+def _kernel_to_jax(value: np.ndarray, transposed: bool) -> np.ndarray:
+    if value.ndim == 4:
+        return value.transpose(2, 3, 0, 1) if transposed else value.transpose(2, 3, 1, 0)
+    return value.T
 
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -75,14 +89,20 @@ def state_dict_from_jax(
     ``reference`` (a model's ``state_dict()``), the keys and shapes must
     match it exactly: a missing or extra key raises ``KeyError``."""
     sd: Dict[str, torch.Tensor] = {}
-    for (collection, *mods, leaf), value in _leaves(variables):
+    leaves = list(_leaves(variables))
+    # parents holding a BatchNorm_<i> beside BatchNorm_0: theirs keep their names
+    several = {tuple(path[1:-2]) for path, _ in leaves
+               if len(path) > 2 and _BN_NAME.fullmatch(path[-2]) and path[-2] != _BN}
+    for (collection, *mods, leaf), value in leaves:
         name = _TO_TORCH.get((collection, leaf))
         if name is None or not mods:
             raise KeyError(f"no torch counterpart for {'/'.join([collection, *mods, leaf])}")
         if leaf == "kernel":
-            value = _kernel_to_torch("/".join(mods), value)
-        is_bn = mods[-1] == _BN
-        key = ".".join(["bn" if m == _BN else m for m in mods] + [name])
+            value = _kernel_to_torch("/".join(mods), value, mods[-1] == _TRANSPOSED)
+        is_bn = bool(_BN_NAME.fullmatch(mods[-1]))
+        names = ["bn" if m == _BN and tuple(mods[:i]) not in several else m
+                 for i, m in enumerate(mods)]
+        key = ".".join(names + [name])
         if key in sd:
             raise KeyError(f"two JAX leaves map to {key}")
         sd[key] = torch.from_numpy(np.ascontiguousarray(value))
@@ -106,7 +126,7 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     for key, tensor in sd.items():
         *mods, name = key.split(".")
         kind = None
-        if mods and mods[-1] == "bn":
+        if mods and (mods[-1] == "bn" or _BN_NAME.fullmatch(mods[-1])):
             kind = "bn"
         elif mods and mods[-1].startswith(_FROZEN_BN):
             kind = "frozen"
@@ -118,7 +138,7 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         collection, leaf = target
         value = tensor.detach().cpu().numpy()
         if leaf == "kernel":
-            value = _kernel_to_jax(value)
+            value = _kernel_to_jax(value, mods[-1] == _TRANSPOSED)
         node = tree.setdefault(collection, {})
         for m in mods:
             node = node.setdefault(_BN if m == "bn" else m, {})

@@ -10,8 +10,9 @@ Run from the root of the repository. Phases, each of which raises on failure:
      config asks for it, and phases 7, 8, 9c, 12 and 12b hold them to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
      csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
-     in one library) and csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
-     forward and backward), with their ptxas reports;
+     in one library), csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
+     forward and backward) and csrc/scatter_rows.cu (the DCN row scatter),
+     with their ptxas reports;
   3. hold the NMS kernel to its plain PyTorch version on the card, exactly,
      on random batches at the YOLOX eval shape, at Faster R-CNN's three
      shapes (the RPN's at eval, K = 4819, and at training, B = 2 and
@@ -45,7 +46,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
      to their plain versions on the 36 fused calls of a bf16 YOLOX-S train
      forward at batch 8 of 640x640 (every distinct shape, real activations)
      and on edge cases (ragged M, 1-4 raw inputs, act + raw, K = N = 512,
-     K and N not multiples of 64, ds = dss = 0), within FUSED_SUM_RTOL;
+     K and N not multiples of 64, ds = dss = 0, and a raw term of 7 and of 13
+     inputs at YOLOX-M's and YOLOX-X's depths), within FUSED_SUM_RTOL;
      time each shape, kernel, plain version and torch.matmul + column sums,
      and sum them over a step;
   9b. det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
@@ -88,7 +90,28 @@ Run from the root of the repository. Phases, each of which raises on failure:
      RPN+proposals, RoIAlign, box head and post-process, with peak memory;
      and one train step at batch 2, split by the module's stage methods,
      with the RoIAlign backward's own time, images/s and peak memory;
- 14. print the kernel report (six kernels), the card, and the result line.
+ 14. CenterNet R50-DCNv2 (full width, random weights from a seed with BN,
+     biases and the DCN offset branches spread) through det_train: batch 16
+     of 512x512, 4 steps; check that the scatter kernel ran three times per
+     step (once per DCN stage, in the backward) and its plain version never,
+     the losses are finite and the checkpoints written; keep the first
+     step's three scatter calls;
+ 15. hold the scatter kernel to its plain version within SCATTER_RTOL of the
+     sum of |values| per element on those three calls (the step's own row
+     ids and cotangents, f32 and cast to bf16) and on edge cases (all
+     entries on one row, empty rows, out-of-range indices, N and D off the
+     tile, D = 12, B = 1), two kernel runs bit-equal each time; time each
+     stage's call, its sort glue, the plain version and index_add_;
+ 16. det_test on its dumped weights over 8 requests of one 512x512 image;
+ 17. card against CPU on a batch of 2 at full width: eval head outputs and
+     detections, then one train forward and backward: losses, gradient
+     norm, new BN running statistics;
+ 18. time its train step at batch 16, split into backbone, the three
+     deconvolution stages, heads, targets + losses, backward (with the
+     scatter calls' share) and SGD, with peak memory; with --profile, a
+     profiler pass over that step;
+ 19. print the kernel report (seven kernels in five sources), the card, and
+     the result line.
 """
 import argparse
 import concurrent.futures
@@ -132,6 +155,12 @@ HEAD_ATOL = 1e-3
 MATCH_B, MATCH_K, MATCH_M = 8, 100, 8400  # YOLOX-S train: batch 8, MAX_INSTANCES 100, 640x640
 MATCH_M_832 = 104 * 104 + 52 * 52 + 26 * 26  # anchors at 832x832
 LOSS_RTOL, FG_AGREE, GRAD_NORM_RTOL, STATS_RTOL = 1e-3, 0.999, 1e-3, 1e-4
+CNET_CONFIG = "basedet_tpu_torch/playground/centernet_r50/config.py"
+CNET_B, CNET_IMAGE, CNET_PARITY_B = 16, (512, 512), 2  # the config's batch; maps of 128x128
+# Kernel #9 against its plain version: both add each row's entries in f32 in the original n order (bf16
+# values convert exactly), so they should agree bit for bit; each output element is held to 4 f32 ulps of
+# the sum of the |values| that land on it
+SCATTER_RTOL = 4 * 2.0 ** -23
 # The fused kernels against their plain versions: every output is an f32 sum taken in another
 # order (tensor-core tiles and partial rows against cuBLAS and PyTorch's reductions), so each is
 # held to FUSED_SUM_RTOL of the sum of the magnitudes of its terms, propagated through the
@@ -195,9 +224,11 @@ def bound(bytes_moved, ops, peak_ops=PEAK_F32_PER_S):
 
 
 def phase_build():
-    from basedet_tpu_torch.ops import _build, fused_bn_kernel, matching_kernel, nms_kernel, roi_align_kernel
+    from basedet_tpu_torch.ops import (_build, fused_bn_kernel, matching_kernel, nms_kernel, roi_align_kernel,
+                                       scatter_rows_kernel)
 
-    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE, fused_bn_kernel.SOURCE]
+    sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE, fused_bn_kernel.SOURCE,
+               scatter_rows_kernel.SOURCE]
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)  # show the build from this checkout
 
@@ -886,7 +917,11 @@ def phase_fused_kernels(weights, card):
     for name, spec, M, K, N in (("M=1037 act", ("act",), 1037, 64, 32), ("M=1037 1 raw", (1,), 1037, 128, 64),
                                 ("2 raw", (2,), 4096, 64, 64), ("4 raw", (4,), 4096, 128, 64),
                                 ("act + raw", ("act", 1), 2048, 128, 128), ("4 raw + 1 raw", (4, 1), 3000, 256, 512),
-                                ("N=512 K=512", ("act",), 3200, 512, 512), ("K=24 N=40", (2,), 777, 24, 40)):
+                                ("N=512 K=512", ("act",), 3200, 512, 512), ("K=24 N=40", (2,), 777, 24, 40),
+                                # conv3's left term at YOLOX-M's depth (dark3: n = 6, so 7 raw inputs) and
+                                # YOLOX-X's (dark4: n = 12, so 13), at their widths and batch 8 of 640x640
+                                ("7 raw, YOLOX-M dark3", (7,), 8 * 80 * 80, 96, 192),
+                                ("13 raw, YOLOX-X dark4", (13,), 8 * 40 * 40, 320, 640)):
         cases.append((name, _random_fused_terms(gen, spec, M, K, N), _fused_cotangents(gen, M, N)))
     M, K, N = 5000, 96, 64
     cases.append(("ds = dss = 0", _random_fused_terms(gen, (1, 1), M, K, N), _fused_cotangents(gen, M, N, zero=True)))
@@ -1753,6 +1788,378 @@ def phase_frcnn_timing(model, card):
     check(multilevel_roi_align.launches > launches, "Faster R-CNN timing ran no RoIAlign kernel")
 
 
+# -- CenterNet R50-DCNv2 and the row scatter (kernel #9) ----------------------------------------
+
+def scatter_edges(rng):
+    """Edge cases of kernel #9, on the CPU: name -> (idx (B, N) int32, values (B, N, D), R)."""
+    def case(B, N, R, D, lo=0, hi=None, dtype=torch.float32):
+        idx = torch.from_numpy(rng.randint(lo, R if hi is None else hi, (B, N)).astype(np.int32))
+        return idx, torch.from_numpy(rng.randn(B, N, D).astype(np.float32)).to(dtype), R
+
+    cases = {
+        "all entries on one row": case(2, 2304, 289, 256),
+        "rows that receive nothing (10 of 1089 used)": case(2, 9216, 1089, 128, 0, 10),
+        "indices out of range, negative and >= R": case(2, 5000, 500, 128, -600, 1100),
+        "N and D off the tile (N 1001, D 1030)": case(2, 1001, 77, 1030),
+        "D = 12": case(2, 2304, 289, 12),
+        "B = 1, stage 3's shape": case(1, 36864, 4225, 512),
+        "bf16, D = 13": case(2, 3000, 300, 13, dtype=torch.bfloat16),
+    }
+    cases["all entries on one row"][0].fill_(7)
+    return cases
+
+
+def check_scatter_case(idx, values, n_rows):
+    """Kernel #9 run twice and its plain version on one case on the card: the two kernel runs
+    give the same bits, and each output element lies within SCATTER_RTOL of the sum of the
+    |values| that land on it. Returns (worst share of that tolerance, max |kernel - plain|)."""
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+
+    out = scatter_rows(idx, values, n_rows)
+    again = scatter_rows(idx, values, n_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
+          f"two runs of the scatter kernel differ on {tuple(values.shape)}")
+    plain = scatter_rows_plain(idx, values, n_rows)
+    mag = scatter_rows_plain(idx, values.float().abs(), n_rows)
+    err = (out - plain).abs()
+    ratio = torch.where(err > 0, err / (SCATTER_RTOL * mag), torch.zeros_like(err))
+    return float(ratio.max()) if ratio.numel() else 0.0, float(err.max()) if err.numel() else 0.0
+
+
+def scatter_bound(idx, values, n_rows):
+    """(ms, "bytes" or "operations"): idx and values read once, the (B, R, D) f32 output written
+    once; one add per value whose index lands in [0, R)."""
+    B, N, D = values.shape
+    landing = int(((idx >= 0) & (idx < n_rows)).sum())
+    return bound(idx.numel() * 4 + values.numel() * values.element_size() + B * n_rows * D * 4,
+                 landing * D)
+
+
+@torch.no_grad()
+def randomise_cnet(module, generator):
+    """Draw BN statistics and affine and every bias from generator, as ``randomise`` does for
+    YOLOX-S, and give each DCN's offset branch random weights (zero at init, where every tap sits
+    on the grid and each row of the block table receives about nine entries): then the offsets
+    are fractional, some taps fall off the map and the rows receive uneven counts."""
+    from basedet_tpu_torch.layers.blocks.deformable import ModulatedDeformConv
+
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if isinstance(getattr(m, "bias", None), torch.Tensor):
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+        if isinstance(m, ModulatedDeformConv):
+            w = m.conv_offset.weight
+            w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=generator)
+            m.conv_offset.bias.normal_(0.0, 0.5, generator=generator)
+
+
+def _cnet_opts(out_dir):
+    return ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(CNET_IMAGE).replace(" ", ""),
+            "GLOBAL.OUTPUT_DIR", out_dir]
+
+
+def _cnet_train_opts(out_dir, weights, batch=CNET_B):
+    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(CNET_IMAGE).replace(" ", ""),
+            "MODEL.BATCHSIZE", str(batch), "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH",
+            str(4 * batch), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights,
+            "GLOBAL.OUTPUT_DIR", out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "cnet_ckpt")]
+
+
+def make_cnet_weights(out_dir):
+    """Full-width CenterNet R50-DCNv2 on the card with random weights from SEED, spread by
+    ``randomise_cnet``, saved as a state_dict."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(CNET_CONFIG)
+    cfg.merge(_cnet_opts(out_dir))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise_cnet(model.module, generator)
+    weights = os.path.join(out_dir, "centernet_r50_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    m = cfg.MODEL
+    log(f"[cnet] {CNET_CONFIG}: {m.BACKBONE.NAME} (train-mode BN, freeze_at {m.BACKBONE.FREEZE_AT}), "
+        f"DCNv2 + 4x4 deconvolution stages {m.HEAD.DECONV_CHANNEL}, heads at stride {m.HEAD.DOWN_SCALE}, "
+        f"{cfg.DATA.NUM_CLASSES} classes, {sum(p.numel() for p in model.module.parameters())} "
+        f"parameters, random from seed {SEED} (offset branches random)")
+    return weights
+
+
+def phase_cnet_train(out_dir, weights):
+    """det_train on full-width CenterNet, 4 steps of 16 images of 512x512; the scatter counts are
+    zeroed just before and read just after. Keeps the first step's three scatter calls (the
+    gather's row ids and, on the way back, its cotangent) and its sampling statistics."""
+    from basedet_tpu_torch.layers.blocks import deformable
+    from basedet_tpu_torch.models.det.centernet import CenterNet
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+    from basedet_tpu_torch.tools import det_train
+
+    kept = []
+
+    def keep_gather(args, out):  # the first step's three DCN stages: row ids, rows, cotangent
+        if len(kept) < 3:
+            entry = {"idx": args[1].detach().clone(), "rows": args[0].shape[1]}
+            out.register_hook(lambda g, e=entry: e.__setitem__("values", g.detach().clone()))
+            kept.append(entry)
+
+    def sampling(args, out):  # share of taps between grid points, share wholly off the map
+        img, y, x = args
+        H, W = img.shape[1:3]
+        return (float(((y - y.floor()) > 1e-3).float().mean()),
+                float(((y <= -1) | (y >= H) | (x <= -1) | (x >= W)).float().mean()))
+
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    with recording(CenterNet, "get_losses", keep_losses) as losses, \
+            recording(deformable, "gather_rows_batched", keep_gather), \
+            recording(deformable, "bilinear_sample_batched", sampling) as taps:
+        scatter_rows.launches, scatter_rows_plain.calls = 0, 0
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", CNET_CONFIG, "--device", "cuda", *_cnet_train_opts(out_dir, weights)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain_calls = scatter_rows.launches, scatter_rows_plain.calls
+
+    steps = trainer.state.step
+    ckpt = os.path.join(out_dir, "cnet_ckpt")
+    check(steps == 4 and len(losses) == 4, f"CenterNet det_train took {steps} steps, not 4")
+    check(launches == 3 * steps, f"the scatter kernel launched {launches} times in {steps} steps, not 3 each")
+    check(plain_calls == 0, f"the plain scatter ran {plain_calls} times on the main path")
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
+    check(all(len(step) == 4 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
+    check(len(kept) == 3 and all("values" in e for e in kept), "the first step's scatter calls were not seen")
+    for name in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, name)), f"CenterNet det_train wrote no {name}")
+    cases = []
+    for stage, e in enumerate(kept, 1):
+        idx, values, rows = e["idx"], e["values"], e["rows"]
+        counts = torch.bincount((idx.long() + torch.arange(idx.shape[0], device=idx.device)[:, None] * rows).flatten(),
+                                minlength=idx.shape[0] * rows)
+        frac, off = taps[stage - 1]
+        log(f"[cnet-train] stage {stage}: scatter of {tuple(values.shape)} {str(values.dtype)[6:]} values into "
+            f"R = {rows} rows: entries per row {int(counts.min())}-{int(counts.max())} (mean "
+            f"{float(counts.float().mean()):.2f}), {int((counts == 0).sum())} rows empty; taps between grid "
+            f"points {frac:.4f}, wholly off the map {off:.4f}")
+        cases.append((f"stage {stage}", idx, values.contiguous(), rows))
+    side = CNET_IMAGE[0] // 32  # res5
+    check(kept[0]["values"].shape == (CNET_B, 9 * side * side, 4 * 2048),
+          f"stage 1's scatter took {tuple(kept[0]['values'].shape)}, not the full-width shape")
+    check(all(f > 0.5 for f, _ in taps[:3]) and any(o > 0 for _, o in taps[:3]),
+          f"the offsets did not spread the taps: {taps[:3]}")
+    per_step = "; ".join(", ".join(f"{k} {v:.4f}" for k, v in step.items()) for step in losses)
+    log(f"[cnet-train] det_train CenterNet R50-DCNv2, 4 steps of {CNET_B} images {CNET_IMAGE[0]}x{CNET_IMAGE[1]}, "
+        f"f32, in {seconds:.2f} s; scatter kernel launches {launches}, plain calls {plain_calls}; lr "
+        f"{trainer.meters['lr'].latest:.4g}; losses per step: {per_step}; checkpoints latest.pt, epoch_1.pt, "
+        f"dumped_model.pt written")
+    return launches, cases, os.path.join(ckpt, "dumped_model.pt")
+
+
+def phase_scatter_kernel(card, stages):
+    """Kernel #9 against its plain version on the first train step's three calls (the step's own
+    row ids and cotangents, f32, and the same cast to bf16) and on edge cases, two kernel runs
+    bit-equal each time; then each stage timed: kernel (with its sort glue), the glue alone, the
+    plain version and ``index_add_`` (atomics, not deterministic; the port never calls it), and
+    summed over the three calls of a step."""
+    from basedet_tpu_torch.ops.scatter_rows import row_segments, scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+
+    cases = list(stages) + [(f"{name} bf16", idx, values.bfloat16(), rows) for name, idx, values, rows in stages]
+    cases += [(name, idx.cuda(), values.cuda(), rows)
+              for name, (idx, values, rows) in scatter_edges(np.random.RandomState(SEED + 9)).items()]
+    worst, worst_err = 0.0, 0.0
+    for name, idx, values, rows in cases:
+        ratio, err = check_scatter_case(idx, values, rows)
+        worst, worst_err = max(worst, ratio), max(worst_err, err)
+        log(f"[scatter] {name}: {tuple(values.shape)} {str(values.dtype)[6:]} into {rows} rows: max |kernel - "
+            f"plain| {err:.3e}, {ratio:.3f} of the tolerance (SCATTER_RTOL {SCATTER_RTOL:.3e} x sum |values| "
+            f"per element); two kernel runs bit-equal")
+        check(ratio <= 1.0, f"scatter kernel against its plain version on {name}: {ratio:.3f} of the tolerance")
+
+    step = dict(ms=0.0, glue=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = []
+    for name, idx, values, rows in stages:
+        B, N, D = values.shape
+        key = torch.where((idx >= 0) & (idx < rows), idx.long() + torch.arange(B, device="cuda")[:, None] * rows,
+                          B * rows).flatten()
+        flat = values.view(B * N, D)
+
+        def library():
+            return torch.zeros(B * rows + 1, D, device="cuda").index_add_(0, key, flat)
+
+        t = dict(ms=cuda_ms(lambda: scatter_rows(idx, values, rows), reps=20, warmup=3),
+                 glue=cuda_ms(lambda: row_segments(idx, rows), reps=20, warmup=3),
+                 plain_ms=cuda_ms(lambda: scatter_rows_plain(idx, values, rows), reps=3, warmup=1),
+                 library_ms=cuda_ms(library, reps=20, warmup=3))
+        t["bound_ms"], b = scatter_bound(idx, values, rows)
+        by.append(b)
+        for k in step:
+            step[k] += t[k]
+        log(f"[scatter] {name} {tuple(values.shape)} -> ({B}, {rows}, {D}): kernel {t['ms']:.4f} ms (of which the "
+            f"sort glue {t['glue']:.4f}), bound {t['bound_ms']:.4f} ms ({b}), plain {t['plain_ms']:.4f}, "
+            f"index_add_ {t['library_ms']:.4f} | {card}")
+    log(f"[scatter] per train step at batch {CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]} (3 calls): kernel "
+        f"{step['ms']:.4f} ms (sort glue {step['glue']:.4f}), bound {step['bound_ms']:.4f} ms, plain "
+        f"{step['plain_ms']:.4f}, index_add_ {step['library_ms']:.4f}; worst case {worst:.3f} of the tolerance | {card}")
+    return dict(max_abs_err=worst_err, ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+                bound_by=max(set(by), key=by.count), library_ms=step["library_ms"])
+
+
+def phase_cnet_slice(out_dir, weights):
+    """det_test on full-width CenterNet over 8 requests of one 512x512 image."""
+    from basedet_tpu_torch.tools import det_test
+
+    t0 = time.perf_counter()
+    results = det_test.main(["-f", CNET_CONFIG, "-w", weights, "--device", "cuda", *_cnet_opts(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    check(len(records) >= 1, "CenterNet det_test gave no detections")
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), "non-finite detections")
+    check({r["image_id"] for r in records} == set(range(8)), "not every request was answered")
+    log(f"[cnet] det_test CenterNet R50-DCNv2 with {os.path.basename(weights)} on 8 requests of "
+        f"{CNET_IMAGE[0]}x{CNET_IMAGE[1]}: {results}, {len(records)} finite detections in {seconds:.2f} s")
+
+
+def _cnet_train_setup(weights, device, batch):
+    """Full-width CenterNet in train mode with ``weights``, its train state and step, and the first
+    synthetic batch of ``batch`` 512x512 images."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.solver import DetSolver
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(CNET_CONFIG)
+    cfg.merge(_cnet_train_opts(".", weights, batch))
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    solver = DetSolver.build(cfg)
+    state = TrainState(model.train(), solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def phase_cnet_card_vs_cpu(weights):
+    """CenterNet card against CPU, f32, TF32 off, on one batch of 2 at full width: the eval-mode
+    head outputs and detections, then one train forward and backward: losses, gradient norm and
+    the new BN running statistics."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+    from basedet_tpu_torch.utils.compare import match_detections
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model, _, _, batch = _cnet_train_setup(weights, device, CNET_PARITY_B)
+        request = {k: batch[k] for k in ("data", "im_info")}
+        t0 = time.perf_counter()
+        model.eval()
+        with torch.inference_mode(), full_f32():
+            m = model.module
+            y = m.features(model.pre_process(request)["image"])
+            stages = {"res5": y.cpu()}
+            for i, stage in enumerate(m.upsample.stages(), 1):
+                y = stage(y)
+                stages[f"deconv{i}"] = y.cpu()
+            heads = {k: v.cpu() for k, v in m.heads(y).items()}
+        dets = {k: v.cpu().numpy() for k, v in model.inference(request).items()}
+        model.train()
+        launches = scatter_rows.launches
+        model.module.zero_grad(set_to_none=True)
+        with full_f32():  # the backward too, as the train step holds it
+            total, losses = model.get_losses(batch)
+            total.backward()
+        norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.module.parameters())))
+        stats = {k: v.double().cpu() for k, v in model.module.state_dict().items() if "running" in k}
+        runs[device] = dict(heads=heads, stages=stages, dets=dets,
+                            losses={k: float(v.detach()) for k, v in losses.items()},
+                            norm=norm, stats=stats, launches=scatter_rows.launches - launches,
+                            seconds=time.perf_counter() - t0)
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    head_err = {k: (float((gpu["heads"][k] - v).abs().max()), float(v.abs().max())) for k, v in cpu["heads"].items()}
+    worst_head = max(err for err, _ in head_err.values())
+    stage_err = {k: float((gpu["stages"][k] - v).abs().max() / v.abs().max()) for k, v in cpu["stages"].items()}
+    frac = match_detections(cpu["dets"], gpu["dets"])
+    rel = {k: abs(gpu["losses"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["losses"].items()}
+    norm_rel = abs(gpu["norm"] - cpu["norm"]) / cpu["norm"]
+    stats_rel = max(float(((gpu["stats"][k] - v).abs() / v.abs().clamp(min=1.0)).max())
+                    for k, v in cpu["stats"].items())
+    log(f"[parity] CenterNet card vs CPU, f32, batch {CNET_PARITY_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]} (CPU run "
+        f"{cpu['seconds']:.1f} s, plain scatter; card scatter launches {gpu['launches']}): eval features, max |diff| "
+        f"over max |value|: {', '.join(f'{k} {v:.3e}' for k, v in stage_err.items())}; heads max |diff| (max |value|) "
+        f"{', '.join(f'{k} {e:.3e} ({v:.3e})' for k, (e, v) in head_err.items())} (tol {HEAD_ATOL}); "
+        f"{int(cpu['dets']['valid'].sum())} CPU / "
+        f"{int(gpu['dets']['valid'].sum())} card detections, {frac:.4f} matched (label, IoU >= 0.999, |dscore| "
+        f"<= 1e-4); train losses card {', '.join(f'{k} {v:.6f}' for k, v in gpu['losses'].items())} / CPU "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in cpu['losses'].items())}, worst rel diff {max(rel.values()):.3e} "
+        f"(tol {LOSS_RTOL}); gradient norm {gpu['norm']:.6f} card / {cpu['norm']:.6f} CPU, rel diff "
+        f"{norm_rel:.3e} (tol {GRAD_NORM_RTOL}); new BN running statistics differ by {stats_rel:.3e} of "
+        f"max(|value|, 1) (tol {STATS_RTOL})")
+    check(gpu["launches"] == 3, f"the card's train backward launched the scatter kernel {gpu['launches']} times")
+    check(worst_head <= HEAD_ATOL, f"CenterNet head outputs differ between card and CPU: {head_err}")
+    check(np.isfinite(gpu["dets"]["boxes"]).all() and gpu["dets"]["valid"].any(),
+          "card detections empty or non-finite")
+    check(frac >= 0.95, f"only {frac:.3f} of the CPU's CenterNet detections matched on the card")
+    check(all(math.isfinite(v) for v in gpu["losses"].values()), "non-finite CenterNet losses on the card")
+    check(max(rel.values()) <= LOSS_RTOL, f"CenterNet train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"CenterNet gradient norms differ by {norm_rel:.3e}")
+    check(stats_rel <= STATS_RTOL, f"CenterNet BN running statistics differ by {stats_rel:.3e}")
+
+
+def phase_cnet_train_timing(weights, card, scatter_step_ms):
+    """One f32 CenterNet train step at batch 16 of 512x512 (input already on the card): backbone,
+    each deconvolution stage, heads, and targets + losses, each timed alone on the previous
+    stage's outputs with gradients enabled; get_losses, get_losses with backward and the whole
+    step as nested prefixes; the three scatter calls' share of the backward from the kernel
+    phase; peak memory. Returns (step ms, a function running one step)."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    model, state, step, batch = _cnet_train_setup(weights, "cuda", CNET_B)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    m, reps = model.module, 10
+
+    def timed(fn):
+        def run():
+            with full_f32():
+                return fn()
+        return cuda_ms(run, reps=reps, warmup=2), run()
+
+    x = model.pre_process(batch, train=True)
+    t_backbone, y = timed(lambda: m.features(x["image"]))
+    t_stages = []
+    for stage in m.upsample.stages():
+        t, y = timed(lambda y=y, stage=stage: stage(y))
+        t_stages.append(t)
+    t_heads, pred = timed(lambda: m.heads(y))
+    t_losses, _ = timed(lambda: model.losses(pred, x["img_info"], x["gt_boxes"]))
+    del y, pred
+
+    def losses_backward():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch)[0].backward()
+
+    t_loss, _ = timed(lambda: model.get_losses(batch)[0])
+    t_fb, _ = timed(losses_backward)
+    torch.cuda.reset_peak_memory_stats()
+    t_step = cuda_ms(lambda: step(state, batch), reps=reps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    t_bwd = t_fb - t_loss
+    log(f"[timing] CenterNet R50-DCNv2 f32 train step, batch {CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]}: "
+        f"{t_step:.3f} ms per step ({1000 * CNET_B / t_step:.2f} img/s); each alone, gradients enabled: backbone "
+        f"{t_backbone:.3f}, deconvolution stages {', '.join(f'{t:.3f}' for t in t_stages)}, heads {t_heads:.3f}, "
+        f"targets+losses {t_losses:.3f} ms; get_losses {t_loss:.3f} ms, backward {t_bwd:.3f} ms (of which the "
+        f"three scatter calls {scatter_step_ms:.3f} ms, {scatter_step_ms / t_bwd:.3f} of it, timed alone on the "
+        f"first det_train step's own arguments), SGD {t_step - t_fb:.3f} ms (differences of means of {reps} "
+        f"runs of nested prefixes); peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), input "
+        f"already on the card | {card}")
+    return t_step, lambda: step(state, batch)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -1784,6 +2191,13 @@ def main():
         phase_frcnn_card_vs_cpu(frcnn_cfg, frcnn, frcnn_weights)
         phase_frcnn_train_vs_cpu(frcnn_weights)
         phase_frcnn_train_timing(frcnn_weights, card)
+        cnet_weights = make_cnet_weights(out_dir)
+        cnet_launches, scatter_stages, cnet_dumped = phase_cnet_train(out_dir, cnet_weights)
+        scatter = phase_scatter_kernel(card, scatter_stages)
+        del scatter_stages
+        phase_cnet_slice(out_dir, cnet_dumped)
+        phase_cnet_card_vs_cpu(cnet_weights)
+        cnet_step = phase_cnet_train_timing(cnet_weights, card, scatter["ms"])
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -1793,11 +2207,16 @@ def main():
             *((f"step_{amp or 'f32'}", f"YOLOX-S {AMP_LABELS[amp]} train step, batch 8 of 640x640", run, 3, ms)
               for amp, (ms, run) in steps.items())])
     phase_frcnn_timing(frcnn, card)
+    if args.profile:
+        phase_profile(card, args.profile, [("step_centernet", f"CenterNet R50-DCNv2 f32 train step, batch "
+                                            f"{CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]}", cnet_step[1], 3,
+                                            cnet_step[0])])
     log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
         f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
         f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
         f"multilevel_roi_align {train_roi} on det_train + {roi_launches} on det_test; fused_gemm_stats and "
-        f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp")
+        f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp; scatter_rows {cnet_launches} on "
+        f"CenterNet det_train")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
@@ -1824,6 +2243,10 @@ def main():
         "name": "fused_gemm_stats_backward", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
         "replaces": "basedet_tpu/ops/fused_bn.py:257", "launches": amp_fused_bwd,
         **{k: fused_bwd[k] for k in keys},
+    }, {
+        "name": "scatter_rows", "route": "cuda", "source": "basedet_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": "basedet_tpu/ops/scatter_onehot.py:117", "launches": cnet_launches,
+        **{k: scatter[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

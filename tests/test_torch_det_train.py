@@ -1,7 +1,8 @@
 """``det_train`` of the port end to end on the CPU, at a tiny size, then
 ``det_test`` on what it wrote: tiny YOLOX-S (width 0.25) on synthetic 96²
-batches of 2, multiscale live (64-128), two epochs of two steps; and tiny
-Faster R-CNN (as tests/tiny.py shrinks it) on 128x192 batches of 2, likewise."""
+batches of 2, multiscale live (64-128), two epochs of two steps; tiny
+Faster R-CNN (as tests/tiny.py shrinks it) on 128x192 batches of 2, likewise;
+and tiny CenterNet (likewise) on 128x128 batches of 2."""
 import json
 import math
 
@@ -11,6 +12,7 @@ from basedet_tpu_torch.tools import det_test, det_train
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN_CONFIG = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
+CENTERNET_CONFIG = "basedet_tpu_torch/playground/centernet_r50/config.py"
 
 
 def _opts(out):
@@ -98,3 +100,46 @@ def test_faster_rcnn_det_train_then_det_test_on_cpu(tmp_path):
     assert {r["image_id"] for r in records} == set(range(8))
     # no -w: the checkpoint that last_checkpoint names
     assert det_test.main(["-f", FRCNN_CONFIG, "--device", "cpu", *frcnn_opts(tmp_path)])["num_detections"] > 0
+
+
+def centernet_opts(out):
+    return ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.HEAD.DECONV_CHANNEL", "[512,64,32,16]",
+            "MODEL.HEAD.IN_CHANNELS", "16", "MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8",
+            "DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", "(128,128)",
+            "SOLVER.MAX_EPOCH", "2", "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
+            "GLOBAL.OUTPUT_DIR", str(out), "GLOBAL.CKPT_SAVE_DIR", str(out / "ckpt")]
+
+
+def test_centernet_det_train_then_det_test_on_cpu(tmp_path):
+    """Four steps through the DCN stages (the scatter's plain version three
+    times a step), every stage trained (FREEZE_AT 0), train-mode BN
+    statistics moved; then det_test serves the dump."""
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
+
+    calls = scatter_rows_plain.calls
+    trainer = det_train.main(["-f", CENTERNET_CONFIG, "--device", "cpu", *centernet_opts(tmp_path)])
+    assert trainer.state.step == 4 and scatter_rows_plain.calls - calls == 12
+    for k in ("total_loss", "loss_cls", "loss_box_wh", "loss_center_reg"):
+        assert math.isfinite(trainer.meters[k].latest) and trainer.meters[k].latest > 0, k
+    module = trainer.model.module
+    assert module.bottom_up.conv1.weight.grad is not None
+    assert not torch.equal(module.bottom_up.bn.running_var, torch.ones(64))
+    assert not torch.equal(module.upsample.deconv3.BatchNorm_1.running_mean, torch.zeros(16))
+
+    dumped = tmp_path / "ckpt" / "dumped_model.pt"
+    results = det_test.main(["-f", CENTERNET_CONFIG, "-w", str(dumped), "--device", "cpu",
+                             *centernet_opts(tmp_path)])
+    records = json.loads((tmp_path / "predict_coco.json").read_text())
+    assert results["num_detections"] == len(records) > 0
+    assert {r["image_id"] for r in records} == set(range(8))
+
+
+def test_centernet_refuses_a_real_dataset_naming_its_transforms(tmp_path):
+    """Only the synthetic loader is ported: a real dataset is refused, with
+    the augmentations (CenterAffine and the colour jitters) that would come
+    with it."""
+    import pytest
+
+    opts = [*centernet_opts(tmp_path), "DATA.TRAIN.name", "coco_2017_train"]
+    with pytest.raises(NotImplementedError, match="CenterAffine, RandomHorizontalFlip, RandomBrightness"):
+        det_train.main(["-f", CENTERNET_CONFIG, "--device", "cpu", *opts])

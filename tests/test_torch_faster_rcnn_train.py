@@ -160,6 +160,30 @@ def test_get_losses_draws_from_seed_and_step(pair):
     assert float(a) == float(b) != float(c)
 
 
+def test_seed_zero_draws_unlike_an_unset_seed(monkeypatch):
+    """``SEED 0`` is a seed of its own: the train step hands the model 0, not
+    the default 42, so its sampling noise differs from an unset seed's, as
+    the JAX package keys ``PRNGKey(cfg.get("SEED", 42))``."""
+    from basedet_tpu_torch.models.det import faster_rcnn
+
+    drawn = []
+    real = faster_rcnn.draw_sampling_noise
+    monkeypatch.setattr(faster_rcnn, "draw_sampling_noise",
+                        lambda *a: drawn.append(real(*a)) or drawn[-1])
+    for seed in (None, 0, 42):
+        cfg = tiny_cfg()
+        if seed is not None:
+            cfg.SEED = seed
+        port = build_model(cfg, "cpu").train()
+        solver = DetSolver.build(cfg)
+        make_train_step(port, solver, cfg)(TrainState(port, solver), make_batch())
+    unset, zero, forty_two = drawn
+    assert unset.keys() == zero.keys()
+    for k in unset:
+        assert torch.equal(unset[k], forty_two[k]), k
+        assert not torch.equal(unset[k], zero[k]), k
+
+
 def test_get_losses_with_an_image_without_gt(pair):
     """No gt in the second image: its anchors are all background, none of its
     RoIs weighs anything, and the losses stay finite and match."""

@@ -35,10 +35,14 @@ from basedet_tpu_torch.ops.fused_bn import (
     stats_to_moments,
     unflatten_terms,
 )
-from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+from basedet_tpu_torch.ops.fused_bn_kernel import MAX_RAW, fused_gemm_stats, fused_gemm_stats_backward
 
 M, K, N = 256, 32, 64
 SPECS = [("act",), (1,), (2,), ("act", 1), (1, 1)]
+# one raw term with as many inputs as conv3's left term of a CSP layer with n
+# bottlenecks has (n + 1): YOLOX-M's n = 6 and YOLOX-X's n = 12
+WIDE_CASES = [((7,), M), ((13,), M)]
+WIDE_IDS = ["raw7-yolox-m", "raw13-yolox-x"]
 
 
 def make_terms(rng, spec, m=M):
@@ -92,8 +96,8 @@ def assert_bf16_close(got: torch.Tensor, want: torch.Tensor, ulps=1, share=0.01)
     assert float((d > 0).float().mean()) <= share
 
 
-@pytest.mark.parametrize("spec,m", [*[(s, M) for s in SPECS], (("act", 1), 125)],
-                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M"])
+@pytest.mark.parametrize("spec,m", [*[(s, M) for s in SPECS], (("act", 1), 125), *WIDE_CASES],
+                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M", *WIDE_IDS])
 def test_plain_forward_matches_pallas(spec, m):
     from basedet_tpu.ops.fused_bn import fused_gemm_stats as jax_fused
 
@@ -109,12 +113,17 @@ def test_plain_forward_matches_pallas(spec, m):
     np.testing.assert_array_less(np.abs(ss.numpy() - f32(ssj)), 1e-5 * (yf * yf).sum(0).numpy() + 1e-30)
 
 
-@pytest.mark.parametrize("spec,m", [*[(s, M) for s in SPECS], (("act", 1), 125)],
-                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M"])
-def test_plain_backward_matches_pallas_vjp(spec, m):
+@pytest.mark.parametrize("spec,m,dx_ulps", [*[(s, M, 1) for s in SPECS], (("act", 1), 125, 1),
+                                            *[(s, m, 2) for s, m in WIDE_CASES]],
+                         ids=[*["-".join(map(str, s)) for s in SPECS], "odd-M", *WIDE_IDS])
+def test_plain_backward_matches_pallas_vjp(spec, m, dx_ulps):
     """``fused_gemm_stats_backward_plain`` against ``jax.vjp`` of the Pallas
     forward (its custom VJP, the Pallas backward in interpret mode), on one y
-    and one set of cotangents, ds and dss included."""
+    and one set of cotangents, ds and dss included. A wide raw term has 7 or
+    13 dx tensors, so 7 or 13 times the elements where the f32 sum of dact's
+    64 products cancels to near zero: there the two sums' orders differ by 2
+    ulps now and then (measured: one element of 16,384 at 7 inputs, |dx|
+    1.2e-5 against a largest 10.3), still on at most 1% of the elements."""
     import jax
     import jax.numpy as jnp
     from basedet_tpu.ops.fused_bn import _flatten_terms, _fused_gemm_flat
@@ -135,7 +144,7 @@ def test_plain_backward_matches_pallas_vjp(spec, m):
     for g, w, x in zip(got, want, flat):
         assert g.shape == x.shape and g.dtype == x.dtype
         if g.dim() == 2 and g.shape[0] == m:  # dx
-            assert_bf16_close(g, torch.from_numpy(f32(w)).bfloat16())
+            assert_bf16_close(g, torch.from_numpy(f32(w)).bfloat16(), ulps=dx_ulps)
         else:  # dw (bf16, as the JAX VJP casts it), dscale, dshift
             scale = np.abs(f32(w)).max()
             assert np.abs(f32(g) - f32(w)).max() <= 1e-5 * scale
@@ -176,7 +185,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fused_gemm_stats([("raw", [(x.bfloat16(), torch.ones(K).double(), torch.zeros(K))],
                            w.bfloat16())])
     with pytest.raises(ValueError):
-        fused_gemm_stats([("raw", [(x.bfloat16(), torch.ones(K), torch.zeros(K))] * 5, w.bfloat16())])
+        fused_gemm_stats([("raw", [(x.bfloat16(), torch.ones(K), torch.zeros(K))] * (MAX_RAW + 1),
+                           w.bfloat16())])
     with pytest.raises(ValueError):
         fused_gemm_stats([("act", x.bfloat16(), w.bfloat16().to("meta"))])
 
@@ -217,14 +227,20 @@ def _csp_pair(cin, cout, n, shortcut, seed):
     return jlayer, variables, port.train(), x
 
 
-CSP_CASES = [(32, 32, 1, True), (32, 32, 2, True), (32, 32, 1, False), (64, 32, 1, False)]
+# (cin, cout, n, shortcut, gradient tolerance relative to each tensor's largest entry)
+CSP_CASES = [(32, 32, 1, True, 1e-2), (32, 32, 2, True, 1e-2), (32, 32, 1, False, 1e-2),
+             (64, 32, 1, False, 1e-2), (32, 32, 6, True, 2e-2)]
 
 
-@pytest.mark.parametrize("cin,cout,n,shortcut", CSP_CASES,
-                         ids=["n1", "n2", "n1-no-shortcut", "pafpn-reduce"])
-def test_csp_layer_fused_matches_jax(cin, cout, n, shortcut):
+@pytest.mark.parametrize("cin,cout,n,shortcut,grad_rtol", CSP_CASES,
+                         ids=["n1", "n2", "n1-no-shortcut", "pafpn-reduce", "n6-yolox-m"])
+def test_csp_layer_fused_matches_jax(cin, cout, n, shortcut, grad_rtol):
     """Output, batch moments and the gradient of every parameter against the
-    JAX package's ``csp_layer_fused`` (interpret mode) on the same weights."""
+    JAX package's ``csp_layer_fused`` (interpret mode) on the same weights.
+    YOLOX-M's depth (n = 6, so conv3's left term has 7 raw inputs) chains six
+    bottlenecks' bf16 roundings into the next statistics: its worst gradient
+    lies 1.1e-2 of its largest entry away (m5a/w, two bf16 ulps of that entry;
+    n = 1 and 2: 0.63e-2 and 0.87e-2), so it is held to 2e-2."""
     import jax
     import jax.numpy as jnp
 
@@ -262,7 +278,7 @@ def test_csp_layer_fused_matches_jax(cin, cout, n, shortcut):
             ref = ref.transpose(3, 2, 0, 1) if ref.ndim == 4 else ref.T[..., None, None]
         ref = ref.reshape(p.shape)
         err = np.abs(p.grad.numpy() - ref).max()
-        assert err <= 1e-2 * np.abs(ref).max(), (key, err, np.abs(ref).max())
+        assert err <= grad_rtol * np.abs(ref).max(), (key, err, np.abs(ref).max())
 
 
 @pytest.mark.parametrize("n,shortcut", [(1, True), (2, False)])
@@ -324,7 +340,7 @@ def test_kernels_match_plain_on_gpu():
     from chip_smoke import check_fused_case
 
     rng = np.random.RandomState(5)
-    for spec, m in [*[(s, M) for s in SPECS], (("act", 1), 125), ((4, 1), 300)]:
+    for spec, m in [*[(s, M) for s in SPECS], (("act", 1), 125), ((4, 1), 300), *WIDE_CASES]:
         terms = [(t[0], [tuple(a.cuda() for a in raw) for raw in t[1]] if t[0] == "raw" else t[1].cuda(),
                   t[2].cuda()) for t in torch_terms(make_terms(rng, spec, m))]
         launches = fused_gemm_stats.launches, fused_gemm_stats_backward.launches

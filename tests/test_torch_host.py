@@ -24,7 +24,7 @@ OVERRIDES = ["SOLVER.BASIC_LR", "0.02", "MODEL.BACKBONE.NAME", "resnet18",
 
 
 @pytest.mark.parametrize("name", ["YOLOXSConfig", "YOLOXTinyConfig", "YOLOXNanoConfig",
-                                  "FasterRCNNConfig"])
+                                  "FasterRCNNConfig", "CenterNetConfig"])
 def test_config_trees_equal_the_jax_package(name):
     port, ref = getattr(port_configs, name)(), getattr(jax_configs, name)()
     assert port.to_dict() == ref.to_dict()
@@ -33,7 +33,7 @@ def test_config_trees_equal_the_jax_package(name):
     assert port.DATA.DUMMY_IMAGE_SIZE == (800, 1333)
 
 
-@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x"])
+@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x", "centernet_r50"])
 def test_playground_configs_equal_the_jax_package(model):
     port = import_config(f"basedet_tpu_torch/playground/{model}/config.py")
     ref = jax_import_config(f"playground/{model}/config.py")

@@ -1,7 +1,8 @@
 """basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
 its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
-bf16 policy with the fused CSP chain, and tiny Faster R-CNN) run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
+bf16 policy with the fused CSP chain, tiny Faster R-CNN and tiny CenterNet)
+run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
 blocked."""
 import json
@@ -16,6 +17,10 @@ REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2")
 YOLOX = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
+CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
+# tiny CenterNet as tests/tiny.py shrinks it, on 128x128 images
+_TINY_CENTERNET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.HEAD.DECONV_CHANNEL", "[512,64,32,16]",
+                   "MODEL.HEAD.IN_CHANNELS", "16", "DATA.DUMMY_IMAGE_SIZE", "(128,128)"]
 
 _BLOCK = r"""
 import importlib, json, pkgutil, sys
@@ -79,6 +84,7 @@ _TEST_OPTS = {
                             "MODEL.RPN.TEST_PREV_NMS_TOPK", "200", "MODEL.RPN.TEST_POST_NMS_TOPK",
                             "100", "TEST.CLS_THRESHOLD", "0.0", "DATA.TEST.name", "dummy",
                             "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]),
+    "centernet": (CENTERNET, [*_TINY_CENTERNET, "DATA.TEST.name", "dummy"]),
 }
 
 
@@ -100,12 +106,17 @@ def test_faster_rcnn_det_test_runs_without_jax(tmp_path):
     _det_test_blocked(tmp_path, "faster_rcnn")
 
 
+def test_centernet_det_test_runs_without_jax(tmp_path):
+    _det_test_blocked(tmp_path, "centernet")
+
+
 _TRAIN_OPTS = {
     "yolox_s": (YOLOX, ["MODEL.WIDTH_FACTOR", "0.25", "AUG.TRAIN_SETTING.INPUT_SIZE", "(64,64)",
                         "AUG.TRAIN_SETTING.MULTISCALE_RANGE", "(2,3)"]),
     "faster_rcnn": (FRCNN, ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64",
                             "MODEL.RPN.TRAIN_PREV_NMS_TOPK", "200", "MODEL.RPN.TRAIN_POST_NMS_TOPK",
                             "100", "MODEL.RCNN.NUM_ROIS", "64", "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]),
+    "centernet": (CENTERNET, _TINY_CENTERNET),
 }
 
 
@@ -124,6 +135,10 @@ def test_det_train_runs_without_jax(tmp_path):
 
 def test_faster_rcnn_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "faster_rcnn")
+
+
+def test_centernet_det_train_runs_without_jax(tmp_path):
+    _det_train_blocked(tmp_path, "centernet")
 
 
 def test_det_train_amp_fused_runs_without_jax(tmp_path):
