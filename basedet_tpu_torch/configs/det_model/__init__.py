@@ -1,5 +1,6 @@
 from .centernet_cfg import CenterNetConfig
 from .faster_rcnn_cfg import FasterRCNNConfig
+from .retinanet_cfg import RetinaNetConfig
 from .yolox_cfg import (
     YOLOXConfig,
     YOLOXLConfig,
@@ -13,6 +14,7 @@ from .yolox_cfg import (
 __all__ = [
     "CenterNetConfig",
     "FasterRCNNConfig",
+    "RetinaNetConfig",
     "YOLOXConfig",
     "YOLOXLConfig",
     "YOLOXMConfig",

@@ -1,8 +1,9 @@
 """Feature Pyramid Network in NCHW (counterpart of ``basedet_tpu/layers/backbone/fpn.py``):
 lateral 1x1 and output 3x3 convs over the bottom-up features, a bilinear
-top-down pass, and the ``p6`` top block (a stride-2 subsample of the last
-level). Only what Faster R-CNN uses is ported: no norm, and always the
-``p6`` top block.
+top-down pass, and a top block: ``p6``, a stride-2 subsample of the last
+level (Faster R-CNN), or ``p6p7``, two 3x3 stride-2 convs, ``fpn_p6`` on
+``top_block_in_feature`` (RetinaNet: ``res5``) and ``fpn_p7`` on
+``relu(p6)``. Not ported: norm, and the ``deconv`` top-down upsampling.
 """
 from __future__ import annotations
 
@@ -23,20 +24,31 @@ def upsample_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 class FPN(nn.Module):
     """Bottom-up features {name: (B, C_in, H, W)} fine→coarse → {p<k>: (B,
-    out_channels, H, W)}, with p<last + 1> from the ``p6`` top block. Convs
-    are named as the flax ones (``fpn_lateral_<name>``, ``fpn_output_<name>``)."""
+    out_channels, H, W)}, with p<last + 1> (``p6``) or p<last + 1> and
+    p<last + 2> (``p6p7``) from the top block; ``p6p7`` reads the bottom-up
+    feature ``top_block_in_feature``. Convs are named as the flax ones
+    (``fpn_lateral_<name>``, ``fpn_output_<name>``, ``fpn_p6``, ``fpn_p7``)."""
 
     def __init__(self, in_features: Sequence[str], in_channels: Sequence[int],
-                 strides: Sequence[int], out_channels: int = 256, norm=None, device=None):
+                 strides: Sequence[int], out_channels: int = 256, norm=None,
+                 top_block: str = "p6", top_block_in_feature: str = "res5", device=None):
         super().__init__()
         if norm:
             raise NotImplementedError(f"FPN with norm {norm!r} is not ported to basedet_tpu_torch yet")
+        if top_block not in ("p6", "p6p7"):
+            raise NotImplementedError(f"FPN top block {top_block!r} is not ported to basedet_tpu_torch yet")
         self.in_features = tuple(in_features)
         self.strides = tuple(strides)
+        self.top_block = top_block
+        self.top_block_in_feature = top_block_in_feature
         for name, cin in zip(self.in_features, in_channels):
             self.add_module(f"fpn_lateral_{name}", nn.Conv2d(cin, out_channels, 1, device=device))
             self.add_module(f"fpn_output_{name}",
                             nn.Conv2d(out_channels, out_channels, 3, padding=1, device=device))
+        if top_block == "p6p7":
+            cin = dict(zip(self.in_features, in_channels))[top_block_in_feature]
+            self.fpn_p6 = nn.Conv2d(cin, out_channels, 3, 2, padding=1, device=device)
+            self.fpn_p7 = nn.Conv2d(out_channels, out_channels, 3, 2, padding=1, device=device)
 
     def forward(self, bottom_up: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         results: List[torch.Tensor] = []
@@ -50,5 +62,10 @@ class FPN(nn.Module):
         out_names = [f"p{int(math.log2(s))}" for s in self.strides]
         outputs = dict(zip(out_names, results[::-1]))
         last = int(math.log2(self.strides[-1]))
-        outputs[f"p{last + 1}"] = outputs[f"p{last}"][:, :, ::2, ::2]
+        if self.top_block == "p6":
+            outputs[f"p{last + 1}"] = outputs[f"p{last}"][:, :, ::2, ::2]
+        else:
+            p6 = self.fpn_p6(bottom_up[self.top_block_in_feature])
+            outputs[f"p{last + 1}"] = p6
+            outputs[f"p{last + 2}"] = self.fpn_p7(F.relu(p6))
         return outputs

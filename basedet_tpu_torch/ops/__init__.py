@@ -5,6 +5,7 @@ from .fused_bn import (
     stats_to_moments,
 )
 from .fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+from .iou_kernel import box_iou, box_iou_plain
 from .nms import NEG_INF, batched_nms_padded, nms_padded
 from .nms_kernel import nms_keep, nms_keep_plain
 from .roi_align import (
@@ -20,7 +21,7 @@ from .roi_align_kernel import (
 from .scatter_rows import row_segments, scatter_rows_plain
 from .scatter_rows_kernel import gather_rows_batched, scatter_rows
 
-__all__ = ["NEG_INF", "batched_nms_padded", "fused_gemm_stats", "fused_gemm_stats_backward",
+__all__ = ["NEG_INF", "batched_nms_padded", "box_iou", "box_iou_plain", "fused_gemm_stats", "fused_gemm_stats_backward",
            "fused_gemm_stats_backward_plain", "fused_gemm_stats_plain", "gather_rows_batched",
            "moments_to_affine",
            "multilevel_roi_align", "multilevel_roi_align_backward",

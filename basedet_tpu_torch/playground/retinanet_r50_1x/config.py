@@ -1,0 +1,9 @@
+"""RetinaNet R50-FPN 800px 1x, the port's config (user config protocol — subclass and override)."""
+from basedet_tpu_torch.configs import RetinaNetConfig
+
+
+class Cfg(RetinaNetConfig):
+    def __init__(self):
+        super().__init__()
+        self.GLOBAL.OUTPUT_DIR = "logs/retinanet_r50_1x"
+        self.GLOBAL.CKPT_SAVE_DIR = "logs/retinanet_r50_1x/ckpt"

@@ -1,7 +1,9 @@
-"""R-CNN box delta coder (counterpart of ``BoxCoder`` in
-``basedet_tpu/structures/boxcoder.py``): (dx, dy, dw, dh) with mean/std
-whitening, broadcast over leading axes. For class-specific deltas
-(..., K, 4), broadcast the anchors to (..., 1, 4) at the call site.
+"""Box and point delta coders (counterpart of
+``basedet_tpu/structures/boxcoder.py``), broadcast over leading axes:
+``BoxCoder``, R-CNN's (dx, dy, dw, dh) with mean/std whitening (for
+class-specific deltas (..., K, 4), broadcast the anchors to (..., 1, 4) at
+the call site); ``SumBoxCoder``, gt - anchor whitened; ``PointCoder``, FCOS's
+(l, t, r, b) distances from points.
 """
 from __future__ import annotations
 
@@ -45,3 +47,34 @@ class BoxCoder:
         pw = aw * torch.exp(deltas[..., 2])
         ph = ah * torch.exp(deltas[..., 3])
         return torch.stack([pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
+
+
+@dataclass(frozen=True)
+class SumBoxCoder:
+    """Additive coder: target = gt - anchors, whitened."""
+
+    reg_mean: Sequence[float] = (0.0, 0.0, 0.0, 0.0)
+    reg_std: Sequence[float] = (1.0, 1.0, 1.0, 1.0)
+
+    _mean_std = BoxCoder._mean_std
+
+    def encode(self, anchors: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        target = gt - anchors
+        mean, std = self._mean_std(target)
+        return (target - mean) / std
+
+    def decode(self, anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+        mean, std = self._mean_std(deltas)
+        return anchors + (deltas * std + mean)
+
+
+@dataclass(frozen=True)
+class PointCoder:
+    """(l, t, r, b) distances of xyxy boxes' edges from (..., 2) points."""
+
+    def encode(self, points: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        return torch.cat([points - gt[..., :2], gt[..., 2:4] - points], dim=-1)
+
+    def decode(self, points: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+        return torch.stack([points[..., 0] - deltas[..., 0], points[..., 1] - deltas[..., 1],
+                            points[..., 0] + deltas[..., 2], points[..., 1] + deltas[..., 3]], dim=-1)

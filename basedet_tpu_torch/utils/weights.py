@@ -23,6 +23,11 @@ keeps its flax name.
 A ``Dense`` kernel's rows keep their order: the port's box head flattens
 RoIAlign's channels-last (ph, pw, C) output in the same (h, w, c) order as
 the flax ``fc1``.
+
+RetinaNet's FPN top-block convs (``fpn_p6``, ``fpn_p7``) and its head, in
+either ``share_param`` form (``cls_subnet_<i>``, ``cls_score``, ... or
+``cls_subnet_l<lv>_<i>``, ``cls_score_l<lv>``, ...), are plain convs under
+their flax names and take the conv rule.
 """
 from __future__ import annotations
 

@@ -7,17 +7,18 @@ Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
      (TF32 off) by themselves, or under the bf16 policy where a phase's
-     config asks for it, and phases 7, 8, 9c, 12 and 12b hold them to the CPU;
+     config asks for it, and phases 7, 8, 9c, 12, 12b, 17 and 22 hold them
+     to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
      csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
      in one library), csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
-     forward and backward) and csrc/scatter_rows.cu (the DCN row scatter),
-     with their ptxas reports;
+     forward and backward), csrc/scatter_rows.cu (the DCN row scatter) and
+     csrc/iou.cu (pairwise IoU), with their ptxas reports;
   3. hold the NMS kernel to its plain PyTorch version on the card, exactly,
      on random batches at the YOLOX eval shape, at Faster R-CNN's three
      shapes (the RPN's at eval, K = 4819, and at training, B = 2 and
-     K = 8819, and the final class-aware NMS, K = 2000) and on edge cases;
-     time both;
+     K = 8819, and the final class-aware NMS, K = 2000), at RetinaNet's
+     final NMS (K = 5000) and on edge cases; time both;
   4. the same for the SimOTA matching kernel, at the train slice's shape
      (8, 100, 8400) and on edge cases and one 832x832 case;
   4b. hold the RoIAlign kernel to its plain version within 1e-5 of
@@ -110,7 +111,32 @@ Run from the root of the repository. Phases, each of which raises on failure:
      deconvolution stages, heads, targets + losses, backward (with the
      scatter calls' share) and SGD, with peak memory; with --profile, a
      profiler pass over that step;
- 19. print the kernel report (seven kernels in five sources), the card, and
+ 19. RetinaNet R50-FPN (full width, random weights from a seed with the
+     frozen BN statistics and affine and the biases spread, the class biases
+     by 2 around the prior) through det_train: batch 2 of 800x1333, 4 steps;
+     check that the IoU kernel ran once per step (the anchor assignment, 100
+     padded gts x 201,600 anchors per image) and its plain version never,
+     the losses are finite, every step has foreground and ignored anchors
+     and the run low-quality matches; keep the IoU calls' arguments;
+ 20. hold the IoU kernel to its plain version, max |diff| 0, on the first
+     step's own gts and anchors, at Faster R-CNN's RPN shape (2, 100,
+     268569), SimOTA's (8, 100, 8400), the 2-D (300, 130) and on edge cases
+     (zero-area, inverted, identical, touching and disjoint boxes,
+     coordinates up to 1e4, M = 1, N off the block); time both at the four
+     shapes beside the bound;
+ 21. det_test on its dumped weights over 8 requests of one 800x1333 image:
+     the NMS kernel 8 times at K = 5000, its plain version never, NMS
+     suppressing, detections on every request;
+ 22. card against CPU, f32: det_test's first request
+     stage by stage (res3-res5, P3-P7, per-level logits and offsets) and its
+     detections; one train forward and backward at batch 2: anchor labels,
+     losses, gradient norm;
+ 23. time its train step at batch 2, split into backbone+FPN, head, the IoU
+     kernel alone, the assignment, the losses, backward and SGD, with peak
+     memory; after the other models' timing, its inference at batch 1 and
+     8 (network, per-level top-1000 + decode, NMS + rescale); with
+     --profile, a profiler pass over the train step;
+ 24. print the kernel report (eight kernels in six sources), the card, and
      the result line.
 """
 import argparse
@@ -155,6 +181,12 @@ HEAD_ATOL = 1e-3
 MATCH_B, MATCH_K, MATCH_M = 8, 100, 8400  # YOLOX-S train: batch 8, MAX_INSTANCES 100, 640x640
 MATCH_M_832 = 104 * 104 + 52 * 52 + 26 * 26  # anchors at 832x832
 LOSS_RTOL, FG_AGREE, GRAD_NORM_RTOL, STATS_RTOL = 1e-3, 0.999, 1e-3, 1e-4
+RETINA_CONFIG = "basedet_tpu_torch/playground/retinanet_r50_1x/config.py"
+RETINA_B = 2  # MODEL.BATCHSIZE
+RETINA_LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]  # P3-P7 at 800x1344
+RETINA_ANCHORS = 9 * sum(h * w for h, w in RETINA_LEVELS)  # 201,600
+RETINA_FINAL_K, RETINA_FINAL_T = 5 * 1000, 0.5  # top-1000 per level, TEST.IOU_THRESHOLD
+LABEL_AGREE = 0.999
 CNET_CONFIG = "basedet_tpu_torch/playground/centernet_r50/config.py"
 CNET_B, CNET_IMAGE, CNET_PARITY_B = 16, (512, 512), 2  # the config's batch; maps of 128x128
 # Kernel #9 against its plain version: both add each row's entries in f32 in the original n order (bf16
@@ -224,11 +256,11 @@ def bound(bytes_moved, ops, peak_ops=PEAK_F32_PER_S):
 
 
 def phase_build():
-    from basedet_tpu_torch.ops import (_build, fused_bn_kernel, matching_kernel, nms_kernel, roi_align_kernel,
-                                       scatter_rows_kernel)
+    from basedet_tpu_torch.ops import (_build, fused_bn_kernel, iou_kernel, matching_kernel, nms_kernel,
+                                       roi_align_kernel, scatter_rows_kernel)
 
     sources = [nms_kernel.SOURCE, matching_kernel.SOURCE, roi_align_kernel.SOURCE, fused_bn_kernel.SOURCE,
-               scatter_rows_kernel.SOURCE]
+               scatter_rows_kernel.SOURCE, iou_kernel.SOURCE]
     for source in sources:
         _build.library_path(source).unlink(missing_ok=True)  # show the build from this checkout
 
@@ -273,7 +305,8 @@ def _kernel_cases():
         cases.append((f"slice seed{seed}", boxes, rng.uniform(size=(SLICE_B, SLICE_K)) > 0.1, SLICE_T))
     cases.append(("K=1037", _random_boxes(rng, 3, 1037, True), rng.uniform(size=(3, 1037)) > 0.3, 0.5))
     for name, K, t in (("frcnn rpn", FRCNN_RPN_K, FRCNN_RPN_T), ("frcnn final", FRCNN_FINAL_K, FRCNN_FINAL_T),
-                       ("frcnn rpn train", FRCNN_TRAIN_RPN_K, FRCNN_RPN_T)):
+                       ("frcnn rpn train", FRCNN_TRAIN_RPN_K, FRCNN_RPN_T),
+                       ("retinanet final", RETINA_FINAL_K, RETINA_FINAL_T)):
         cases.append((name, _random_boxes(rng, 2, K, True), rng.uniform(size=(2, K)) > 0.05, t))
     cases.append(("K=1", _random_boxes(rng, 2, 1, False), np.ones((2, 1), bool), SLICE_T))
     cases.append(("all invalid", _random_boxes(rng, 2, 500, True), np.zeros((2, 500), bool), SLICE_T))
@@ -332,7 +365,8 @@ def phase_kernel(card):
         f"({bound_by}) | {card}")
     for name, B, K, t in (("frcnn rpn", 1, FRCNN_RPN_K, FRCNN_RPN_T),
                           ("frcnn final", 1, FRCNN_FINAL_K, FRCNN_FINAL_T),
-                          ("frcnn rpn train", FRCNN_TRAIN_B, FRCNN_TRAIN_RPN_K, FRCNN_RPN_T)):
+                          ("frcnn rpn train", FRCNN_TRAIN_B, FRCNN_TRAIN_RPN_K, FRCNN_RPN_T),
+                          ("retinanet final", 1, RETINA_FINAL_K, RETINA_FINAL_T)):
         b = torch.from_numpy(_random_boxes(rng, B, K, True)).cuda()
         v = torch.ones(B, K, dtype=torch.bool, device="cuda")
         k_ms = cuda_ms(lambda: nms_keep(b, v, t), reps=50, warmup=5)
@@ -2160,6 +2194,479 @@ def phase_cnet_train_timing(weights, card, scatter_step_ms):
     return t_step, lambda: step(state, batch)
 
 
+# -- RetinaNet R50-FPN and pairwise IoU (kernel #10) ---------------------------------------------
+
+def _iou_boxes(rng, shape, size=200.0):
+    """Random xyxy f32 boxes of ``shape`` (..., 4) on a canvas of ``size``, sides 1 to size / 3, as
+    tests/ops/test_iou_pallas.py draws them."""
+    xy = rng.uniform(0, size, shape[:-1] + (2,))
+    wh = rng.uniform(1, size / 3, shape[:-1] + (2,))
+    return torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
+
+
+def iou_edges(rng):
+    """Edge cases of kernel #10, on the CPU: name -> (boxes1, boxes2). The special boxes meet each
+    other in zero-area, inverted (union <= 0), identical (IoU exactly 1), touching-edge and disjoint
+    pairs, and at coordinates up to 1e4."""
+    special = torch.tensor([
+        [10, 10, 10, 30],  # zero width
+        [10, 10, 30, 10],  # zero height
+        [5, 5, 5, 5],  # a point
+        [30, 30, 10, 10],  # inverted in x and y: area +400
+        [30, 10, 10, 40],  # inverted in x: area -600, so unions with it fall to <= 0
+        [10, 10, 30, 30],  # identical to itself: IoU exactly 1
+        [30, 10, 50, 30],  # touches [10, 10, 30, 30] along x = 30
+        [10, 30, 30, 50],  # touches it along y = 30
+        [300, 300, 320, 320],  # disjoint from all but itself
+        [0, 0, 1e4, 1e4],
+        [9990.5, 9990.25, 1e4, 1e4],
+        [1234.5, 9000, 9876.25, 9999.75],
+    ], dtype=torch.float32)
+    mixed = torch.cat([special, _iou_boxes(rng, (20, 4))])
+    return {
+        "zero-area, inverted, identical, touching, disjoint, 1e4 (2, 32) x (1030,)":
+            (torch.stack([mixed, mixed.flip(0)]), torch.cat([special, _iou_boxes(rng, (1018, 4), 1e4)])),
+        "M = 1, N = 4097 (off the block and off 4)": (_iou_boxes(rng, (1, 4)), _iou_boxes(rng, (4097, 4))),
+        "boxes2 per image (3, 17) x (3, 1021)": (_iou_boxes(rng, (3, 17, 4)), _iou_boxes(rng, (3, 1021, 4))),
+        "one set against itself (257,) x (257,)": (mixed.repeat(9, 1)[:257], mixed.repeat(9, 1)[:257]),
+    }
+
+
+def check_iou_case(boxes1, boxes2):
+    """Kernel #10 and its plain version on one case on the card: (max |kernel - plain|, whether
+    the two are bit-equal)."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+
+    got = box_iou(boxes1, boxes2)
+    torch.cuda.synchronize()
+    ref = box_iou_plain(boxes1, boxes2)
+    check(got.shape == ref.shape, f"IoU kernel gave {tuple(got.shape)}, plain {tuple(ref.shape)}")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    return err, bool(torch.equal(got.view(torch.int32), ref.view(torch.int32)))
+
+
+def iou_bound(boxes1, boxes2):
+    """(ms, "bytes" or "operations"): both box sets read once, the f32 output written once; ~17
+    f32 operations per pair (4 min/max, 2 differences, 2 clamps, the product, the two sums, the
+    compare, the max and the quotient, and the two areas' 3 operations each, amortised)."""
+    B = boxes1.shape[0] if boxes1.dim() == 3 else 1
+    pairs = B * boxes1.shape[-2] * boxes2.shape[-2]
+    return bound(4 * pairs + 4 * boxes1.numel() + 4 * boxes2.numel(), 17 * pairs)
+
+
+@torch.no_grad()
+def randomise_retina(module, generator):
+    """Draw the frozen BN statistics and affine and every bias from generator, as
+    ``randomise_frcnn`` does; spread the class logits' biases by 2 around the prior (-4.6), so that
+    some (anchor, class) scores clear the 0.05 threshold (at the prior every score is ~0.01 and NMS
+    would see nothing), and raise the box-size regression by log 2, so that a box spans twice its
+    anchor and same-class neighbours overlap: NMS then suppresses on the main path."""
+    from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
+
+    for m in module.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if getattr(m, "bias", None) is not None:
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+    head = module.head
+    head.cls_score.bias.add_(torch.empty_like(head.cls_score.bias).normal_(0.0, 2.0, generator=generator))
+    head.bbox_pred.bias.view(-1, 4)[:, 2:].add_(math.log(2.0))  # (dx, dy, dw, dh) per anchor
+
+
+def _retina_opts(out_dir):
+    return ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "GLOBAL.OUTPUT_DIR", out_dir]
+
+
+def _retina_train_opts(out_dir, weights):
+    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "MODEL.BATCHSIZE", str(RETINA_B), "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH",
+            str(4 * RETINA_B), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR",
+            out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "retina_ckpt")]
+
+
+def make_retina_weights(out_dir):
+    """Full-width RetinaNet R50-FPN on the card with random weights from SEED, spread by
+    ``randomise_retina``, saved as a state_dict. Returns (cfg for det_test, model, path)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(RETINA_CONFIG)
+    cfg.merge(_retina_opts(out_dir))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise_retina(model.module, generator)
+    weights = os.path.join(out_dir, "retinanet_r50_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    m = cfg.MODEL
+    log(f"[retina] {RETINA_CONFIG}: {m.BACKBONE.NAME} (FrozenBN, freeze_at {m.BACKBONE.FREEZE_AT}), FPN "
+        f"P3-P7 {m.FPN.OUT_CHANNELS} (p6p7 on {m.FPN.TOP_BLOCK_IN_FEATURE}), "
+        f"{model.anchor_gen.num_anchors} anchors per location, {m.HEAD.NUM_CONVS}-conv head, "
+        f"{cfg.DATA.NUM_CLASSES} classes, {sum(p.numel() for p in model.module.parameters())} parameters, "
+        f"random from seed {SEED}")
+    return cfg, model, weights
+
+
+def low_quality_counts(matcher, matrix, row_valid, labels):
+    """(foreground, ignored, the low-quality rule's picks: anchors equal to a valid gt's best IoU, ties
+    included, and those of them whose own best IoU is under the foreground threshold, foreground by
+    the rule alone) of one Matcher call."""
+    masked = torch.where(row_valid[:, :, None], matrix, -1.0)
+    picks = ((masked == masked.amax(2, keepdim=True)) & row_valid[:, :, None]).any(1)
+    low = picks & (masked.amax(1) < matcher.thresholds[-1])
+    return int((labels > 0).sum()), int((labels == -1).sum()), int(picks.sum()), int(low.sum())
+
+
+def phase_retina_train(out_dir, weights):
+    """det_train on full-width RetinaNet, 4 steps of 2 images of 800x1333; the IoU kernel's and its
+    plain version's counts are zeroed just before and read just after. Keeps every step's IoU
+    arguments (gts and anchors) and, per step, the foreground, ignored and low-quality matches."""
+    from basedet_tpu_torch.layers.common.matcher import Matcher
+    from basedet_tpu_torch.models.det import retinanet
+    from basedet_tpu_torch.models.det.retinanet import RetinaNet
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+    from basedet_tpu_torch.tools import det_train
+
+    def assigned(args, out):  # foreground, ignored, the low-quality rule's picks and those under the threshold
+        return low_quality_counts(*args, out[1])
+
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    with recording(retinanet, "box_iou", lambda args, out: tuple(a.clone() for a in args)) as iou_calls, \
+            recording(Matcher, "__call__", assigned) as assignments, \
+            recording(RetinaNet, "get_losses", keep_losses) as losses:
+        box_iou.launches, box_iou_plain.calls = 0, 0
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", RETINA_CONFIG, "--device", "cuda", *_retina_train_opts(out_dir, weights)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain_calls = box_iou.launches, box_iou_plain.calls
+
+    steps = trainer.state.step
+    ckpt = os.path.join(out_dir, "retina_ckpt")
+    check(steps == 4 and len(losses) == 4, f"RetinaNet det_train took {steps} steps, not 4")
+    check(launches == steps, f"the IoU kernel launched {launches} times in {steps} steps")
+    check(plain_calls == 0, f"the plain IoU ran {plain_calls} times on the main path")
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
+    check(all(len(step) == 3 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
+    check(len(assignments) == steps and all(fg > 0 and ign > 0 and picks > 0 for fg, ign, picks, _ in assignments),
+          f"a step had no foreground, no ignored anchors or no low-quality pick: {assignments}")
+    gts, anchors = iou_calls[0]
+    check(tuple(gts.shape) == (RETINA_B, 100, 4) and tuple(anchors.shape) == (RETINA_ANCHORS, 4),
+          f"the IoU took {tuple(gts.shape)} x {tuple(anchors.shape)}, not the full-width shape")
+    for name in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, name)), f"RetinaNet det_train wrote no {name}")
+    per_step = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items()) for step in losses)
+    log(f"[retina-train] det_train RetinaNet R50-FPN, 4 steps of {RETINA_B} images {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
+        f"(padded 800x1344), f32, in {seconds:.2f} s; IoU kernel launches {launches} at {tuple(gts.shape)} x "
+        f"{tuple(anchors.shape)}, plain calls {plain_calls}; lr {trainer.meters['lr'].latest:.4g}; losses per step: "
+        f"{per_step}; per step (foreground, ignored, the low-quality rule's picks, those of them under the "
+        f"0.5 threshold) of {RETINA_B * RETINA_ANCHORS} anchors: {assignments}; checkpoints latest.pt, epoch_1.pt, dumped_model.pt written")
+    return launches, iou_calls[0], os.path.join(ckpt, "dumped_model.pt")
+
+
+def phase_iou_kernel(card, step_call):
+    """Kernel #10 against its plain version (max |diff| 0 required) on the first train step's own
+    gts and anchors, at Faster R-CNN's RPN shape (100 gts x 268,569 anchors per image), SimOTA's
+    (8, 100, 8400) with boxes2 per image, the 2-D (300, 130) of tests/ops/test_iou_pallas.py, and
+    the edge cases; the kernel and the plain version timed at the four shapes."""
+    from basedet_tpu_torch.layers.common.anchor_generator import DefaultAnchorGenerator
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+    from basedet_tpu_torch.tools import import_config
+
+    rng = np.random.RandomState(SEED + 10)
+    m = import_config(FRCNN_CONFIG).MODEL
+    rpn_gen = DefaultAnchorGenerator(tuple(map(tuple, m.ANCHOR.SCALES)), tuple(map(tuple, m.ANCHOR.RATIOS)),
+                                     tuple(m.FPN.STRIDES), m.ANCHOR.OFFSET)
+    rpn_anchors = torch.cat(rpn_gen([*ROI_LEVELS, (13, 21)], "cuda"))
+    check(rpn_anchors.shape[0] == FRCNN_ANCHORS, f"{rpn_anchors.shape[0]} Faster R-CNN anchors")
+    timed = {
+        "RetinaNet train step (gts, anchors)": step_call,
+        "Faster R-CNN RPN targets": (_iou_boxes(rng, (FRCNN_TRAIN_B, 100, 4), 1333.0).cuda(), rpn_anchors),
+        "SimOTA (boxes2 per image)": (_iou_boxes(rng, (MATCH_B, MATCH_K, 4), 640.0).cuda(),
+                                      _iou_boxes(rng, (MATCH_B, MATCH_M, 4), 640.0).cuda()),
+        "2-D (300, 130)": (_iou_boxes(rng, (300, 4)).cuda(), _iou_boxes(rng, (130, 4)).cuda()),
+    }
+    worst = 0.0
+    cases = {**timed, **{k: (a.cuda(), b.cuda()) for k, (a, b) in iou_edges(rng).items()}}
+    for name, (b1, b2) in cases.items():
+        err, bits = check_iou_case(b1, b2)
+        worst = max(worst, err)
+        log(f"[iou] {name}: {tuple(b1.shape)} x {tuple(b2.shape)}: max |kernel - plain| {err:.3e}, "
+            f"bit-equal {bits}")
+        check(err == 0.0, f"IoU kernel against its plain version on {name}: max |diff| {err:.3e}")
+    b1, _ = cases["one set against itself (257,) x (257,)"]
+    proper = (b1[:, 2] > b1[:, 0]) & (b1[:, 3] > b1[:, 1])
+    check(bool((box_iou(b1, b1).diagonal()[proper] == 1.0).all()), "a box against itself is not IoU 1")
+    out = {}
+    for name, (b1, b2) in timed.items():
+        ms = cuda_ms(lambda: box_iou(b1, b2), reps=20, warmup=3)
+        plain_ms = cuda_ms(lambda: box_iou_plain(b1, b2), reps=5, warmup=1)
+        bound_ms, bound_by = iou_bound(b1, b2)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[iou] {name} {tuple(b1.shape)} x {tuple(b2.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+    log(f"[iou] {len(cases)} cases equal to the plain version (max |diff| 0)")
+    return dict(max_abs_err=worst, library_ms=None, **out["RetinaNet train step (gts, anchors)"])
+
+
+def phase_retina_slice(out_dir, weights):
+    """det_test on full-width RetinaNet over 8 requests of one 800x1333 image; the NMS counts are
+    zeroed just before and read just after."""
+    from basedet_tpu_torch.ops import nms as nms_ops
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from basedet_tpu_torch.tools import det_test
+
+    seen = lambda args, keep: (args[0].shape[1], list(zip(args[1].sum(1).tolist(), keep.sum(1).tolist())))
+    nms_keep.launches, nms_keep_plain.calls = 0, 0
+    t0 = time.perf_counter()
+    with recording(nms_ops, "nms_keep", seen) as calls:
+        results = det_test.main(["-f", RETINA_CONFIG, "-w", weights, "--device", "cuda", *_retina_opts(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain_calls = nms_keep.launches, nms_keep_plain.calls
+    with open(os.path.join(out_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    check(len(records) >= 1, "RetinaNet det_test gave no detections")
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), "non-finite detections")
+    check({r["image_id"] for r in records} == set(range(8)), "not every request was answered")
+    check(launches == 8, f"the NMS kernel launched {launches} times for 8 requests")
+    check(plain_calls == 0, f"the plain NMS ran {plain_calls} times on the main path")
+    check(all(k == RETINA_FINAL_K for k, _ in calls), f"NMS took {[k for k, _ in calls]} candidates, not 5000")
+    check(any(k < v for _, call in calls for v, k in call), "NMS suppressed nothing on the main path")
+    log(f"[retina] det_test RetinaNet R50-FPN with {os.path.basename(weights)} on 8 requests of "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} (padded 800x1344): {results}, {len(records)} finite detections in "
+        f"{seconds:.2f} s; NMS kernel launches {launches} at K = {RETINA_FINAL_K}, plain calls {plain_calls}; "
+        f"NMS kept per image {_kept_range([call for _, call in calls])}")
+    return launches
+
+
+def _retina_train_setup(weights, device):
+    """Full-width RetinaNet in train mode with ``weights``, its train state and step, and the first
+    synthetic batch of 2 images of 800x1333."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.solver import DetSolver
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(RETINA_CONFIG)
+    cfg.merge(_retina_train_opts(".", weights))
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    solver = DetSolver.build(cfg)
+    state = TrainState(model.train(), solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def _retina_stages(model, request):
+    """res3-res5, P3-P7 and the per-level head outputs of one eval request, and its detections,
+    on the CPU."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    m = model.module.eval()
+    with torch.inference_mode(), full_f32():
+        bottom_up = m.bottom_up(model.pre_process(request)["image"])
+        feats = m.fpn(bottom_up)
+        logits, offsets = m.head([feats[n] for n in m.level_names])
+    stages = {**{k: v.cpu() for k, v in bottom_up.items()}, **{k: feats[k].cpu() for k in m.level_names},
+              **{f"logits {n}": x.cpu() for n, x in zip(m.level_names, logits)},
+              **{f"offsets {n}": x.cpu() for n, x in zip(m.level_names, offsets)}}
+    return stages, {k: v.cpu().numpy() for k, v in model.inference(request).items()}
+
+
+def _retina_train_pass(model, batch):
+    """One train forward and backward at full width: anchor labels, losses, gradient norm, on the
+    CPU."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    model.train()
+    with full_f32():
+        x = model.pre_process(batch, train=True)
+        logits_l, offsets_l = model.module(x["image"])
+        anchors = torch.cat(model.anchors(logits_l), dim=0)
+        labels, gt_offsets = model.ground_truth(anchors, x["gt_boxes"], x["img_info"][:, 4].long())
+        logits, offsets = (torch.cat(v, dim=1) for v in model.flatten(logits_l, offsets_l))
+        losses = model.losses(logits, offsets, labels, gt_offsets)
+        model.module.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+    norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.module.parameters()
+                                if p.grad is not None)))
+    return labels.cpu(), {k: float(v.detach()) for k, v in losses.items()}, norm
+
+
+def phase_retina_card_vs_cpu(cfg, model, weights):
+    """RetinaNet card against CPU, f32, TF32 off: det_test's first request (one 800x1333 image)
+    stage by stage and its detections, then one train forward and backward at batch 2: anchor
+    labels, losses, gradient norm."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import build_test_dataloader
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+    from basedet_tpu_torch.utils.compare import match_detections
+
+    cpu = build_model(cfg, "cpu")
+    cpu.load_weights(weights)
+    request = next(iter(build_test_dataloader(cfg)))
+    request = {k: request[k] for k in ("data", "im_info")}
+    t0 = time.perf_counter()
+    c_stages, c_dets = _retina_stages(cpu, request)
+    g_stages, g_dets = _retina_stages(model, request)
+    stage_err = {k: float((g_stages[k] - v).abs().max() / v.abs().max()) for k, v in c_stages.items()}
+    frac = match_detections(c_dets, g_dets)
+    cpu_model, _, _, batch = _retina_train_setup(weights, "cpu")
+    plain = box_iou_plain.calls
+    c_labels, c_losses, c_norm = _retina_train_pass(cpu_model, batch)
+    check(box_iou_plain.calls == plain + 1, "the CPU train pass ran no plain IoU")
+    cpu_s = time.perf_counter() - t0
+    launches = box_iou.launches
+    g_labels, g_losses, g_norm = _retina_train_pass(_retina_train_setup(weights, "cuda")[0], batch)
+    check(box_iou.launches == launches + 1, "the card's train pass launched no IoU kernel")
+    agree = float((g_labels == c_labels).float().mean())
+    rel = {k: abs(g_losses[k] - v) / max(abs(v), 1e-12) for k, v in c_losses.items()}
+    norm_rel = abs(g_norm - c_norm) / c_norm
+    log(f"[parity] RetinaNet card vs CPU, f32 (CPU runs {cpu_s:.1f} s, plain IoU): one {FRCNN_IMAGE[0]}x"
+        f"{FRCNN_IMAGE[1]} image, max |diff| over max |value| per stage: "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in stage_err.items())} (tol {HEAD_ATOL}); "
+        f"{int(c_dets['valid'].sum())} CPU / {int(g_dets['valid'].sum())} card detections, {frac:.4f} matched "
+        f"(label, IoU >= 0.999, |dscore| <= 1e-4); train pass at batch {RETINA_B}: anchor labels agree on "
+        f"{agree:.6f} of {c_labels.numel()} (min {LABEL_AGREE}; CPU {int((c_labels > 0).sum())} foreground, "
+        f"{int((c_labels == -1).sum())} ignored); losses card {', '.join(f'{k} {v:.6f}' for k, v in g_losses.items())} "
+        f"/ CPU {', '.join(f'{k} {v:.6f}' for k, v in c_losses.items())}, worst rel diff {max(rel.values()):.3e} "
+        f"(tol {LOSS_RTOL}); gradient norm {g_norm:.6f} card / {c_norm:.6f} CPU, rel diff {norm_rel:.3e} "
+        f"(tol {GRAD_NORM_RTOL})")
+    check(max(stage_err.values()) <= HEAD_ATOL, f"RetinaNet stages differ between card and CPU: {stage_err}")
+    phase_retina_low_quality(cpu_model, model)
+    check(np.isfinite(g_dets["boxes"]).all() and g_dets["valid"].any(), "card detections empty or non-finite")
+    check(frac >= FRCNN_AGREE, f"only {frac:.3f} of the CPU's RetinaNet detections matched on the card")
+    check(agree >= LABEL_AGREE, f"only {agree:.6f} of the anchor labels agree between card and CPU")
+    check(all(math.isfinite(v) for v in g_losses.values()), "non-finite RetinaNet losses on the card")
+    check(max(rel.values()) <= LOSS_RTOL, f"RetinaNet train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"RetinaNet gradient norms differ by {norm_rel:.3e}")
+
+
+def _small_gts(rng, B, K=100, n=12):
+    """(B, K, 5) padded gts whose best anchor IoU lies under the 0.4 background threshold: n valid rows
+    per image, alternately 8x8 boxes (each inside several 32x32 and ratio anchors of area 1024 at once,
+    so that its best IoU, 64/1024, ties across them) and 400x20 slivers."""
+    gt = np.zeros((B, K, 5), np.float32)
+    small = np.arange(n) % 2 == 0
+    for b in range(B):
+        x, y = rng.uniform(20, 900, n), rng.uniform(20, 760, n)
+        w, h = np.where(small, 8.0, 400.0), np.where(small, 8.0, 20.0)
+        gt[b, :n] = np.stack([x, y, x + w, y + h, rng.randint(1, 81, n)], 1)
+    return torch.from_numpy(gt)
+
+
+def phase_retina_low_quality(cpu_model, model):
+    """The anchor assignment (IoU kernel, Matcher, encode) on the card against the CPU's on gts that only
+    the low-quality rule can match (the synthetic loader's boxes, 10-40% of the image, always find an
+    anchor at IoU >= 0.5): labels equal, offsets within 1e-5, low-quality matches and ties among them
+    live."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou_plain
+
+    gts = _small_gts(np.random.RandomState(SEED + 11), RETINA_B)
+    num = torch.full((RETINA_B,), 12, dtype=torch.int64)
+    anchors = torch.cat(cpu_model.anchors([torch.zeros(1, 1, h, w) for h, w in RETINA_LEVELS]))
+    check(anchors.shape[0] == RETINA_ANCHORS, f"{anchors.shape[0]} RetinaNet anchors")
+    runs = {}
+    for m in (cpu_model, model):
+        labels, offsets = m.ground_truth(anchors.to(m.device), gts.to(m.device), num.to(m.device))
+        runs[m.device.type] = labels.cpu(), offsets.cpu()
+    valid = torch.arange(gts.shape[1])[None] < num[:, None]
+    fg, ign, picks, low = low_quality_counts(cpu_model.matcher, box_iou_plain(gts[..., :4], anchors), valid,
+                                             runs["cpu"][0])
+    same = torch.equal(runs["cuda"][0], runs["cpu"][0])
+    off_err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+    log(f"[retina] assignment on gts only the low-quality rule matches ({int(num.sum())} valid: 8x8 boxes and "
+        f"400x20 slivers): card labels equal to the CPU's {same}, offsets max |diff| {off_err:.3e}; foreground {fg} "
+        f"= the rule's picks {picks} (ties included), {low} of them under the 0.5 threshold; ignored {ign}")
+    check(same, "the card's anchor labels differ from the CPU's on the low-quality gts")
+    check(off_err <= 1e-5, f"the card's anchor offsets differ from the CPU's by {off_err:.3e}")
+    check(low > 0 and picks > int(num.sum()), f"low-quality matches {low}, picks {picks}: the rule or its ties are not live")
+
+
+def phase_retina_train_timing(weights, card):
+    """One f32 RetinaNet train step at batch 2 of 800x1333 (input already on the card): backbone +
+    FPN, head, the IoU kernel alone, the assignment (IoU + Matcher + encode) and the losses, each
+    timed alone on the previous stage's outputs with gradients enabled; get_losses, get_losses with
+    backward and the whole step as nested prefixes; peak memory. Returns (step ms, a function
+    running one step)."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.iou_kernel import box_iou
+
+    model, state, step, batch = _retina_train_setup(weights, "cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    m, reps = model.module, 10
+
+    def timed(fn):
+        def run():
+            with full_f32():
+                return fn()
+        return cuda_ms(run, reps=reps, warmup=2), run()
+
+    x = model.pre_process(batch, train=True)
+    num_gt = x["img_info"][:, 4].long()
+    t_feat, feats = timed(lambda: m.features(x["image"]))
+    t_head, (logits_l, offsets_l) = timed(lambda: m.head(feats))
+    anchors = torch.cat(model.anchors(logits_l), dim=0)
+    gts = x["gt_boxes"][..., :4].contiguous()
+    t_iou = cuda_ms(lambda: box_iou(gts, anchors), reps=reps, warmup=2)
+    t_assign, (labels, gt_offsets) = timed(lambda: model.ground_truth(anchors, x["gt_boxes"], num_gt))
+    t_losses, _ = timed(lambda: model.losses(*(torch.cat(v, dim=1) for v in model.flatten(logits_l, offsets_l)),
+                                              labels, gt_offsets))
+    del feats, logits_l, offsets_l
+
+    def losses_backward():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch)[0].backward()
+
+    t_loss, _ = timed(lambda: model.get_losses(batch)[0])
+    t_fb, _ = timed(losses_backward)
+    torch.cuda.reset_peak_memory_stats()
+    t_step = cuda_ms(lambda: step(state, batch), reps=reps, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[timing] RetinaNet R50-FPN f32 train step, batch {RETINA_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: "
+        f"{t_step:.3f} ms per step ({1000 * RETINA_B / t_step:.2f} img/s); each alone, gradients enabled: "
+        f"backbone+FPN {t_feat:.3f}, head {t_head:.3f}, assignment (IoU kernel + Matcher + encode) "
+        f"{t_assign:.3f} ms (the IoU kernel alone {t_iou:.4f}), flatten+losses {t_losses:.3f} ms; get_losses "
+        f"{t_loss:.3f} ms, backward {t_fb - t_loss:.3f} ms, SGD {t_step - t_fb:.3f} ms (differences of means of "
+        f"{reps} runs of nested prefixes); peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), "
+        f"input already on the card | {card}")
+    return t_step, lambda: step(state, batch)
+
+
+def phase_retina_timing(model, card):
+    """RetinaNet f32 inference at batch 1 and 8 of 800x1333, input on the card: the whole request,
+    the network, the per-level top-1000 (sigmoid, stable sort of R·C scores, decode) and NMS with
+    the rescale, each timed alone on the previous stage's outputs, means of 10."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.common.post_processing import post_processing
+
+    test_cfg = model.cfg.TEST
+    for bs in (1, 8):
+        batch = _timing_batch(bs, FRCNN_IMAGE)
+        total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        model.inference(batch)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode(), full_f32():
+            x = model.pre_process(batch)
+            image, info = x["image"], x["img_info"]
+            t_net = cuda_ms(lambda: model.module(image), reps=10, warmup=2)
+            logits_l, offsets_l = model.module(image)
+            flat = model.flatten(logits_l, offsets_l)
+            anchors = model.anchors(logits_l)
+            t_topk = cuda_ms(lambda: model.candidates(*flat, anchors), reps=10, warmup=2)
+            cands = model.candidates(*flat, anchors)
+            t_nms = cuda_ms(lambda: post_processing(*cands, info, test_cfg.IOU_THRESHOLD,
+                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=10, warmup=2)
+        log(f"[timing] RetinaNet R50-FPN f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch {bs}: {total:.3f} ms per batch "
+            f"({1000 * bs / total:.2f} img/s); network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, "
+            f"NMS at K = {cands[1].shape[1]} + rescale {t_nms:.3f} ms (each alone, means of 10); peak memory "
+            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), input already on the card | {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -2198,6 +2705,13 @@ def main():
         phase_cnet_slice(out_dir, cnet_dumped)
         phase_cnet_card_vs_cpu(cnet_weights)
         cnet_step = phase_cnet_train_timing(cnet_weights, card, scatter["ms"])
+        retina_cfg, retina, retina_weights = make_retina_weights(out_dir)
+        iou_launches, iou_call, retina_dumped = phase_retina_train(out_dir, retina_weights)
+        iou = phase_iou_kernel(card, iou_call)
+        del iou_call
+        retina_nms = phase_retina_slice(out_dir, retina_dumped)
+        phase_retina_card_vs_cpu(retina_cfg, retina, retina_weights)
+        retina_step = phase_retina_train_timing(retina_weights, card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -2207,21 +2721,25 @@ def main():
             *((f"step_{amp or 'f32'}", f"YOLOX-S {AMP_LABELS[amp]} train step, batch 8 of 640x640", run, 3, ms)
               for amp, (ms, run) in steps.items())])
     phase_frcnn_timing(frcnn, card)
+    phase_retina_timing(retina, card)
     if args.profile:
-        phase_profile(card, args.profile, [("step_centernet", f"CenterNet R50-DCNv2 f32 train step, batch "
-                                            f"{CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]}", cnet_step[1], 3,
-                                            cnet_step[0])])
+        phase_profile(card, args.profile, [
+            ("step_centernet", f"CenterNet R50-DCNv2 f32 train step, batch {CNET_B} of {CNET_IMAGE[0]}x"
+             f"{CNET_IMAGE[1]}", cnet_step[1], 3, cnet_step[0]),
+            ("step_retinanet", f"RetinaNet R50-FPN f32 train step, batch {RETINA_B} of {FRCNN_IMAGE[0]}x"
+             f"{FRCNN_IMAGE[1]}", retina_step[1], 3, retina_step[0])])
     log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
         f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
         f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
         f"multilevel_roi_align {train_roi} on det_train + {roi_launches} on det_test; fused_gemm_stats and "
         f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp; scatter_rows {cnet_launches} on "
-        f"CenterNet det_train")
+        f"CenterNet det_train; box_iou {iou_launches} on RetinaNet det_train; nms_keep {retina_nms} on RetinaNet "
+        f"det_test")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
         "replaces": "basedet_tpu/ops/nms_pallas.py:26",
-        "launches": launches + amp_nms + train_nms + frcnn_nms_launches,
+        "launches": launches + amp_nms + train_nms + frcnn_nms_launches + retina_nms,
         **{k: kernel[k] for k in keys},
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
@@ -2247,6 +2765,9 @@ def main():
         "name": "scatter_rows", "route": "cuda", "source": "basedet_tpu_torch/csrc/scatter_rows.cu",
         "replaces": "basedet_tpu/ops/scatter_onehot.py:117", "launches": cnet_launches,
         **{k: scatter[k] for k in keys},
+    }, {
+        "name": "box_iou", "route": "cuda", "source": "basedet_tpu_torch/csrc/iou.cu",
+        "replaces": "basedet_tpu/ops/iou_pallas.py:37", "launches": iou_launches, **{k: iou[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host code, held to their
 originals: config trees (with the same CLI overrides), the synthetic
-loader's batches, the meters, and COCO mAP. The port keeps these copies so
+loader's batches, the meters, COCO mAP, the numpy box utilities and
+``Container``. The port keeps these copies so
 that it never imports ``basedet_tpu``; these tests keep them from drifting.
 """
 import numpy as np
@@ -8,11 +9,14 @@ import pytest
 
 from basedet_tpu import configs as jax_configs
 from basedet_tpu.evaluators.coco_metrics import evaluate_coco_map as jax_map
+from basedet_tpu.structures import box_utils as jax_box_utils
+from basedet_tpu.structures.container import Container as JaxContainer
 from basedet_tpu.tools.misc import import_config as jax_import_config
 from basedet_tpu.utils.dummy import DummyLoader as JaxDummyLoader
 from basedet_tpu.utils.meters import MeterBuffer as JaxMeterBuffer
 from basedet_tpu_torch import configs as port_configs
 from basedet_tpu_torch.evaluators import evaluate_coco_map
+from basedet_tpu_torch.structures import Container, box_utils
 from basedet_tpu_torch.tools import import_config
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.meters import MeterBuffer
@@ -24,7 +28,7 @@ OVERRIDES = ["SOLVER.BASIC_LR", "0.02", "MODEL.BACKBONE.NAME", "resnet18",
 
 
 @pytest.mark.parametrize("name", ["YOLOXSConfig", "YOLOXTinyConfig", "YOLOXNanoConfig",
-                                  "FasterRCNNConfig", "CenterNetConfig"])
+                                  "FasterRCNNConfig", "CenterNetConfig", "RetinaNetConfig"])
 def test_config_trees_equal_the_jax_package(name):
     port, ref = getattr(port_configs, name)(), getattr(jax_configs, name)()
     assert port.to_dict() == ref.to_dict()
@@ -33,7 +37,7 @@ def test_config_trees_equal_the_jax_package(name):
     assert port.DATA.DUMMY_IMAGE_SIZE == (800, 1333)
 
 
-@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x", "centernet_r50"])
+@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x", "centernet_r50", "retinanet_r50_1x"])
 def test_playground_configs_equal_the_jax_package(model):
     port = import_config(f"basedet_tpu_torch/playground/{model}/config.py")
     ref = jax_import_config(f"playground/{model}/config.py")
@@ -104,3 +108,29 @@ def test_coco_map_equals_the_jax_package(seed):
     for k in want:
         assert got[k] == pytest.approx(want[k], abs=1e-12), k
     assert 0.0 < got["AP"] < 1.0
+
+
+def test_box_utils_equal_the_jax_package():
+    rng = np.random.RandomState(4)
+    boxes = np.concatenate([rng.uniform(0, 100, (20, 2)), rng.uniform(100, 300, (20, 2))], 1)
+    pairs = [(boxes[i], boxes[j]) for i in range(20) for j in range(20)]
+    pairs += [([0, 0, 10, 10], [10, 0, 20, 10]), ([5, 5, 5, 9], [0, 0, 9, 9]), ([9, 9, 1, 1], [0, 0, 9, 9])]
+    for a, b in pairs:
+        assert box_utils.get_iou_cpu(a, b) == jax_box_utils.get_iou_cpu(a, b)
+    for angle, center, expand in ((30.0, (150, 150), True), (-90.0, (0, 0), False), (0.0, (5, 5), True)):
+        got = box_utils.rotate_box(boxes, angle, center, expand)
+        want = jax_box_utils.rotate_box(boxes, angle, center, expand)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_container_equals_the_jax_package():
+    fields = {"boxes": np.arange(12.0).reshape(3, 4), "scores": np.array([0.5, 0.9, 0.1])}
+    port, ref = Container(fields), JaxContainer(fields)
+    port.labels = ref.labels = np.array([1, 2, 3])
+    for idx in (np.array([True, False, True]), np.array([2, 0]), slice(1, None)):
+        got, want = port.index(idx), ref.index(idx)
+        assert type(got) is Container and got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    with pytest.raises(AttributeError):
+        port.missing

@@ -1,0 +1,159 @@
+"""Pairwise IoU, kernel #10 (basedet_tpu_torch/ops/iou_kernel.py), against the
+JAX package on the CPU: its plain version (``structures/box_ops.box_iou``,
+which a CPU tensor takes) against ``box_iou_pallas(..., interpret=True)`` and
+against the JAX package's ``structures.box_iou``, as 2-D, batched and
+broadcast inputs, at sizes off the 256 tile, and on edge cases (zero-area,
+inverted, identical, touching-edge and disjoint boxes, coordinates up to
+1e4; ``chip_smoke.iou_edges``); then the wrapper's dispatch and refusals.
+
+Inputs come from ``numpy.random.RandomState`` seeds. Tolerance 1e-6
+absolute. Measured: the plain version is bit-equal to the JAX package's
+``box_iou`` on every case here (the same operations in the same order), and
+within 1.8e-7 of the Pallas kernel run in interpret mode, which XLA
+compiles to other bits at some sizes. The CUDA kernel itself runs only on
+the card (``test_kernel_matches_plain_on_gpu``, skipped here), where
+``chip_smoke.py`` holds it to the plain version with max |diff| 0. JAX is
+imported inside the tests that use it, so that the card's machine, which
+has none, can collect this file.
+"""
+import numpy as np
+import pytest
+import torch
+
+from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+from basedet_tpu_torch.structures import pairwise_intersection
+from chip_smoke import _iou_boxes, iou_edges
+
+ATOL = 1e-6
+
+
+def random_boxes(rng, shape, size=200.0):
+    return _iou_boxes(rng, shape, size).numpy()
+
+
+def _cases():
+    rng = np.random.RandomState(0)
+    cases = {
+        "300x130": (random_boxes(rng, (300, 4)), random_boxes(rng, (130, 4))),
+        "257x511": (random_boxes(rng, (257, 4)), random_boxes(rng, (511, 4))),
+        "1x1000 up to 1e4": (random_boxes(rng, (1, 4), 1e4), random_boxes(rng, (1000, 4), 1e4)),
+    }
+    for name, (a, b) in iou_edges(np.random.RandomState(1)).items():
+        if a.dim() == 2 and b.dim() == 2:
+            cases[name] = (a.numpy(), b.numpy())
+        elif b.dim() == 2:  # the 2-D form of the batched edge case: its first image
+            cases[name + ", image 0"] = (a[0].numpy(), b.numpy())
+    return cases
+
+
+CASES = _cases()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_pallas_and_jax(name):
+    import jax.numpy as jnp
+
+    from basedet_tpu.ops.iou_pallas import box_iou_pallas
+    from basedet_tpu.structures import box_iou as jax_box_iou
+
+    a, b = CASES[name]
+    got = box_iou_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.asarray(jax_box_iou(jnp.asarray(a), jnp.asarray(b)))
+    pallas = np.asarray(box_iou_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    assert got.shape == want.shape == pallas.shape == (a.shape[0], b.shape[0])
+    np.testing.assert_array_equal(got, want)  # bit-equal, as measured
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+
+
+def test_edge_values():
+    """Identical proper boxes give exactly 1, a union at or under 0 gives 0,
+    touching and disjoint boxes give 0."""
+    special = next(iter(iou_edges(np.random.RandomState(1)).values()))[1][:12]
+    iou = box_iou_plain(special, special)
+    area = (special[:, 2] - special[:, 0]) * (special[:, 3] - special[:, 1])
+    proper = (special[:, 2] > special[:, 0]) & (special[:, 3] > special[:, 1])
+    assert bool((iou.diagonal()[proper] == 1.0).all())
+    union = area[:, None] + area[None, :] - pairwise_intersection(special, special)
+    assert bool((union <= 0).any()) and bool((iou[union <= 0] == 0).all())
+    assert float(iou[5, 6]) == 0.0 and float(iou[5, 7]) == 0.0  # touching along x, along y
+    assert float(iou[5, 8]) == 0.0  # disjoint
+    assert bool(((iou >= 0) & (iou <= 1)).all())
+
+
+@pytest.mark.parametrize("per_image", [False, True], ids=["shared boxes2", "boxes2 per image"])
+def test_batched_matches_jax(per_image):
+    """(B, M, 4) against (N, 4) shared by every image (RetinaNet's anchors) or
+    (B, N, 4): each image as the JAX package's ``box_iou`` and the Pallas
+    kernel compute it."""
+    import jax
+    import jax.numpy as jnp
+
+    from basedet_tpu.ops.iou_pallas import box_iou_pallas
+    from basedet_tpu.structures import box_iou as jax_box_iou
+
+    rng = np.random.RandomState(2)
+    a = random_boxes(rng, (3, 37, 4), 640.0)
+    b = random_boxes(rng, (3, 1030, 4) if per_image else (1030, 4), 640.0)
+    calls = box_iou_plain.calls
+    got = box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert box_iou_plain.calls == calls + 1
+    assert got.shape == (3, 37, 1030)
+    for i in range(3):
+        bi = b[i] if per_image else b
+        np.testing.assert_array_equal(got[i], np.asarray(jax_box_iou(jnp.asarray(a[i]), jnp.asarray(bi))))
+        pallas = box_iou_pallas(jnp.asarray(a[i]), jnp.asarray(bi), interpret=True)
+        np.testing.assert_allclose(got[i], np.asarray(pallas), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(jax_box_iou, (0, 0 if per_image else None))(
+        jnp.asarray(a), jnp.asarray(b))))
+
+
+def test_cpu_takes_the_plain_version():
+    a, b = (torch.from_numpy(x) for x in CASES["300x130"])
+    calls, launches = box_iou_plain.calls, box_iou.launches
+    out = box_iou(a, b)
+    assert out.shape == (300, 130) and out.dtype == torch.float32
+    assert box_iou_plain.calls == calls + 1 and box_iou.launches == launches
+    assert torch.equal(out, box_iou_plain(a, b))
+
+
+@pytest.mark.parametrize("case", ["f64", "int", "devices", "grad", "last dim", "3-D with 2-D",
+                                  "batch", "4-D", "meta"])
+def test_wrapper_raises(case):
+    a, b = torch.zeros(2, 5, 4), torch.zeros(7, 4)
+    if case == "f64":
+        a = a.double()
+    elif case == "int":
+        b = b.int()
+    elif case == "devices":
+        b = torch.zeros(7, 4, device="meta")
+    elif case == "grad":
+        b.requires_grad_()
+    elif case == "last dim":
+        a = torch.zeros(2, 5, 5)
+    elif case == "3-D with 2-D":
+        a, b = torch.zeros(5, 4), torch.zeros(2, 7, 4)
+    elif case == "batch":
+        b = torch.zeros(3, 7, 4)
+    elif case == "4-D":
+        a = torch.zeros(1, 2, 5, 4)
+    elif case == "meta":
+        a, b = a.to("meta"), b.to("meta")
+    calls = box_iou_plain.calls
+    with pytest.raises(ValueError):
+        box_iou(a, b)
+    assert box_iou_plain.calls == calls
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_gpu():
+    """Kernel #10 against its plain version on the card, on ``chip_smoke.py``'s
+    edge cases: max |diff| 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the IoU kernel has no CPU mode")
+    from chip_smoke import check_iou_case
+
+    for name, (a, b) in iou_edges(np.random.RandomState(5)).items():
+        launches = box_iou.launches
+        err, _ = check_iou_case(a.cuda(), b.cuda())
+        assert box_iou.launches == launches + 1, name
+        assert err == 0.0, (name, err)

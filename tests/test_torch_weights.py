@@ -93,3 +93,30 @@ def test_load_weights_reads_a_numpy_jax_pickle_and_a_torch_state_dict(trees, tmp
     other.load_weights(str(tmp_path / "port.pt"))
     for k, v in port.module.state_dict().items():
         assert torch.equal(v, other.module.state_dict()[k]), k
+
+
+@pytest.mark.parametrize("share", [True, False], ids=["shared head", "per-level head"])
+def test_retinanet_round_trip(share):
+    """Tiny RetinaNet: the FPN's ``fpn_p6``/``fpn_p7`` and the head in both
+    ``share_param`` forms map HWIO → OIHW and back, every leaf once."""
+    all_register()
+    cfg = shrink(C.RetinaNetConfig())
+    cfg.MODEL.HEAD.SHARE_PARAM = share
+    variables = jax.device_get(cfg.build_model().init_variables(jax.random.PRNGKey(0), image_size=(64, 64)))
+    rng = np.random.RandomState(1)
+    variables = jax.tree_util.tree_map(lambda v: rng.normal(size=np.shape(v)).astype(np.float32), variables)
+    port = build_model(cfg, "cpu")
+    sd = state_dict_from_jax(variables, port.module.state_dict())
+    port.module.load_state_dict(sd)
+    assert len(sd) == len(_leaves(variables)) == len(port.module.state_dict())
+    head = {k.split(".")[1] for k in sd if k.startswith("head.")}
+    per_level = {name for lv in range(5) for name in (f"cls_subnet_l{lv}_0", f"bbox_subnet_l{lv}_0",
+                                                      f"cls_score_l{lv}", f"bbox_pred_l{lv}")}
+    assert head == ({"cls_subnet_0", "bbox_subnet_0", "cls_score", "bbox_pred"} if share else per_level)
+    p6 = variables["params"]["fpn"]["fpn_p6"]["kernel"]
+    np.testing.assert_array_equal(sd["fpn.fpn_p6.weight"].numpy(), p6.transpose(3, 2, 0, 1))
+    back = _leaves(jax_from_state_dict(port.module.state_dict()))
+    ref = _leaves(variables)
+    assert back.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(back[k], ref[k], err_msg=k)
