@@ -11,10 +11,18 @@ The forward replaces ``basedet_tpu/ops/fused_bn.py::_fwd_kernel`` (kernel
 On the card both are bound by bytes: at YOLOX-S's widths (K, N 32-512) a
 tile does a few hundred flops per bf16 element read, under the ~295 per byte
 at which the tensor cores would bound it. The forward reads every input once
-per 64-column tile of the output and writes y once; the backward reads x, y
-and dy for its input-gradient pass and again for its weight-gradient pass.
-Sums across blocks go through partial rows and a second pass in a fixed
-order, so two runs give the same bits.
+per 64-row strip (all N columns up to 128, column groups beyond that or
+where M is too small to fill the card), multiplies with wgmma and writes y
+once, in one launch; the backward reads x, y and dy for its input-gradient
+pass and again for its weight-gradient pass. Sums across blocks go through
+partial rows added in a fixed order, so two runs give the same bits.
+
+The forward's host side is kept short: its C description (``_Problem``) is a
+template cached per call signature of which only the pointers change, y, the
+partial rows and the sums are one allocation, the plan (column groups,
+persistent blocks) is cached with the template, the inputs are checked once,
+in one pass, in :func:`fused_gemm_stats`, and no device context is entered
+when the tensors' device is current.
 
 The wrappers take M-tensors as row-major (M, K) bf16 (the port holds them as
 ``(B·H·W, C)`` views of channels-last NCHW tensors), weights (K, N) bf16 and
@@ -26,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,8 +48,10 @@ from basedet_tpu_torch.ops.fused_bn import (
 
 SOURCE = CSRC / "fused_bn.cu"
 MAX_TERMS, MAX_RAW = 4, 16  # kMaxTerms, kMaxRaw of the source
-TILE = 64  # kTile: output tile, and the forward's rows per partial-sum row
+TILE = 64  # kTile: the backward's output tile, and its rows per partial-sum row
 SPLIT_BLOCKS = 4 * 132  # weight-gradient blocks aimed at: four per SM of an H100
+STRIP, PANEL, MAX_PANELS = 64, 64, 2  # kFwdRows, kPanel and the largest NP of the forward
+GROUP, MAX_GROUPS = 32, 16  # kGroup, kMaxGroups: the forward's cross-block sums, at most 512 strip blocks
 
 _P = ctypes.c_void_p
 
@@ -61,8 +71,11 @@ class _Problem(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    lib.basedet_fused_gemm_stats_fwd.argtypes = [ctypes.POINTER(_Problem), _P, _P, _P, _P]
+    lib.basedet_fused_gemm_stats_fwd.argtypes = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                 _P, _P, _P, _P, _P]
     lib.basedet_fused_gemm_stats_fwd.restype = ctypes.c_int
+    lib.basedet_fused_fwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.basedet_fused_fwd_blocks_per_sm.restype = ctypes.c_int
     lib.basedet_fused_gemm_stats_bwd.argtypes = [
         ctypes.POINTER(_Problem), _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong,
         _P, ctypes.c_int, ctypes.c_int, _P]
@@ -70,50 +83,86 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(terms) -> Tuple[tuple, List[torch.Tensor], int, int, torch.device]:
+class _Call(NamedTuple):
+    """A checked fused call: its terms flattened (``flatten_terms`` order),
+    their shapes, device and data pointers (on the card)."""
+
+    spec: tuple
+    flat: List[torch.Tensor]
+    M: int
+    N: int
+    ks: tuple
+    device: torch.device
+    ptrs: List[int]
+
+
+def _check(terms) -> _Call:
     """Shapes, dtypes and devices of a fused call's terms, and on a CUDA
-    tensor what the kernels need beyond → (spec, flat, M, N, device)."""
+    tensor what the kernels need beyond: contiguous tensors on 16-byte
+    boundaries, K and N multiples of 8, M < 2**30. One pass over the tensors,
+    each attribute read once: it runs on every call."""
+    if not 1 <= len(terms) <= MAX_TERMS:
+        raise ValueError(f"a fused call takes 1-{MAX_TERMS} terms, got {len(terms)}")
     spec, flat = flatten_terms(terms)
-    if not 1 <= len(spec) <= MAX_TERMS:
-        raise ValueError(f"a fused call takes 1-{MAX_TERMS} terms, got {len(spec)}")
-    M, N = flat[0].shape[0], terms[0][2].shape[1]
-    device = flat[0].device
-    for t in terms:
-        raws = [(t[1], None, None)] if t[0] == "act" else t[1]
-        w = t[2]
-        if not 1 <= len(raws) <= MAX_RAW:
-            raise ValueError(f"a raw term takes 1-{MAX_RAW} inputs, got {len(raws)}")
-        if w.dim() != 2 or w.shape[1] != N or w.dtype != torch.bfloat16:
+    bf16, f32 = torch.bfloat16, torch.float32
+    M, N, device = flat[0].shape[0], terms[0][2].shape[-1], flat[0].device
+    card = device.type == "cuda"
+    if not card and device.type != "cpu":
+        raise ValueError(f"no fused GEMM kernel for device {device}")
+    ks, i = [], 0
+    for s, (_, _, w) in zip(spec, terms):
+        n_raw = 1 if s[0] == "act" else s[1]
+        if not 1 <= n_raw <= MAX_RAW:
+            raise ValueError(f"a raw term takes 1-{MAX_RAW} inputs, got {n_raw}")
+        if w.dim() != 2 or w.shape[1] != N or w.dtype != bf16:
             raise ValueError(f"weights must be bf16 (K, {N}), got {w.dtype} {tuple(w.shape)}")
         K = w.shape[0]
-        for x, scale, shift in raws:
-            if x.dim() != 2 or tuple(x.shape) != (M, K) or x.dtype != torch.bfloat16:
+        if card and K % 8:
+            raise ValueError(f"the fused kernels need K a multiple of 8, got {K}")
+        ks.append(K)
+        for _ in range(n_raw):
+            x = flat[i]
+            if x.shape != (M, K) or x.dtype != bf16:
                 raise ValueError(f"M-tensors must be bf16 ({M}, {K}), got {x.dtype} {tuple(x.shape)}")
-            for v in (scale, shift):
-                if v is not None and (tuple(v.shape) != (K,) or v.dtype != torch.float32):
-                    raise ValueError(f"scale and shift must be f32 ({K},), got {v.dtype} {tuple(v.shape)}")
-    if any(a.device != device for a in flat):
-        raise ValueError("the tensors of a fused call lie on different devices")
-    if device.type == "cuda":
-        _check_card(flat, M, N)
-    elif device.type != "cpu":
-        raise ValueError(f"no fused GEMM kernel for device {device}")
-    return spec, flat, M, N, device
+            if s[0] == "raw":
+                for v in flat[i + 1:i + 3]:
+                    if not isinstance(v, torch.Tensor) or v.shape != (K,) or v.dtype != f32:
+                        raise ValueError(f"a raw input's scale and shift must be f32 ({K},), got "
+                                         f"{getattr(v, 'dtype', None)} {tuple(getattr(v, 'shape', ()))}")
+            i += 1 if s[0] == "act" else 3
+        i += 1
+    if card:
+        _check_size(M, N)
+    ptrs = []
+    for a in flat:
+        if a.device != device:
+            raise ValueError("the tensors of a fused call lie on different devices")
+        if card:
+            ptr = a.data_ptr()
+            if ptr % 16 or not a.is_contiguous():
+                raise ValueError("the fused kernels need contiguous tensors on 16-byte boundaries")
+            ptrs.append(ptr)
+    return _Call(spec, flat, M, N, tuple(ks), device, ptrs)
 
 
-def _check_card(tensors: Sequence[torch.Tensor], M: int, N: int) -> None:
-    """What the kernels need beyond the shapes and dtypes."""
-    for a in tensors:
-        if not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError("the fused kernels need contiguous tensors on 16-byte boundaries")
-        if a.dim() == 2 and a.shape[1] % 8:
-            raise ValueError(f"the fused kernels need K and N multiples of 8, got {tuple(a.shape)}")
+def _check_size(M: int, N: int) -> None:
+    """The kernels' limits on M and N (K's is checked per term)."""
     if M >= 2**31 // 2 or N % 8:
         raise ValueError(f"the fused kernels take M < 2**30 and N a multiple of 8, got M={M} N={N}")
 
 
+def _check_card(tensors: Sequence[torch.Tensor]) -> None:
+    """What the kernels need of the backward's extra tensors beyond their
+    shapes and dtypes (M and N went through :func:`_check` with the
+    forward's terms)."""
+    for a in tensors:
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError("the fused kernels need contiguous tensors on 16-byte boundaries")
+
+
 def _problem(terms, M: int, N: int) -> Tuple[_Problem, list]:
-    """The C description of the terms, and per term its raw inputs."""
+    """The C description of the terms, and per term its raw inputs (the
+    backward's, built afresh for each call)."""
     p = _Problem(M=M, N=N, n_terms=len(terms))
     per_term = []
     for i, t in enumerate(terms):
@@ -129,23 +178,125 @@ def _problem(terms, M: int, N: int) -> Tuple[_Problem, list]:
     return p, per_term
 
 
-def _launch_forward(terms, M: int, N: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    p, _ = _problem(terms, M, N)
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=device)
-    part = torch.empty((-(-M // TILE), 2 * N), dtype=torch.float32, device=device)
-    sums = torch.empty(2 * N, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().basedet_fused_gemm_stats_fwd(ctypes.byref(p), y.data_ptr(), part.data_ptr(),
-                                                      sums.data_ptr(), stream)
+class _Template:
+    """A forward call signature's cached ``_Problem``: ``words`` aliases it as
+    64-bit words, and flat tensor i's pointer goes to ``words[slots[i]]``."""
+
+    __slots__ = ("problem", "words", "slots", "plan")
+
+    def __init__(self, spec, M: int, N: int, ks):
+        p = self.problem = _Problem(M=M, N=N, n_terms=len(spec))
+        self.words = (ctypes.c_int64 * (ctypes.sizeof(_Problem) // 8)).from_buffer(p)
+        term, field = ctypes.sizeof(_Term), {f: getattr(_Term, f).offset for f in ("x", "scale", "shift", "w")}
+        slots = []
+        for i, (s, K) in enumerate(zip(spec, ks)):
+            c, base = p.t[i], _Problem.t.offset + i * term
+            c.kind, c.n_raw, c.K = (0, 1, K) if s[0] == "act" else (1, s[1], K)
+            for j in range(c.n_raw):
+                slots.append((base + field["x"]) // 8 + j)
+                if s[0] == "raw":
+                    slots += [(base + field["scale"]) // 8 + j, (base + field["shift"]) // 8 + j]
+            slots.append((base + field["w"]) // 8)
+        self.slots = tuple(slots)
+        self.plan = None
+
+    def fill(self, ptrs: Sequence[int]) -> _Problem:
+        if len(ptrs) != len(self.slots):
+            raise ValueError(f"the template takes {len(self.slots)} pointers, got {len(ptrs)}")
+        words = self.words
+        for i, ptr in zip(self.slots, ptrs):
+            words[i] = ptr
+        return self.problem
+
+
+_TEMPLATES = {}
+
+
+def _forward_problem(call: _Call) -> Tuple[_Template, _Problem]:
+    """The cached template of this call's signature, its pointers set to the
+    call's (``call.ptrs``, or the tensors' own where the call lies on the
+    CPU)."""
+    key = (call.spec, call.M, call.N, call.ks)
+    tpl = _TEMPLATES.get(key)
+    if tpl is None:
+        tpl = _TEMPLATES[key] = _Template(call.spec, call.M, call.N, call.ks)
+    return tpl, tpl.fill(call.ptrs or [a.data_ptr() for a in call.flat])
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Tuple[int, Tuple[int, ...]]:
+    """(SMs, forward blocks per SM for 1..MAX_PANELS panels) of CUDA device ``index``."""
+    lib, blocks = _library(), ctypes.c_int()
+    per_sm = []
+    with torch.cuda.device(index):
+        for np_ in range(1, MAX_PANELS + 1):
+            err = lib.basedet_fused_fwd_blocks_per_sm(np_, ctypes.byref(blocks))
+            if err != 0 or blocks.value < 1:
+                raise RuntimeError(f"fused GEMM + stats kernel with {np_} panels does not fit an SM "
+                                   f"(CUDA error {err}, {blocks.value} blocks)")
+            per_sm.append(blocks.value)
+    return torch.cuda.get_device_properties(index).multi_processor_count, tuple(per_sm)
+
+
+def forward_plan(M: int, N: int, sms: int, per_sm: Sequence[int]) -> Tuple[int, int, int]:
+    """(panels per block, persistent strip blocks, column groups) of a
+    forward call: the widest column group (up to MAX_PANELS panels of 64,
+    groups of equal width) that still gives every SM a block, else one panel;
+    then as many strip blocks as fit on the card at once, at most one per
+    strip."""
+    panels, strips = -(-N // PANEL), -(-M // STRIP)
+    widths = sorted({-(-panels // g) for g in range(1, panels + 1)} & set(range(1, MAX_PANELS + 1)), reverse=True)
+    np_ = next((w for w in widths if strips * -(-panels // w) >= sms), 1)
+    groups = -(-panels // np_)
+    return np_, max(1, min(strips, per_sm[np_ - 1] * sms // groups, GROUP * MAX_GROUPS)), groups
+
+
+_COUNTERS = {}
+
+
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The forward's counters of one stream (one for the second level of its
+    cross-block sums, one per first-level group): int32s at 0 between calls
+    (the kernel's last blocks reset them)."""
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None:
+        c = _COUNTERS[key] = torch.zeros(1 + MAX_GROUPS, dtype=torch.int32, device=device)
+    return c
+
+
+def _launch_forward(call: _Call):
+    M, N, device = call.M, call.N, call.device
+    tpl, p = _forward_problem(call)
+    if tpl.plan is None:
+        tpl.plan = forward_plan(M, N, *_card(device.index))
+    np_, gx, gy = tpl.plan
+    # one allocation, in bf16 elements: y (M, N), partial rows (gx + ceil(gx / GROUP), 2N) f32,
+    # sums (2N,) f32
+    y_len, part_len = M * N, 4 * (gx - (-gx // GROUP)) * N
+    buf = torch.empty(y_len + part_len + 4 * N, dtype=torch.bfloat16, device=device)
+    base = buf.data_ptr()
+    if device.index == torch.cuda.current_device():
+        err = _call_forward(p, np_, gx, gy, base, y_len, part_len, device)
+    else:
+        with torch.cuda.device(device):
+            err = _call_forward(p, np_, gx, gy, base, y_len, part_len, device)
     if err != 0:
         raise RuntimeError(f"fused GEMM + stats kernel launch failed: CUDA error {err}")
     fused_gemm_stats.launches += 1
-    return y, sums[:N], sums[N:]
+    s, ss = buf.view(torch.float32).as_strided((2, N), (N, 1), (y_len + part_len) // 2).unbind()
+    return buf.as_strided((M, N), (N, 1)), s, ss
+
+
+def _call_forward(p, np_, gx, gy, base, y_len, part_len, device) -> int:
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    return _library().basedet_fused_gemm_stats_fwd(
+        ctypes.addressof(p), np_, gx, gy, base, base + 2 * y_len, base + 2 * (y_len + part_len),
+        _counter(device, stream).data_ptr(), stream)
 
 
 def _launch_backward(terms, M: int, N: int, device: torch.device, y, dy, ds, dss) -> List[torch.Tensor]:
-    _check_card((y, dy, ds, dss), M, N)
+    _check_card((y, dy, ds, dss))
     p, per_term = _problem(terms, M, N)
     n_tiles = -(-N // TILE)
     # per term: its dx tensors; its dscale/dshift rows (raw) and dw rows in the partial sums
@@ -204,7 +355,8 @@ def fused_gemm_stats_backward(terms, y: torch.Tensor, dy: torch.Tensor, ds: torc
     (``fused_gemm_stats_backward.launches`` counts the calls: four launches
     each, the input-gradient, weight-gradient and two partial-sum passes); a
     CPU tensor through the plain version."""
-    _, _, M, N, device = _check(terms)
+    call = _check(terms)
+    M, N, device = call.M, call.N, call.device
     for v, shape, dtype in ((y, (M, N), torch.bfloat16), (dy, (M, N), torch.bfloat16),
                             (ds, (N,), torch.float32), (dss, (N,), torch.float32)):
         if tuple(v.shape) != shape or v.dtype != dtype or v.device != device:
@@ -220,18 +372,16 @@ class _FusedGemmStats(torch.autograd.Function):
     """The custom VJP of the JAX package (``fused_bn.py:460-483``): the
     forward saves its inputs and y; the backward takes cotangents of y, s and
     ss (zeros where one arrives as None) and gives one to every input,
-    per-channel scale and shift included. ``call`` is (spec, M, N, device)
-    of inputs that :func:`_check` has passed."""
+    per-channel scale and shift included. ``call`` is what :func:`_check`
+    made of the inputs, which are ``flat``: nothing here checks them again."""
 
     @staticmethod
     def forward(ctx, call, *flat):
-        spec, M, N, device = call
-        terms = unflatten_terms(spec, flat)
-        if device.type == "cpu":
-            y, s, ss = fused_gemm_stats_plain(terms)
+        if call.device.type == "cpu":
+            y, s, ss = fused_gemm_stats_plain(unflatten_terms(call.spec, flat))
         else:
-            y, s, ss = _launch_forward(terms, M, N, device)
-        ctx.call = call
+            y, s, ss = _launch_forward(call)
+        ctx.shape = call.spec, call.M, call.N, call.device  # the tensors go by save_for_backward
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*flat, y)
         return y, s, ss
@@ -240,7 +390,7 @@ class _FusedGemmStats(torch.autograd.Function):
     def backward(ctx, dy: Optional[torch.Tensor], ds: Optional[torch.Tensor],
                  dss: Optional[torch.Tensor]):
         *flat, y = ctx.saved_tensors
-        spec, M, N, device = ctx.call
+        spec, M, N, device = ctx.shape
         dy = torch.zeros_like(y) if dy is None else dy.to(torch.bfloat16).contiguous()
         ds = y.new_zeros(N, dtype=torch.float32) if ds is None else ds.float().contiguous()
         dss = y.new_zeros(N, dtype=torch.float32) if dss is None else dss.float().contiguous()
@@ -250,12 +400,12 @@ class _FusedGemmStats(torch.autograd.Function):
 def fused_gemm_stats(terms) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused forward (kernel #3), differentiable: terms (see
     ``ops/fused_bn.py``) → y (M, N) bf16, s, ss (N,) f32. A CUDA tensor goes
-    through the kernel (``fused_gemm_stats.launches`` counts its calls: a
-    GEMM launch and a partial-sum pass each) and its backward through
-    :func:`fused_gemm_stats_backward`; a CPU tensor through the plain
-    versions. The inputs are checked once, here."""
-    spec, flat, M, N, device = _check(terms)
-    return _FusedGemmStats.apply((spec, M, N, device), *flat)
+    through the kernel (``fused_gemm_stats.launches`` counts its calls, one
+    launch each) and its backward through :func:`fused_gemm_stats_backward`;
+    a CPU tensor through the plain versions. The inputs are checked once,
+    here."""
+    call = _check(terms)
+    return _FusedGemmStats.apply(call, *call.flat)
 
 
 fused_gemm_stats.launches = 0

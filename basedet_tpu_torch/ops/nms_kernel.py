@@ -5,12 +5,14 @@ descending score, ``keep[i] = valid[i]`` and no kept ``j < i`` has
 ``inter > t * max(union, 1e-12)``: the exact sequential greedy result, ties
 included.
 
-On the card the kernel is bound by the O(K) sequential sweep and by launch
-latency, not by bytes (one image's 3000 candidates are 48 KB). Its design
-therefore moves all pairwise work into one fully parallel launch (a
-``(B, K, ceil(K/64))`` bitmask of suppressions, 64 boxes per block) and leaves
-only a bit-OR walk over that mask for the sequential part, one block per image
-with the ``removed`` bitmap in shared memory. See ``csrc/nms.cu``.
+On the card the kernel is bound by the chain of dependent keep decisions, not
+by bytes (one image's 5000 candidates are 80 KB) nor by the pairwise tests.
+Its design therefore moves all pairwise work into one fully parallel launch (a
+``(B, K, ceil(K/64))`` bitmask of suppressions, 64 boxes per block, only the
+blocks and rows the sweep reads) and leaves a sweep of one round per 64-box
+word for the sequential part: each warp resolves the word's 64 decisions in
+registers, then the block ORs the kept rows into ``removed``, one block per
+image. See ``csrc/nms.cu``.
 
 The kernel is built from the repository's source at first use and bound with
 ``ctypes`` (``ops/_build.py``).
@@ -25,6 +27,9 @@ import torch
 from basedet_tpu_torch.ops._build import CSRC, load_library
 
 SOURCE = CSRC / "nms.cu"
+# the sweep keeps one u64 `removed` word per 64 boxes and a 64-byte list per warp (at most 32) in
+# shared memory, 227 KB a block
+MAX_WORDS = (232448 - 32 * 64) // 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +58,13 @@ def _check(sorted_boxes: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("sorted_boxes and valid lie on different devices")
 
 
+def _launch(lib, sorted_boxes, valid, B, K, thresh, mask, keep) -> int:
+    return lib.basedet_nms_keep(
+        sorted_boxes.data_ptr(), valid.data_ptr(), B, K, thresh,  # c_float: rounds to f32
+        mask.data_ptr(), keep.data_ptr(), torch.cuda.current_stream().cuda_stream,
+    )
+
+
 def nms_keep(sorted_boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """Greedy-NMS keep mask: sorted_boxes (B, K, 4) f32 xyxy in descending
     score order, valid (B, K) bool → keep (B, K) bool.
@@ -66,19 +78,21 @@ def nms_keep(sorted_boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> 
         raise ValueError(f"no NMS kernel for device {sorted_boxes.device}")
     if not (sorted_boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep needs contiguous sorted_boxes and valid")
+    if sorted_boxes.data_ptr() % 16:
+        raise ValueError("nms_keep needs sorted_boxes on a 16-byte boundary")
     B, K = valid.shape
     words = (K + 63) // 64
-    if B > 65535 or words > 65535:
-        raise ValueError(f"nms_keep supports B, ceil(K/64) <= 65535, got B={B} K={K}")
-    keep = torch.empty((B, K), dtype=torch.bool, device=valid.device)
-    mask = torch.empty((B, K, words), dtype=torch.int64, device=valid.device)
+    if B > 65535 or words > MAX_WORDS:
+        raise ValueError(f"nms_keep supports B <= 65535 and K <= {64 * MAX_WORDS}, got B={B} K={K}")
+    device = valid.device
+    keep = torch.empty((B, K), dtype=torch.bool, device=device)
+    mask = torch.empty((B, K, words), dtype=torch.int64, device=device)
     lib = _library()
-    with torch.cuda.device(valid.device):
-        stream = torch.cuda.current_stream(valid.device).cuda_stream
-        err = lib.basedet_nms_keep(
-            sorted_boxes.data_ptr(), valid.data_ptr(), B, K, thresh,  # c_float: rounds to f32
-            mask.data_ptr(), keep.data_ptr(), stream,
-        )
+    if device.index == torch.cuda.current_device():
+        err = _launch(lib, sorted_boxes, valid, B, K, thresh, mask, keep)
+    else:
+        with torch.cuda.device(device):
+            err = _launch(lib, sorted_boxes, valid, B, K, thresh, mask, keep)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: CUDA error {err}")
     nms_keep.launches += 1

@@ -18,7 +18,11 @@ Run from the root of the repository. Phases, each of which raises on failure:
      on random batches at the YOLOX eval shape, at Faster R-CNN's three
      shapes (the RPN's at eval, K = 4819, and at training, B = 2 and
      K = 8819, and the final class-aware NMS, K = 2000), at RetinaNet's
-     final NMS (K = 5000) and on edge cases; time both;
+     final NMS (K = 5000) and on edge cases (among them the word-blocked
+     sweep's: K = 63, 64, 65 and 4097, invalid boxes on word edges,
+     interleaved and filling a word, nothing suppressed, a chain of
+     suppressions); time both, with the
+     mask and sweep launches apart (profiler);
   4. the same for the SimOTA matching kernel, at the train slice's shape
      (8, 100, 8400) and on edge cases and one 832x832 case;
   4b. hold the RoIAlign kernel to its plain version within 1e-5 of
@@ -48,9 +52,14 @@ Run from the root of the repository. Phases, each of which raises on failure:
      forward at batch 8 of 640x640 (every distinct shape, real activations)
      and on edge cases (ragged M, 1-4 raw inputs, act + raw, K = N = 512,
      K and N not multiples of 64, ds = dss = 0, and a raw term of 7 and of 13
-     inputs at YOLOX-M's and YOLOX-X's depths), within FUSED_SUM_RTOL;
-     time each shape, kernel, plain version and torch.matmul + column sums,
-     and sum them over a step;
+     inputs at YOLOX-M's and YOLOX-X's depths; the strip kernel's M = 1, 127
+     and 129 and N = K = 8), within FUSED_SUM_RTOL, and two forward runs
+     bit-equal on every case; time each shape, kernel (called as training
+     calls it: inputs needing gradients, gradients on), plain version and
+     torch.matmul + column sums, and sum them over a step; replay the step's
+     36 forward calls in order: events time, fwd_kernel's device time
+     (profiler) and host time per call, then events and host time with
+     gradients off;
   9b. det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
      steps of 8 images (832x832 after the multiscale resize): 36 forward and
      36 backward fused launches per step, the matching kernel once, plain
@@ -233,6 +242,31 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, iters, names, warmup=2, attempts=3):
+    """Device time per call of fn, by kernel, from torch.profiler: {name: ms}
+    summed over the kernels whose name contains name, for each of names. A
+    profiler pass now and then reports no kernels at all (its records arrive
+    after the pass): such a pass is repeated, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        key = "self_device_time_total" if len(averages) and hasattr(averages[0], "self_device_time_total") \
+            else "self_cuda_time_total"
+        found = {n: sum(getattr(e, key) for e in averages if n in e.key) / 1000 / iters for n in names}
+        if all(v > 0 for v in found.values()):
+            return found
+    raise RuntimeError(f"chip_smoke: the profiler saw no device time for some of {names} in {attempts} passes: "
+                       f"{found}")
+
+
 def phase_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU")
@@ -321,6 +355,24 @@ def _kernel_cases():
     tiled = np.concatenate([edge + 40 * i for i in range(32)])[None]  # inter == t*union exactly
     for t in (0.5, 0.75):
         cases.append((f"inter == {t}*union", tiled, np.ones(tiled.shape[:2], bool), t))
+    # the word-blocked sweep's edges: K around one 64-box word and past 64 words, invalid boxes on
+    # word boundaries, interleaved and filling a word, nothing suppressed
+    rng = np.random.RandomState(SEED + 8)
+    for K in (63, 64, 65, 4097):
+        cases.append((f"K={K}", _random_boxes(rng, 2, K, True), rng.uniform(size=(2, K)) > 0.1, 0.5))
+    boxes = _random_boxes(rng, 2, 320, True)
+    at_edges = np.ones((2, 320), bool)
+    at_edges[:, [0, 63, 64, 127, 128, 191, 255, 256, 319]] = False
+    cases.append(("invalid at word edges", boxes, at_edges, 0.5))
+    cases.append(("invalid interleaved", boxes, np.arange(320)[None].repeat(2, 0) % 2 == 1, 0.5))
+    cases.append(("one word all invalid", boxes, np.arange(320)[None].repeat(2, 0) // 64 != 2, 0.5))
+    grid = np.stack(np.meshgrid(np.arange(20) * 30.0, np.arange(15) * 30.0), -1).reshape(-1, 2)
+    disjoint = np.concatenate([grid, grid + 20], 1).astype(np.float32)[None].repeat(2, 0)
+    cases.append(("all disjoint", disjoint, np.ones(disjoint.shape[:2], bool), 0.3))
+    # box k suppresses k + 1 and not k + 2: the sweep's Jacobi rounds do not settle on these words
+    x = 3.0 * np.arange(150, dtype=np.float32)
+    chain = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10)], 1)[None].repeat(2, 0)
+    cases.append(("suppression chain", chain, np.ones(chain.shape[:2], bool), 0.5))
     return cases
 
 
@@ -334,6 +386,16 @@ def nms_bound(valid, keep):
     kept = keep.sum(1).double()
     suppressed = valid.sum(1).double() - kept
     return bound(B * K * (16 + 1 + 1), 15 * float((kept * (kept - 1) / 2 + suppressed).sum()))
+
+
+def _nms_split(boxes, valid, t):
+    """The NMS call's two launches apart: device time per call of the mask
+    kernel and of the sweep, from the profiler."""
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep
+
+    dev = device_ms(lambda: nms_keep(boxes, valid, t), 10, ("nms_mask_kernel", "nms_sweep_kernel"))
+    return (f"device: mask kernel {dev['nms_mask_kernel']:.4f} ms, sweep {dev['nms_sweep_kernel']:.4f} ms "
+            f"(profiler)")
 
 
 def phase_kernel(card):
@@ -362,19 +424,28 @@ def phase_kernel(card):
     log(f"[kernel] {n_cases} cases equal; B={SLICE_B} K={SLICE_K} t={SLICE_T} (clustered, "
         f"kept per image {min(kept)}-{max(kept)} of {SLICE_K}): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per call, bound {bound_ms:.6f} ms "
-        f"({bound_by}) | {card}")
-    for name, B, K, t in (("frcnn rpn", 1, FRCNN_RPN_K, FRCNN_RPN_T),
-                          ("frcnn final", 1, FRCNN_FINAL_K, FRCNN_FINAL_T),
-                          ("frcnn rpn train", FRCNN_TRAIN_B, FRCNN_TRAIN_RPN_K, FRCNN_RPN_T),
-                          ("retinanet final", 1, RETINA_FINAL_K, RETINA_FINAL_T)):
-        b = torch.from_numpy(_random_boxes(rng, B, K, True)).cuda()
+        f"({bound_by}); {_nms_split(b, v, SLICE_T)} | {card}")
+    # the clustered shapes of the main paths, and YOLOX's eval shape on small scattered boxes, where
+    # most boxes are kept (as random-weight YOLOX-S keeps ~2,800 of 3,000 in det_test)
+    for name, B, K, t, clustered in (("frcnn rpn", 1, FRCNN_RPN_K, FRCNN_RPN_T, True),
+                                     ("frcnn final", 1, FRCNN_FINAL_K, FRCNN_FINAL_T, True),
+                                     ("frcnn rpn train", FRCNN_TRAIN_B, FRCNN_TRAIN_RPN_K, FRCNN_RPN_T, True),
+                                     ("retinanet final", 1, RETINA_FINAL_K, RETINA_FINAL_T, True),
+                                     ("yolox most kept", 1, SLICE_K, SLICE_T, False)):
+        if clustered:
+            b = torch.from_numpy(_random_boxes(rng, B, K, True)).cuda()
+        else:
+            xy = rng.uniform(0, 640, (B, K, 2))
+            b = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(1, 12, (B, K, 2))], -1).astype(np.float32)).cuda()
         v = torch.ones(B, K, dtype=torch.bool, device="cuda")
         k_ms = cuda_ms(lambda: nms_keep(b, v, t), reps=50, warmup=5)
         p_ms = cuda_ms(lambda: nms_keep_plain(b, v, t), reps=2, warmup=1)
         keep = nms_keep(b, v, t)
+        check(torch.equal(keep, nms_keep_plain(b, v, t)), f"NMS kernel differs from nms_keep_plain at {name}")
         k_bound, k_by = nms_bound(v, keep)
-        log(f"[kernel] {name} B={B} K={K} t={t} (clustered, {int(keep.sum())} kept): kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.3f} ms per call, bound {k_bound:.6f} ms ({k_by}) | {card}")
+        log(f"[kernel] {name} B={B} K={K} t={t} ({'clustered' if clustered else 'scattered'}, {int(keep.sum())} "
+            f"kept): kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms per call, bound {k_bound:.6f} ms ({k_by}); "
+            f"{_nms_split(b, v, t)} | {card}")
     return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -923,6 +994,24 @@ def _detached_terms(terms):
              [tuple(a.detach().clone() for a in raw) for raw in t[1]], t[2].detach().clone()) for t in terms]
 
 
+def _grad_terms(terms):
+    """Copies of terms whose tensors need gradients, as a train step's do."""
+    copy = lambda a: a.detach().clone().requires_grad_(True)
+    return [(t[0], copy(t[1]) if t[0] == "act" else [tuple(map(copy, raw)) for raw in t[1]], copy(t[2]))
+            for t in terms]
+
+
+def _fused_forward_repeats(terms):
+    """Whether two launches of the fused forward on terms give the same bits."""
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
+
+    with torch.no_grad():
+        first = [a.clone() for a in fused_gemm_stats(terms)]
+        second = fused_gemm_stats(terms)
+    bits = lambda a: a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(first, second))
+
+
 def phase_fused_kernels(weights, card):
     """Kernels #3 and #4 against their plain versions: on the fused calls of
     one bf16 train forward of full-width YOLOX-S at batch 8 of 640x640 (real
@@ -933,7 +1022,7 @@ def phase_fused_kernels(weights, card):
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.layers.precision import precision_policy
     from basedet_tpu_torch.ops.fused_bn import _prologue, fused_gemm_stats_backward_plain, fused_gemm_stats_plain
-    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+    from basedet_tpu_torch.ops.fused_bn_kernel import _card, forward_plan, fused_gemm_stats, fused_gemm_stats_backward
 
     model, _, _, _, batch, _ = _train_setup(weights, "cuda", 8, amp="fused")
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
@@ -955,11 +1044,19 @@ def phase_fused_kernels(weights, card):
                                 # conv3's left term at YOLOX-M's depth (dark3: n = 6, so 7 raw inputs) and
                                 # YOLOX-X's (dark4: n = 12, so 13), at their widths and batch 8 of 640x640
                                 ("7 raw, YOLOX-M dark3", (7,), 8 * 80 * 80, 96, 192),
-                                ("13 raw, YOLOX-X dark4", (13,), 8 * 40 * 40, 320, 640)):
+                                ("13 raw, YOLOX-X dark4", (13,), 8 * 40 * 40, 320, 640),
+                                # the strip kernel's edges: one row, a ragged strip, a strip and a
+                                # row; one panel of 64 columns, mostly padding
+                                ("M=1 act", ("act",), 1, 32, 64), ("M=127 2 raw", (2,), 127, 32, 64),
+                                ("M=129 act + raw", ("act", 1), 129, 64, 128),
+                                ("N=8 K=8 act", ("act",), 300, 8, 8), ("N=8 K=8 3 raw", (3,), 129, 8, 8)):
         cases.append((name, _random_fused_terms(gen, spec, M, K, N), _fused_cotangents(gen, M, N)))
     M, K, N = 5000, 96, 64
     cases.append(("ds = dss = 0", _random_fused_terms(gen, (1, 1), M, K, N), _fused_cotangents(gen, M, N, zero=True)))
     worst_err = check_fused_cases("fused", cases)
+    differ = [name for name, terms, _ in cases if not _fused_forward_repeats(terms)]
+    check(not differ, f"two runs of the fused forward differ on {differ}")
+    log(f"[fused] two runs of the forward kernel bit-equal in y, s and ss on all {len(cases)} cases")
 
     times = {}
     for sig, terms in first.items():
@@ -974,21 +1071,55 @@ def phase_fused_kernels(weights, card):
                 return yl.sum(0), (yl * yl).sum(0)
 
             times[sig] = dict(
-                fwd=cuda_ms(lambda: fused_gemm_stats(terms), reps=20, warmup=3),
                 plain=cuda_ms(lambda: fused_gemm_stats_plain(terms), reps=5, warmup=1),
                 library=cuda_ms(library, reps=20, warmup=3),
                 bwd=cuda_ms(lambda: fused_gemm_stats_backward(terms, y, dy, ds, dss), reps=20, warmup=3),
                 bwd_plain=cuda_ms(lambda: fused_gemm_stats_backward_plain(terms, y, dy, ds, dss), reps=5, warmup=1))
+        with full_f32():
+            train_terms = _grad_terms(terms)
+            times[sig]["fwd"] = cuda_ms(lambda: fused_gemm_stats(train_terms), reps=20, warmup=3)
         (fb, fo), (bb, bo) = _fused_bytes_ops(terms)
         times[sig]["bound"] = bound(fb, fo, PEAK_BF16_PER_S)[0]
         times[sig]["bwd_bound"] = bound(bb, bo, PEAK_BF16_PER_S)[0]
         t = times[sig]
         n = sum(1 for c in calls if c[0] == sig)
-        log(f"[fused] {n} x spec {sig[0]} M={sig[1]} K={sig[2]} N={sig[3]}: forward kernel {t['fwd']:.4f} ms "
+        plan = forward_plan(sig[1], sig[3], *_card(torch.cuda.current_device()))
+        log(f"[fused] {n} x spec {sig[0]} M={sig[1]} K={sig[2]} N={sig[3]} (forward: {plan[0]} panels, "
+            f"grid {plan[1]} x {plan[2]}): forward kernel {t['fwd']:.4f} ms "
             f"(bound {t['bound']:.4f}, plain {t['plain']:.4f}, torch.matmul + column sums {t['library']:.4f}); "
             f"backward kernel {t['bwd']:.4f} ms (bound {t['bwd_bound']:.4f}, plain {t['bwd_plain']:.4f}) | {card}")
     step = {k: sum(times[c[0]][k] for c in calls) for k in ("fwd", "plain", "library", "bwd", "bwd_plain",
                                                              "bound", "bwd_bound")}
+    step_calls = [_grad_terms(c[1]) for c in calls]
+
+    def replay():
+        for terms in step_calls:
+            fused_gemm_stats(terms)
+
+    def host_us():
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay()
+            host.append((time.perf_counter() - t0) * 1e6 / len(step_calls))
+            torch.cuda.synchronize()
+        host.sort()
+        return f"{host[len(host) // 2]:.1f} us per call (median of 20 passes, {host[0]:.1f}-{host[-1]:.1f})"
+
+    # as det_train --amp calls the kernel: inputs that need gradients, gradients on, each call recorded
+    # by autograd; then with gradients off, through the same autograd Function
+    with full_f32():
+        replay_ms = cuda_ms(replay, reps=20, warmup=3)
+        device = device_ms(replay, 5, ("fwd_kernel",))["fwd_kernel"]
+        host = host_us()
+    with torch.no_grad(), full_f32():
+        replay_nograd_ms = cuda_ms(replay, reps=20, warmup=3)
+        host_nograd = host_us()
+    log(f"[fused] the step's 36 forward calls in order, as training makes them (gradients on): events "
+        f"{replay_ms:.4f} ms, device time of fwd_kernel {device:.4f} ms (profiler), host {host}; gradients off: "
+        f"events {replay_nograd_ms:.4f} ms, host {host_nograd}; bound {step['bound']:.4f} ms, torch.matmul + "
+        f"column sums {step['library']:.4f} ms | {card}")
     fwd_bytes = sum(_fused_bytes_ops(c[1])[0][0] for c in calls)
     bwd_bytes = sum(_fused_bytes_ops(c[1])[1][0] for c in calls)
     log(f"[fused] per train step at batch 8 of 640x640 (36 calls each): forward kernels {step['fwd']:.3f} ms "
@@ -1081,10 +1212,10 @@ def phase_amp_train_vs_cpu(weights):
     from unittest import mock
 
     from basedet_tpu_torch.ops import fused_bn_kernel
-    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain, unflatten_terms
 
     grads = lambda args, out: [p.grad.detach().double().cpu().clone() for p in args[0]]
-    plain = {"_launch_forward": lambda terms, *shape: fused_gemm_stats_plain(terms),
+    plain = {"_launch_forward": lambda call: fused_gemm_stats_plain(unflatten_terms(call.spec, call.flat)),
              "_launch_backward": lambda terms, M, N, device, *cts: fused_gemm_stats_backward_plain(terms, *cts)}
     counters = (fused_bn_kernel.fused_gemm_stats, fused_bn_kernel.fused_gemm_stats_backward,
                 fused_gemm_stats_plain, fused_gemm_stats_backward_plain)

@@ -35,6 +35,7 @@ from basedet_tpu_torch.ops.fused_bn import (
     stats_to_moments,
     unflatten_terms,
 )
+from basedet_tpu_torch.ops import fused_bn_kernel
 from basedet_tpu_torch.ops.fused_bn_kernel import MAX_RAW, fused_gemm_stats, fused_gemm_stats_backward
 
 M, K, N = 256, 32, 64
@@ -351,3 +352,133 @@ def test_kernels_match_plain_on_gpu():
         assert (fused_gemm_stats.launches, fused_gemm_stats_backward.launches) == (launches[0] + 1,
                                                                                    launches[1] + 1)
         assert all(v <= 1.0 for v in ratios.values()), (spec, m, ratios)
+
+
+def _template_for(terms):
+    return fused_bn_kernel._forward_problem(fused_bn_kernel._check(terms))
+
+
+def test_forward_problem_template_is_cached_per_signature():
+    """The forward's C description is built once per call signature: a call
+    with new tensors of the same signature reuses it with the new pointers;
+    another signature builds another."""
+    rng = np.random.RandomState(6)
+    first = torch_terms(make_terms(rng, ("act", 2)))
+    tpl, p = _template_for(first)
+    second = torch_terms(make_terms(rng, ("act", 2)))
+    tpl2, p2 = _template_for(second)
+    assert tpl2 is tpl and p2 is p
+    (_, x, w0), (_, raws, w1) = second
+    assert (p.M, p.N, p.n_terms) == (M, N, 2)
+    assert (p.t[0].kind, p.t[0].n_raw, p.t[0].K, p.t[1].kind, p.t[1].n_raw, p.t[1].K) == (0, 1, K, 1, 2, K)
+    assert (p.t[0].x[0], p.t[0].w, p.t[1].w) == (x.data_ptr(), w0.data_ptr(), w1.data_ptr())
+    for j, (xj, sc, sh) in enumerate(raws):
+        assert (p.t[1].x[j], p.t[1].scale[j], p.t[1].shift[j]) == (xj.data_ptr(), sc.data_ptr(), sh.data_ptr())
+    other, _ = _template_for(torch_terms(make_terms(rng, ("act", 2), m=M + 8)))
+    assert other is not tpl
+    again, _ = _template_for(torch_terms(make_terms(rng, ("act", 1))))
+    assert again is not tpl and again is not other
+
+
+@pytest.mark.parametrize("drop", ["scale", "shift", "both"])
+def test_raw_input_without_scale_or_shift_raises(drop):
+    """A raw input must carry its scale and shift: one left as None is
+    refused before any pointer reaches the cached template."""
+    (kind, raws, w), = torch_terms(make_terms(np.random.RandomState(8), (2,)))
+    x, scale, shift = raws[1]
+    raws[1] = (x, None if drop != "shift" else scale, None if drop != "scale" else shift)
+    with pytest.raises(ValueError, match="scale and shift"):
+        fused_gemm_stats([(kind, raws, w)])
+
+
+def test_forward_template_refuses_a_pointer_list_of_another_length():
+    """The template fills its slots from a pointer list of exactly its own
+    length: a shorter or longer one raises instead of leaving stale slots."""
+    tpl, _ = _template_for(torch_terms(make_terms(np.random.RandomState(9), ("act", 2))))
+    ptrs = list(range(16, 16 * (len(tpl.slots) + 1), 16))
+    tpl.fill(ptrs)
+    for bad in (ptrs[:-1], ptrs + [16]):
+        with pytest.raises(ValueError, match="pointers"):
+            tpl.fill(bad)
+
+
+@pytest.mark.parametrize("m,n", [(1, 8), (3200, 512), (12800, 256), (51200, 128), (346112, 32), (777, 40)])
+def test_forward_plan_covers_every_row_and_column(m, n):
+    """The forward's plan on an H100's 132 SMs: its column groups cover N,
+    its strip blocks never outnumber the strips, and the grid fills the card
+    where there are rows enough."""
+    np_, gx, gy = fused_bn_kernel.forward_plan(m, n, 132, (2, 1, 1, 1))
+    strips = -(-m // fused_bn_kernel.STRIP)
+    assert 1 <= np_ <= fused_bn_kernel.MAX_PANELS
+    assert gy * np_ * fused_bn_kernel.PANEL >= n > (gy - 1) * np_ * fused_bn_kernel.PANEL
+    assert 1 <= gx <= strips
+    assert gx * gy >= min(132, strips * -(-n // fused_bn_kernel.PANEL))
+
+
+@pytest.mark.cuda
+def test_forward_kernel_edge_shapes_and_repeat_bits_on_gpu():
+    """Kernel #3 at M = 1, 127 and 129 (one strip, a ragged strip, a strip
+    and a row) and at N = K = 8 (one panel, mostly padding) against its plain
+    version, and two launches of every case bit-equal in y, s and ss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused GEMM kernels have no CPU mode")
+    from chip_smoke import check_fused_case
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for spec, m, k, n in [(("act",), 1, 32, 64), ((2,), 127, 32, 64), (("act", 1), 129, 64, 128),
+                          (("act",), 300, 8, 8), ((3,), 129, 8, 8), ((1, 1), 4097, 256, 512)]:
+        terms = []
+        for sp in spec:
+            w = (torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5).bfloat16()
+            if sp == "act":
+                terms.append(("act", torch.randn(m, k, device="cuda", generator=gen).bfloat16(), w))
+            else:
+                terms.append(("raw", [(torch.randn(m, k, device="cuda", generator=gen).bfloat16(),
+                                       torch.rand(k, device="cuda", generator=gen) + 0.5,
+                                       torch.randn(k, device="cuda", generator=gen) * 0.1)
+                                      for _ in range(sp)], w))
+        cts = (torch.randn(m, n, device="cuda", generator=gen).bfloat16(),
+               torch.randn(n, device="cuda", generator=gen) * 1e-2,
+               torch.randn(n, device="cuda", generator=gen) * 1e-3)
+        ratios, _, _ = check_fused_case(terms, *cts)
+        assert all(v <= 1.0 for v in ratios.values()), (spec, m, k, n, ratios)
+        with torch.no_grad():
+            first = [a.clone() for a in fused_gemm_stats(terms)]
+            second = fused_gemm_stats(terms)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32),
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32))
+
+
+def _round_f32(x) -> float:
+    """An exact rational rounded to the nearest float32, ties to even (normal range)."""
+    from fractions import Fraction
+
+    x = Fraction(x)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += 1 if Fraction(2) ** (e + 1) <= x else (-1 if Fraction(2) ** e > x else 0)
+    q, r = divmod(x * Fraction(2) ** (23 - e), 1)
+    q = int(q) + (1 if r > Fraction(1, 2) or (r == Fraction(1, 2) and int(q) % 2) else 0)
+    return sign * float(Fraction(q) * Fraction(2) ** (e - 23))
+
+
+def test_prologue_reciprocal_rounds_like_division():
+    """``recip_ge1`` in ``csrc/fused_bn.cu`` (the prologue's 1 / (1 + exp(-p))): from an
+    approximate reciprocal up to two ulps off, two residual steps by FMA give the correctly
+    rounded 1 / d, the bits of IEEE division, for d in [1, 2^126). Exact rational FMAs here."""
+    from fractions import Fraction
+
+    fma = lambda a, b, c: _round_f32(Fraction(a) * Fraction(b) + Fraction(c))
+    rng = np.random.RandomState(12)
+    ds = np.concatenate([1 + 3 * rng.rand(300), 2.0 ** rng.uniform(0, 125, 300),
+                         1 + 2.0 ** -rng.randint(1, 24, 100) * rng.randint(0, 9, 100)]).astype(np.float32)
+    for d in map(float, ds):
+        exact = _round_f32(Fraction(1) / Fraction(d))
+        for ulps in (-2, -1, 0, 1, 2):
+            r0 = np.float32(exact)
+            for _ in range(abs(ulps)):
+                r0 = np.nextafter(r0, np.float32(np.inf if ulps > 0 else -np.inf))
+            r = fma(float(r0), fma(-d, float(r0), 1.0), float(r0))
+            assert fma(r, fma(-d, r, 1.0), r) == exact, (d, ulps)

@@ -203,6 +203,157 @@ def test_nms_keep_rejects_what_the_kernel_does_not_take(boxes, valid):
         nms_keep(boxes, valid, 0.5)
 
 
+# -- the word-blocked sweep of csrc/nms.cu, modelled in torch -------------------------------------
+
+def _suppress_words(boxes: torch.Tensor, t: float) -> np.ndarray:
+    """(B, K, 4) → (B, K, ceil(K/64)) uint64: bit e of word w of row i is set
+    where box i suppresses box 64w + e > i, the kernel's predicate in its
+    operations and order (nms_keep_plain's)."""
+    B, K = boxes.shape[:2]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    iw = (torch.minimum(x2[:, :, None], x2[:, None, :])
+          - torch.maximum(x1[:, :, None], x1[:, None, :])).clamp(min=0.0)
+    ih = (torch.minimum(y2[:, :, None], y2[:, None, :])
+          - torch.maximum(y1[:, :, None], y1[:, None, :])).clamp(min=0.0)
+    inter = iw * ih
+    area = (x2 - x1) * (y2 - y1)
+    union = (area[:, :, None] + area[:, None, :]) - inter
+    sup = (inter > torch.tensor(t, dtype=torch.float32) * union.clamp(min=1e-12))
+    sup &= torch.ones((K, K), dtype=torch.bool).triu(1)
+    words = -(-K // 64)
+    padded = np.zeros((B, K, words * 64), bool)
+    padded[:, :, :K] = sup.numpy()
+    return np.packbits(padded, axis=-1, bitorder="little").view("<u8")
+
+
+def word_sweep_model(boxes: torch.Tensor, valid: torch.Tensor, t: float) -> torch.Tensor:
+    """The sweep of ``csrc/nms.cu`` in plain Python: one round per 64-box
+    word, its decisions resolved from the diagonal words (up to four Jacobi
+    rounds, then if they have not settled a loop over the kept boxes), then
+    the kept rows ORed into the later ``removed`` words. Mask words the kernel never computes are filled with all ones
+    first (rows of invalid boxes, words left of the diagonal), so the model
+    fails if the sweep reads them."""
+    B, K = valid.shape
+    words = -(-K // 64)
+    mask = _suppress_words(boxes, t).copy()
+    ones = np.uint64(2**64 - 1)
+    v = valid.numpy()
+    keep = np.zeros((B, K), bool)
+    for b in range(B):
+        mask[b][~v[b]] = ones
+        for i in range(K):
+            mask[b, i, : i // 64] = ones
+        removed = [0] * words
+        for w in range(words):
+            lo, hi = 64 * w, min(K, 64 * w + 64)
+            valid_bits = sum(1 << e for e in range(hi - lo) if v[b, lo + e])
+            cand0 = valid_bits & ~removed[w]
+            kept, settled = cand0, False
+            for _ in range(4):  # Jacobi rounds: a fixed point is the greedy result
+                sup = 0
+                for e in range(hi - lo):
+                    if (kept >> e) & 1:
+                        sup |= int(mask[b, lo + e, w])
+                nxt = cand0 & ~sup
+                settled, kept = nxt == kept, nxt
+                if settled:
+                    break
+            if not settled:  # one kept box at a time
+                cand, kept = cand0, 0
+                while cand:
+                    i = (cand & -cand).bit_length() - 1
+                    kept |= 1 << i
+                    cand &= cand - 1
+                    cand &= ~int(mask[b, lo + i, w])
+            for e in range(hi - lo):
+                keep[b, lo + e] = bool((kept >> e) & 1)
+            if kept:
+                for wp in range(w + 1, words):
+                    acc = removed[wp]
+                    for e in range(64):
+                        if (kept >> e) & 1:
+                            acc |= int(mask[b, lo + e, wp])
+                    removed[wp] = acc
+    return torch.from_numpy(keep)
+
+
+def _sweep_cases():
+    """(name, boxes (1, K, 4), valid (1, K), t) for the word-blocked sweep."""
+    rng = np.random.RandomState(11)
+    cases = []
+    for K in (1, 63, 64, 65, 1037, 4097):
+        cases.append((f"random K={K}", random_boxes(rng, K, size=40.0 * K ** 0.5),
+                      rng.uniform(size=K) > 0.1, 0.5))
+    centers = rng.uniform(0, 300, (12, 2))
+    pick = rng.randint(0, 12, 700)
+    c = centers[pick] + rng.normal(0, 3, (700, 2))
+    cases.append(("clustered K=700", np.concatenate([c - 20, c + 20], 1).astype(np.float32),
+                  np.ones(700, bool), 0.65))
+    # equal scores: the stable order puts ties in index order, which the sweep must keep
+    boxes = random_boxes(rng, 500, size=200.0)
+    scores = np.round(rng.uniform(size=500), 1)
+    order = np.argsort(-scores, kind="stable")
+    cases.append(("equal scores", boxes[order], np.ones(500, bool), 0.5))
+    edge = np.float32([[0, 0, 10, 10], [0, 0, 10, 5], [20, 0, 30, 10], [20, 0, 30, 7.5]])
+    tiled = np.concatenate([edge + 40 * i for i in range(40)])  # inter == t*union exactly
+    for t in (0.5, 0.75):
+        cases.append((f"inter == {t}*union", tiled, np.ones(len(tiled), bool), t))
+    K = 320
+    boxes = random_boxes(rng, K, size=120.0)
+    at_edges = np.ones(K, bool)
+    at_edges[[0, 63, 64, 127, 128, 191, 255, 256, 319]] = False
+    cases.append(("invalid at word boundaries", boxes, at_edges, 0.5))
+    cases.append(("invalid interleaved", boxes, np.arange(K) % 2 == 1, 0.5))
+    cases.append(("one word all invalid", boxes, (np.arange(K) // 64) != 2, 0.5))
+    grid = np.stack(np.meshgrid(np.arange(20) * 30.0, np.arange(15) * 30.0), -1).reshape(-1, 2)
+    cases.append(("all disjoint", np.concatenate([grid, grid + 20], 1).astype(np.float32),
+                  np.ones(len(grid), bool), 0.3))
+    same = np.broadcast_to(np.float32([5, 5, 50, 60]), (200, 4)).copy()
+    cases.append(("all identical", same, np.ones(200, bool), 0.5))
+    # a chain: box k suppresses box k + 1 (IoU 0.54) but not k + 2 (0.25), so the greedy result
+    # alternates and the Jacobi rounds do not settle; the words fall back to the walk
+    x = 3.0 * np.arange(150, dtype=np.float32)
+    chain = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10)], 1)
+    cases.append(("suppression chain", chain, np.ones(150, bool), 0.5))
+    return cases
+
+
+SWEEP_CASES = _sweep_cases()
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES, ids=[c[0] for c in SWEEP_CASES])
+def test_word_sweep_model_matches_plain_and_pallas(jx, case):
+    """The kernel's word-blocked sweep, modelled, against nms_keep_plain and
+    the Pallas kernel in interpret mode: equal on every case."""
+    name, boxes, valid, t = case
+    b, v = torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None]
+    got = word_sweep_model(b, v, t)
+    np.testing.assert_array_equal(got.numpy(), nms_keep_plain(b, v, t).numpy())
+    np.testing.assert_array_equal(got[0].numpy(), _keep_pallas(jx, boxes, valid, t))
+    if name == "all disjoint":
+        assert bool(got.all())
+    if name == "all identical":
+        assert got[0].tolist() == [True] + [False] * 199
+    if name == "suppression chain":
+        assert got[0].tolist() == [k % 2 == 0 for k in range(150)]
+
+
+@pytest.mark.cuda
+def test_nms_kernel_matches_plain_on_gpu_edge_cases():
+    """The redesigned sweep on the card: every case of the word-blocked sweep
+    model, batched in twos, equal to nms_keep_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the NMS kernel has no CPU mode")
+    for name, boxes, valid, t in SWEEP_CASES:
+        b = torch.from_numpy(np.stack([boxes, boxes[::-1].copy()])).cuda()
+        v = torch.from_numpy(np.stack([valid, valid[::-1].copy()])).cuda()
+        launches = nms_keep.launches
+        got = nms_keep(b, v, t)
+        torch.cuda.synchronize()
+        assert nms_keep.launches == launches + 1
+        assert torch.equal(got, nms_keep_plain(b, v, t)), name
+
+
 @pytest.mark.cuda
 def test_nms_kernel_matches_plain_on_gpu():
     if not torch.cuda.is_available():
