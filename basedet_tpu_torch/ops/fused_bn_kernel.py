@@ -13,16 +13,22 @@ tile does a few hundred flops per bf16 element read, under the ~295 per byte
 at which the tensor cores would bound it. The forward reads every input once
 per 64-row strip (all N columns up to 128, column groups beyond that or
 where M is too small to fill the card), multiplies with wgmma and writes y
-once, in one launch; the backward reads x, y and dy for its input-gradient
-pass and again for its weight-gradient pass. Sums across blocks go through
-partial rows added in a fixed order, so two runs give the same bits.
+once, in one launch. The backward gives a block a column group (a 64-wide
+k-panel of one term, up to 128 columns of N) and persistent 64-row strips:
+per strip it forms dy_eff once from one read of y and dy, computes dact by
+wgmma (w's k-panel rows resident in shared memory, or, past N = 640, streamed
+with y and dy), runs the epilogue and a raw term's prologue on one read of
+each M-tensor, and accumulates its dW tile in registers; a second launch adds the
+blocks' partial dW tiles and dscale/dshift rows and writes dW rounded to
+bf16. Sums across blocks go through partial rows added in a fixed order (the
+forward's by its last blocks to finish), so two runs give the same bits.
 
-The forward's host side is kept short: its C description (``_Problem``) is a
-template cached per call signature of which only the pointers change, y, the
-partial rows and the sums are one allocation, the plan (column groups,
-persistent blocks) is cached with the template, the inputs are checked once,
-in one pass, in :func:`fused_gemm_stats`, and no device context is entered
-when the tensors' device is current.
+The host side is kept short: each direction's C description (``_Problem``)
+is a template cached per call signature of which only the pointers change
+(the backward's dx pointers too), the outputs, partial rows and sums are one
+allocation, the plan is cached with the template, the inputs are checked
+once, in one pass, in :func:`fused_gemm_stats`, and no device context is
+entered when the tensors' device is current.
 
 The wrappers take M-tensors as row-major (M, K) bf16 (the port holds them as
 ``(B·H·W, C)`` views of channels-last NCHW tensors), weights (K, N) bf16 and
@@ -48,17 +54,18 @@ from basedet_tpu_torch.ops.fused_bn import (
 
 SOURCE = CSRC / "fused_bn.cu"
 MAX_TERMS, MAX_RAW = 4, 16  # kMaxTerms, kMaxRaw of the source
-TILE = 64  # kTile: the backward's output tile, and its rows per partial-sum row
-SPLIT_BLOCKS = 4 * 132  # weight-gradient blocks aimed at: four per SM of an H100
 STRIP, PANEL, MAX_PANELS = 64, 64, 2  # kFwdRows, kPanel and the largest NP of the forward
 GROUP, MAX_GROUPS = 32, 16  # kGroup, kMaxGroups: the forward's cross-block sums, at most 512 strip blocks
+# the backward: kBwdStage, kBwdStageWin, kPanelBytes; the shared memory a block of an H100 may use
+# (kMaxSmem), less room for the kernel's static shared variables
+BWD_STAGE, BWD_STAGE_WIN, PANEL_BYTES = 16384, 24576, 8192
+MAX_SMEM = 232448 - 1024
 
 _P = ctypes.c_void_p
 
 
 class _Term(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int), ("n_raw", ctypes.c_int), ("K", ctypes.c_int),
-                ("part_off", ctypes.c_int), ("dw_off", ctypes.c_longlong),
                 ("x", _P * MAX_RAW), ("scale", _P * MAX_RAW), ("shift", _P * MAX_RAW),
                 ("w", _P), ("dx", _P * MAX_RAW)]
 
@@ -76,9 +83,10 @@ def _library() -> ctypes.CDLL:
     lib.basedet_fused_gemm_stats_fwd.restype = ctypes.c_int
     lib.basedet_fused_fwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.basedet_fused_fwd_blocks_per_sm.restype = ctypes.c_int
-    lib.basedet_fused_gemm_stats_bwd.argtypes = [
-        ctypes.POINTER(_Problem), _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong,
-        _P, ctypes.c_int, ctypes.c_int, _P]
+    lib.basedet_fused_bwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                    ctypes.POINTER(ctypes.c_int)]
+    lib.basedet_fused_bwd_blocks_per_sm.restype = ctypes.c_int
+    lib.basedet_fused_gemm_stats_bwd.argtypes = [_P, *[ctypes.c_int] * 7, *[_P] * 8]
     lib.basedet_fused_gemm_stats_bwd.restype = ctypes.c_int
     return lib
 
@@ -160,35 +168,19 @@ def _check_card(tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError("the fused kernels need contiguous tensors on 16-byte boundaries")
 
 
-def _problem(terms, M: int, N: int) -> Tuple[_Problem, list]:
-    """The C description of the terms, and per term its raw inputs (the
-    backward's, built afresh for each call)."""
-    p = _Problem(M=M, N=N, n_terms=len(terms))
-    per_term = []
-    for i, t in enumerate(terms):
-        raws = [(t[1], None, None)] if t[0] == "act" else t[1]
-        c = p.t[i]
-        c.kind, c.n_raw, c.K = (0 if t[0] == "act" else 1), len(raws), t[2].shape[0]
-        c.w = t[2].data_ptr()
-        for j, (x, scale, shift) in enumerate(raws):
-            c.x[j] = x.data_ptr()
-            if scale is not None:
-                c.scale[j], c.shift[j] = scale.data_ptr(), shift.data_ptr()
-        per_term.append(raws)
-    return p, per_term
-
-
 class _Template:
-    """A forward call signature's cached ``_Problem``: ``words`` aliases it as
-    64-bit words, and flat tensor i's pointer goes to ``words[slots[i]]``."""
+    """A call signature's cached ``_Problem``: ``words`` aliases it as 64-bit
+    words, and pointer i of a call goes to ``words[slots[i]]``: flat tensor
+    i's, then for the backward each M-tensor's dx, in flat order. ``plan``
+    and, for the backward, ``layout`` are filled at the first launch."""
 
-    __slots__ = ("problem", "words", "slots", "plan")
+    __slots__ = ("problem", "words", "slots", "plan", "layout")
 
-    def __init__(self, spec, M: int, N: int, ks):
+    def __init__(self, spec, M: int, N: int, ks, backward: bool = False):
         p = self.problem = _Problem(M=M, N=N, n_terms=len(spec))
         self.words = (ctypes.c_int64 * (ctypes.sizeof(_Problem) // 8)).from_buffer(p)
-        term, field = ctypes.sizeof(_Term), {f: getattr(_Term, f).offset for f in ("x", "scale", "shift", "w")}
-        slots = []
+        term, field = ctypes.sizeof(_Term), {f: getattr(_Term, f).offset for f in ("x", "scale", "shift", "w", "dx")}
+        slots, dx_slots = [], []
         for i, (s, K) in enumerate(zip(spec, ks)):
             c, base = p.t[i], _Problem.t.offset + i * term
             c.kind, c.n_raw, c.K = (0, 1, K) if s[0] == "act" else (1, s[1], K)
@@ -196,9 +188,10 @@ class _Template:
                 slots.append((base + field["x"]) // 8 + j)
                 if s[0] == "raw":
                     slots += [(base + field["scale"]) // 8 + j, (base + field["shift"]) // 8 + j]
+                dx_slots.append((base + field["dx"]) // 8 + j)
             slots.append((base + field["w"]) // 8)
-        self.slots = tuple(slots)
-        self.plan = None
+        self.slots = tuple(slots + dx_slots if backward else slots)
+        self.plan = self.layout = None
 
     def fill(self, ptrs: Sequence[int]) -> _Problem:
         if len(ptrs) != len(self.slots):
@@ -212,14 +205,20 @@ class _Template:
 _TEMPLATES = {}
 
 
-def _forward_problem(call: _Call) -> Tuple[_Template, _Problem]:
-    """The cached template of this call's signature, its pointers set to the
-    call's (``call.ptrs``, or the tensors' own where the call lies on the
-    CPU)."""
-    key = (call.spec, call.M, call.N, call.ks)
+def _template(spec, M: int, N: int, ks, backward: bool) -> _Template:
+    """The cached template of a call signature and direction."""
+    key = (spec, M, N, ks, backward)
     tpl = _TEMPLATES.get(key)
     if tpl is None:
-        tpl = _TEMPLATES[key] = _Template(call.spec, call.M, call.N, call.ks)
+        tpl = _TEMPLATES[key] = _Template(spec, M, N, ks, backward)
+    return tpl
+
+
+def _forward_problem(call: _Call) -> Tuple[_Template, _Problem]:
+    """The cached forward template of this call's signature, its pointers
+    set to the call's (``call.ptrs``, or the tensors' own where the call lies
+    on the CPU)."""
+    tpl = _template(call.spec, call.M, call.N, call.ks, False)
     return tpl, tpl.fill(call.ptrs or [a.data_ptr() for a in call.flat])
 
 
@@ -249,6 +248,138 @@ def forward_plan(M: int, N: int, sms: int, per_sm: Sequence[int]) -> Tuple[int, 
     np_ = next((w for w in widths if strips * -(-panels // w) >= sms), 1)
     groups = -(-panels // np_)
     return np_, max(1, min(strips, per_sm[np_ - 1] * sms // groups, GROUP * MAX_GROUPS)), groups
+
+
+def backward_smem(N: int, spec, stages: int, window: bool = False) -> int:
+    """The backward kernel's dynamic shared memory in bytes, as ``bwd_kernel``
+    lays it out: 1 KB of alignment, the ring, dy_eff and the k-panel's rows
+    of w (a 64-column panel each per 64 columns of N; in the streamed
+    variant, ``window``, three dy_eff panels and w's rows in the ring's
+    larger stages), a zero slice, and the act staging tile or the per-warp
+    dscale/dshift sums of the most raw inputs a term has."""
+    n_raw = max([s[1] for s in spec if s[0] == "raw"], default=0)
+    aux = max(PANEL_BYTES if any(s[0] == "act" for s in spec) else 0, 2048 * n_raw)
+    if window:
+        return 1024 + stages * BWD_STAGE_WIN + 3 * PANEL_BYTES + 2048 + aux
+    return 1024 + stages * BWD_STAGE + 2 * -(-N // PANEL) * PANEL_BYTES + 2048 + aux
+
+
+def backward_columns(spec, ks, N: int, npn: int, gx: int) -> List[dict]:
+    """The backward's column groups in ``blockIdx.y`` order, as ``column_of``
+    in the source computes them: those that own their k-panel's input
+    gradients (n0 = 0) first, one per k-panel of every term, then the other
+    n-groups k-panel by k-panel. Each is term t, k-panel k0, columns [n0, n0 +
+    width) of N, its gx strip blocks' partial rows, gx rows of len floats
+    from base (ds_len floats of dscale/dshift where the group owns a raw
+    term's k-panel, then the dW tile, 64 x width), and the term's first row
+    of dW and first element of dscale/dshift in the outputs."""
+    NP = -(-N // PANEL)
+    ngn = -(-NP // npn)
+    panels = []  # (t, q, dw_row, dsc_off, ds)
+    dw_row, dsc_off = 0, 0
+    for t, (s, K) in enumerate(zip(spec, ks)):
+        ds = 128 * s[1] if s[0] == "raw" else 0
+        panels += [(t, q, dw_row, dsc_off, ds) for q in range(-(-K // PANEL))]
+        dw_row += K
+        dsc_off += 2 * s[1] * K if s[0] == "raw" else 0
+    cols, base = [], 0
+    for ng, (t, q, dw_row, dsc_off, ds) in [(0, pn) for pn in panels] + \
+            [(ng, pn) for pn in panels for ng in range(1, ngn)]:
+        n0 = PANEL * npn * ng
+        width = min(PANEL * npn, N - n0)
+        ds_len = ds if ng == 0 else 0
+        cols.append(dict(t=t, k0=PANEL * q, n0=n0, width=width, ds_len=ds_len, len=ds_len + PANEL * width,
+                         base=base, dw_row=dw_row, dsc_off=dsc_off))
+        base += gx * (ds_len + PANEL * width)
+    return cols
+
+
+class BackwardPlan(NamedTuple):
+    """A backward call's launch: panels per column group, w streamed through
+    the ring (``window``) or resident, ring stages, persistent strip blocks,
+    column groups, dynamic shared memory in bytes."""
+
+    npn: int
+    window: bool
+    stages: int
+    gx: int
+    gy: int
+    smem: int
+
+
+def backward_plan(M: int, N: int, spec, ks, sms: int, blocks_for) -> BackwardPlan:
+    """The plan of a backward call; ``blocks_for(npn, window, smem)`` is how
+    many blocks fit on an SM. Column groups are 64 or 128 columns wide; w's
+    rows stay resident unless that does not fit a block at any depth of the
+    ring (N past 640, or many raw inputs at 640), and then stream; the ring
+    takes the stages (2-6) that let the most blocks share an SM (more warps
+    beat more stages ahead), the most of those; strip blocks fill the card,
+    twice over where the column groups' work differs (several terms, or
+    groups that do not own their k-panel's input gradients), and where w
+    streams, enough more that the owners of the k-panels, which stream all of
+    N each strip, do not finish last; at most one per strip and 512."""
+    NP = -(-N // PANEL)
+    npn = 1 if NP == 1 else 2
+    window = backward_smem(N, spec, 2) > MAX_SMEM
+    fits = [s for s in range(6, 1, -1) if backward_smem(N, spec, s, window) <= MAX_SMEM]
+    stages = max(fits, key=lambda s: (blocks_for(npn, window, backward_smem(N, spec, s, window)), s))
+    smem = backward_smem(N, spec, stages, window)
+    ngn = -(-NP // npn)
+    gy = sum(-(-K // PANEL) for K in ks) * ngn
+    waves = 2 if len(spec) > 1 or NP > npn else 1
+    slots = blocks_for(npn, window, smem) * sms
+    gx = max(1, min(-(-M // STRIP), waves * slots // gy, 512))
+    if window:
+        # an owner's strip takes NP y/dy items and its M-tensors, another group's npn and its
+        # M-tensors: enough strip blocks that one owner's strips take no longer than the card's
+        # share of every group's items
+        n_raw = [s[1] if s[0] == "raw" else 1 for s in spec]
+        items = sum(-(-K // PANEL) * (2 * NP - npn + ngn * n) for K, n in zip(ks, n_raw))
+        gx = max(gx, min(-(-M // STRIP), -(-(NP + max(n_raw)) * slots // items), 512))
+    return BackwardPlan(npn, window, stages, gx, gy, smem)
+
+
+class _Layout(NamedTuple):
+    """The backward's one allocation, in bf16 elements: the dx tensors (flat
+    order), every term's dW (bf16), every raw term's dscale/dshift (f32) and
+    the partial rows (f32, per column group); ``outputs`` holds the
+    cotangents as (f32, offset in elements of their dtype, shape, stride), in
+    the Function's order; ``max_len`` is the longest column group's row."""
+
+    dx: Tuple[int, ...]
+    dw: int
+    dsc: int
+    part: int
+    total: int
+    outputs: tuple
+    max_len: int
+
+
+def backward_layout(spec, M: int, N: int, ks, npn: int, gx: int) -> _Layout:
+    """The backward's allocation for a call signature and its plan."""
+    cols = backward_columns(spec, ks, N, npn, gx)
+    dx, at = [], 0
+    for s, K in zip(spec, ks):
+        for _ in range(1 if s[0] == "act" else s[1]):
+            dx.append(at)
+            at += M * K
+    dw = at
+    dsc = dw + sum(ks) * N
+    part = dsc + 2 * sum(2 * s[1] * K for s, K in zip(spec, ks) if s[0] == "raw")
+    outputs, i, dw_row, dsc_off = [], 0, 0, dsc // 2
+    for s, K in zip(spec, ks):
+        if s[0] == "act":
+            outputs.append((False, dx[i], (M, K), (K, 1)))
+            i += 1
+        for _ in range(s[1] if s[0] == "raw" else 0):
+            outputs += [(False, dx[i], (M, K), (K, 1)), (True, dsc_off, (K,), (1,)),
+                        (True, dsc_off + K, (K,), (1,))]
+            i += 1
+            dsc_off += 2 * K
+        outputs.append((False, dw + dw_row * N, (K, N), (N, 1)))
+        dw_row += K
+    part_len = cols[-1]["base"] + gx * cols[-1]["len"]
+    return _Layout(tuple(dx), dw, dsc, part, part + 2 * part_len, tuple(outputs), max(c["len"] for c in cols))
 
 
 _COUNTERS = {}
@@ -295,49 +426,50 @@ def _call_forward(p, np_, gx, gy, base, y_len, part_len, device) -> int:
         _counter(device, stream).data_ptr(), stream)
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(index: int, npn: int, window: bool, smem: int) -> int:
+    """Backward blocks of npn panels, w resident or streamed, and smem bytes
+    that fit on an SM of CUDA device ``index``."""
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = _library().basedet_fused_bwd_blocks_per_sm(npn, int(window), smem, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"fused GEMM + stats backward kernel with {npn} panels (window {window}) and {smem} "
+                           f"bytes of shared memory does not fit an SM (CUDA error {err}, {blocks.value} blocks)")
+    return blocks.value
+
+
 def _launch_backward(terms, M: int, N: int, device: torch.device, y, dy, ds, dss) -> List[torch.Tensor]:
     _check_card((y, dy, ds, dss))
-    p, per_term = _problem(terms, M, N)
-    n_tiles = -(-N // TILE)
-    # per term: its dx tensors; its dscale/dshift rows (raw) and dw rows in the partial sums
-    dx_len, dw_len, kn_tiles, dxs = 0, 0, 0, []
-    for c, raws in zip(p.t, per_term):
-        dxs.append([torch.empty((M, c.K), dtype=torch.bfloat16, device=device) for _ in raws])
-        for j, dx in enumerate(dxs[-1]):
-            c.dx[j] = dx.data_ptr()
-        if c.kind == 1:
-            c.part_off = dx_len
-            dx_len += 2 * c.K * len(raws)
-        c.dw_off = dw_len
-        dw_len += c.K * N
-        kn_tiles += -(-c.K // TILE) * n_tiles
-    # split the rows so that about SPLIT_BLOCKS blocks share the weight gradients
-    rows = -(-M // max(1, min(-(-M // 32), -(-SPLIT_BLOCKS // kn_tiles))))
-    splits = -(-M // rows)
-    dx_part = torch.empty((-(-M // TILE), max(dx_len, 1)), dtype=torch.float32, device=device)
-    dx_sums = torch.empty(max(dx_len, 1), dtype=torch.float32, device=device)
-    dw_part = torch.empty((splits, dw_len), dtype=torch.float32, device=device)
-    dw_sums = torch.empty(dw_len, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().basedet_fused_gemm_stats_bwd(
-            ctypes.byref(p), y.data_ptr(), dy.data_ptr(), ds.data_ptr(), dss.data_ptr(),
-            dx_part.data_ptr(), dx_len, dx_sums.data_ptr(), dw_part.data_ptr(), dw_len,
-            dw_sums.data_ptr(), splits, rows, stream)
+    spec, flat = flatten_terms(terms)
+    ks = tuple(t[2].shape[0] for t in terms)
+    tpl = _template(spec, M, N, ks, True)
+    if tpl.plan is None:
+        index = device.index
+        tpl.plan = backward_plan(M, N, spec, ks, _card(index)[0], functools.partial(_bwd_blocks, index))
+        tpl.layout = backward_layout(spec, M, N, ks, tpl.plan.npn, tpl.plan.gx)
+    lay = tpl.layout
+    buf = torch.empty(lay.total, dtype=torch.bfloat16, device=device)
+    base = buf.data_ptr()
+    p = tpl.fill([a.data_ptr() for a in flat] + [base + 2 * off for off in lay.dx])
+    if device.index == torch.cuda.current_device():
+        err = _call_backward(p, tpl.plan, base, lay, device, y, dy, ds, dss)
+    else:
+        with torch.cuda.device(device):
+            err = _call_backward(p, tpl.plan, base, lay, device, y, dy, ds, dss)
     if err != 0:
         raise RuntimeError(f"fused GEMM + stats backward kernel launch failed: CUDA error {err}")
     fused_gemm_stats_backward.launches += 1
+    f32 = buf.view(torch.float32)
+    return [(f32 if is_f32 else buf).as_strided(shape, stride, off) for is_f32, off, shape, stride in lay.outputs]
 
-    cts: List[torch.Tensor] = []
-    for c, t, term_dxs in zip(p.t, terms, dxs):
-        K = c.K
-        if c.kind == 0:
-            cts.append(term_dxs[0])
-        for j, dx in enumerate(term_dxs if c.kind == 1 else ()):
-            base = c.part_off + 2 * j * K
-            cts += [dx, dx_sums[base:base + K], dx_sums[base + K:base + 2 * K]]
-        cts.append(dw_sums[c.dw_off:c.dw_off + K * N].view(K, N).to(t[2].dtype))
-    return cts
+
+def _call_backward(p, plan, base, lay, device, y, dy, ds, dss) -> int:
+    return _library().basedet_fused_gemm_stats_bwd(
+        ctypes.addressof(p), plan.npn, int(plan.window), plan.gx, plan.gy, plan.stages, plan.smem, lay.max_len,
+        y.data_ptr(), dy.data_ptr(), ds.data_ptr(), dss.data_ptr(), base + 2 * lay.dw, base + 2 * lay.dsc,
+        base + 2 * lay.part,
+        torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def _backward(terms, M: int, N: int, device: torch.device, y, dy, ds, dss) -> List[torch.Tensor]:
@@ -351,10 +483,10 @@ def fused_gemm_stats_backward(terms, y: torch.Tensor, dy: torch.Tensor, ds: torc
     """The fused backward (kernel #4): the forward's terms and output y, the
     cotangents dy (M, N) bf16, ds and dss (N,) f32 → the cotangent of every
     flat input, as :func:`~basedet_tpu_torch.ops.fused_bn.fused_gemm_stats_backward_plain`
-    defines them. A CUDA tensor goes through the kernels
-    (``fused_gemm_stats_backward.launches`` counts the calls: four launches
-    each, the input-gradient, weight-gradient and two partial-sum passes); a
-    CPU tensor through the plain version."""
+    defines them. A CUDA tensor goes through the kernel
+    (``fused_gemm_stats_backward.launches`` counts its calls: two launches
+    each, the strips and the cross-block sums, which write dW rounded to bf16
+    themselves); a CPU tensor through the plain version."""
     call = _check(terms)
     M, N, device = call.M, call.N, call.device
     for v, shape, dtype in ((y, (M, N), torch.bfloat16), (dy, (M, N), torch.bfloat16),

@@ -11,11 +11,13 @@ versions are ``ops/roi_align.py::multilevel_roi_align_plain`` and
 
 On the card both kernels are bound by bytes: at Faster R-CNN's eval shape (one
 image, 1000 RoIs, 256 channels) the output alone is 50.2 MB and P2-P5 are
-91.4 MB, of which proposal-like RoIs touch about four fifths. The wrapper
-copies each level to channels-last, so that the kernel's consecutive threads
-read and write consecutive channels; that copy is part of the wrapper's
-time. One launch pools every level and image, and one launch scatters the
-gradient back into every level.
+91.4 MB, of which proposal-like RoIs touch about four fifths. The forward
+reads the FPN's NCHW levels in place, through each level's pointer and
+strides (no copy); a block computes one RoI's geometry and taps once and
+pools a slab of 64 channels, a warp's loads running along a feature row, and
+stores its staged output in rows of C floats. One launch pools every level
+and image; one zero-fill and one launch scatter the gradient back into every
+level.
 
 The gradient goes to the features only; RoIs that require one are refused,
 as the JAX package gives them none. The backward sums with f32 ``atomicAdd``,
@@ -43,6 +45,7 @@ from basedet_tpu_torch.ops.roi_align import (
 
 SOURCE = CSRC / "roi_align.cu"
 MAX_LEVELS = 4
+MAX_PW = 8  # kMaxPw of the source: bins across a pooled output
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,7 +54,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.basedet_roi_align_fwd
     i32p = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), i32p, i32p, i32p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), i32p, i32p, i32p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
@@ -66,13 +69,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _level_args(tensors: Sequence[torch.Tensor], strides: Sequence[int]):
+def _level_args(tensors: Sequence[torch.Tensor], sizes: Sequence[Tuple[int, int]], strides: Sequence[int]):
     """The C arrays of the entries: device pointers, heights, widths and
-    strides of channels-last (B, H, W, C) tensors, one per level."""
+    strides of the levels, one per level."""
     n = len(tensors)
     return ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors]),
-            (ctypes.c_int * n)(*[t.shape[1] for t in tensors]),
-            (ctypes.c_int * n)(*[t.shape[2] for t in tensors]),
+            (ctypes.c_int * n)(*[h for h, _ in sizes]), (ctypes.c_int * n)(*[w for _, w in sizes]),
             (ctypes.c_int * n)(*[int(s) for s in strides]), n)
 
 
@@ -106,14 +108,17 @@ def _launch_forward(features, rois, levels, strides, output_size) -> torch.Tenso
     B, R = levels.shape
     C = features[0].shape[1]
     ph, pw = output_size
+    if not 1 <= pw <= MAX_PW or ph < 1:
+        raise ValueError(f"the RoIAlign kernel pools at most {MAX_PW} bins across, got {output_size}")
     out = torch.empty((B, R, ph, pw, C), dtype=torch.float32, device=rois.device)
-    nhwc = [f.detach().permute(0, 2, 3, 1).contiguous() for f in features]
+    ptrs, heights, widths, level_strides, n = _level_args(features, [f.shape[-2:] for f in features], strides)
+    feat_strides = (ctypes.c_longlong * (4 * n))(*[s for f in features for s in f.stride()])
     rois, levels = rois.contiguous(), levels.contiguous()
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream(rois.device).cuda_stream
         err = _library().basedet_roi_align_fwd(
-            *_level_args(nhwc, strides), rois.data_ptr(), levels.data_ptr(), B, R, C, ph, pw,
-            out.data_ptr(), stream)
+            ptrs, feat_strides, heights, widths, level_strides, n, rois.data_ptr(), levels.data_ptr(), B, R, C,
+            ph, pw, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign kernel launch failed: CUDA error {err}")
     multilevel_roi_align.launches += 1
@@ -155,7 +160,7 @@ def multilevel_roi_align_backward(
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream(rois.device).cuda_stream
         err = _library().basedet_roi_align_bwd(
-            *_level_args(nhwc, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
+            *_level_args(nhwc, sizes, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
             B, R, C, ph, pw, stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign backward kernel launch failed: CUDA error {err}")

@@ -27,7 +27,10 @@ Run from the root of the repository. Phases, each of which raises on failure:
      (8, 100, 8400) and on edge cases and one 832x832 case;
   4b. hold the RoIAlign kernel to its plain version within 1e-5 of
      max(1, max|F|), at Faster R-CNN's eval shape (B = 1 and 2, R = 1000,
-     C = 256, the levels of an 800x1344 input) and on edge cases; time both;
+     C = 256, the levels of an 800x1344 input), on edge cases (C = 256, 100
+     and 6) and on channels-last features; time both, and split the call's
+     device time (profiler) into the kernel's and anything else's, which
+     must be nothing (the kernel reads the FPN's NCHW levels in place);
   4c. hold the RoIAlign backward kernel to its plain version within 2e-5 of
      max(1, max|dF|) (ROI_BWD_RTOL says why not 1e-5), at Faster R-CNN's train shape (B = 2, R = 512, C = 256)
      on proposal-like RoIs, on edge cases and on 512 identical RoIs (the most
@@ -52,14 +55,21 @@ Run from the root of the repository. Phases, each of which raises on failure:
      forward at batch 8 of 640x640 (every distinct shape, real activations)
      and on edge cases (ragged M, 1-4 raw inputs, act + raw, K = N = 512,
      K and N not multiples of 64, ds = dss = 0, and a raw term of 7 and of 13
-     inputs at YOLOX-M's and YOLOX-X's depths; the strip kernel's M = 1, 127
-     and 129 and N = K = 8), within FUSED_SUM_RTOL, and two forward runs
-     bit-equal on every case; time each shape, kernel (called as training
-     calls it: inputs needing gradients, gradients on), plain version and
-     torch.matmul + column sums, and sum them over a step; replay the step's
-     36 forward calls in order: events time, fwd_kernel's device time
-     (profiler) and host time per call, then events and host time with
-     gradients off;
+     inputs at YOLOX-M's and YOLOX-X's depths; the strip kernels' M = 1, 127
+     and 129 and N = K = 8; YOLOX-M, -L and -X's dark5 conv3, N = 768-1280,
+     and 16 raw inputs at N = 640, where the backward streams w), within
+     FUSED_SUM_RTOL, and two runs of each kernel bit-equal on every case;
+     time the backward where it streams w; time each shape, kernel (the forward
+     called as training calls it: inputs needing gradients, gradients on),
+     plain version and the yardsticks (torch.matmul + column sums for the
+     forward, two torch.matmul a term for the backward), and sum them over a
+     step; replay the step's 36 forward calls in order: events time,
+     fwd_kernel's device time (profiler) and host time per call, then events
+     and host time with gradients off; replay its 36 backward calls in one
+     torch.autograd.grad pass, as a train step's backward runs them: events
+     time, the device time of everything they run and operations per call
+     (profiler), host time per call, and the yardstick's events and device
+     time on the same calls in order;
   9b. det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
      steps of 8 images (832x832 after the multiscale resize): 36 forward and
      36 backward fused launches per step, the matching kernel once, plain
@@ -242,11 +252,13 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, iters, names, warmup=2, attempts=3):
-    """Device time per call of fn, by kernel, from torch.profiler: {name: ms}
-    summed over the kernels whose name contains name, for each of names. A
-    profiler pass now and then reports no kernels at all (its records arrive
-    after the pass): such a pass is repeated, up to ``attempts`` times."""
+def device_kernels(fn, iters, warmup=2, attempts=3, names=()):
+    """Every device operation fn runs, from torch.profiler: (device ms per
+    call of fn, operations (kernels, memsets, copies) per call, {name: device
+    ms per call}). A profiler pass now and then reports no kernels at all (its
+    records arrive after the pass): a pass that reports nothing, or none of
+    the operations whose name contains one of ``names``, is repeated, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -260,11 +272,34 @@ def device_ms(fn, iters, names, warmup=2, attempts=3):
         averages = prof.key_averages()
         key = "self_device_time_total" if len(averages) and hasattr(averages[0], "self_device_time_total") \
             else "self_cuda_time_total"
-        found = {n: sum(getattr(e, key) for e in averages if n in e.key) / 1000 / iters for n in names}
-        if all(v > 0 for v in found.values()):
-            return found
-    raise RuntimeError(f"chip_smoke: the profiler saw no device time for some of {names} in {attempts} passes: "
-                       f"{found}")
+        ops = [e for e in averages if getattr(e, key) > 0]
+        found = {e.key: getattr(e, key) / 1000 / iters for e in ops}
+        if ops and all(any(n in k for k in found) for n in names):
+            return sum(found.values()), sum(e.count for e in ops) / iters, found
+    raise RuntimeError(f"chip_smoke: the profiler saw no device time for some of {names or 'the operations'} in "
+                       f"{attempts} passes")
+
+
+def device_ms(fn, iters, names, warmup=2):
+    """Device time per call of fn, by kernel, from torch.profiler: {name: ms}
+    summed over the kernels whose name contains name, for each of names."""
+    found = device_kernels(fn, iters, warmup, names=names)[2]
+    return {n: sum(v for k, v in found.items() if n in k) for n in names}
+
+
+def host_us(fn, calls, passes=20):
+    """Host time of fn per call it makes (``calls`` calls a pass): median of
+    ``passes`` passes, each started on an idle card, as a printable range."""
+    host = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    host.sort()
+    return host[len(host) // 2], f"{host[len(host) // 2]:.1f} us per call (median of {passes} passes, " \
+                                 f"{host[0]:.1f}-{host[-1]:.1f})"
 
 
 def phase_device():
@@ -1001,28 +1036,27 @@ def _grad_terms(terms):
             for t in terms]
 
 
-def _fused_forward_repeats(terms):
-    """Whether two launches of the fused forward on terms give the same bits."""
-    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
+def _fused_repeats(terms, cts):
+    """The outputs on which two launches of the fused forward on terms, or
+    two of the backward on its y and the cotangents cts, differ in their bits:
+    "y", "s", "ss", or "d<i>" for the backward's i-th cotangent."""
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
 
+    bits = lambda a: a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
     with torch.no_grad():
         first = [a.clone() for a in fused_gemm_stats(terms)]
         second = fused_gemm_stats(terms)
-    bits = lambda a: a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
-    return all(torch.equal(bits(a), bits(b)) for a, b in zip(first, second))
+        back = [[a.clone() for a in fused_gemm_stats_backward(terms, first[0], *cts)] for _ in range(2)]
+    names = ["y", "s", "ss", *(f"d{i}" for i in range(len(back[0])))]
+    return [n for n, a, b in zip(names, [*first, *back[0]], [*second, *back[1]]) if not torch.equal(bits(a), bits(b))]
 
 
-def phase_fused_kernels(weights, card):
-    """Kernels #3 and #4 against their plain versions: on the fused calls of
-    one bf16 train forward of full-width YOLOX-S at batch 8 of 640x640 (real
-    activations, every distinct shape) and on edge cases; then each distinct
-    shape timed, kernel, plain version and the library yardstick, and summed
-    over the calls of one step."""
+def fused_step_calls(weights):
+    """The 36 fused calls of one bf16 train forward of full-width YOLOX-S at
+    batch 8 of 640x640, in order: (signature, detached terms, y)."""
     from basedet_tpu_torch.layers.blocks import csp_fused
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.layers.precision import precision_policy
-    from basedet_tpu_torch.ops.fused_bn import _prologue, fused_gemm_stats_backward_plain, fused_gemm_stats_plain
-    from basedet_tpu_torch.ops.fused_bn_kernel import _card, forward_plan, fused_gemm_stats, fused_gemm_stats_backward
 
     model, _, _, _, batch, _ = _train_setup(weights, "cuda", 8, amp="fused")
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
@@ -1031,6 +1065,116 @@ def phase_fused_kernels(weights, card):
             precision_policy(torch.bfloat16, True):
         model.get_losses(batch)[0].backward()
     check(len(calls) == 36, f"one YOLOX-S forward made {len(calls)} fused calls, not 36")
+    return calls
+
+
+def fused_backward_library(terms, y, dy, ds, dss):
+    """Kernel #4's yardstick, which the port never calls: per term
+    ``torch.matmul(dy_eff16, w^T)`` and ``torch.matmul(a16^T, dy_eff16)`` on
+    bf16 operands computed beforehand (dy_eff and a raw term's prologue), as
+    #3's yardstick precomputes its operand."""
+    from basedet_tpu_torch.ops.fused_bn import _prologue
+
+    dy16 = (dy.float() + ds + 2.0 * y.float() * dss).to(torch.bfloat16)
+    ops = [(t[1] if t[0] == "act" else _prologue(t[1])[0], t[2]) for t in terms]
+
+    def library():
+        for a, w in ops:
+            torch.matmul(dy16, w.t())
+            torch.matmul(a.t(), dy16)
+
+    return library
+
+
+def fused_backward_replay(calls, gen, card):
+    """The step's backward calls as training makes them: each call's forward
+    run once through the autograd Function on copies of its inputs that need
+    gradients, then the 36 backwards replayed by one ``torch.autograd.grad``
+    pass over all of them, on random cotangents of y, s and ss, as a train
+    step's backward runs them (the autograd engine, in reverse order of the
+    forwards; ``_FusedGemmStats.backward``; the kernels): events time, the
+    device time of every operation they run and operations per call
+    (profiler), host time per call. Then kernel #4's yardstick on the same
+    calls in order: two ``torch.matmul`` a term, events and device time."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.fused_bn import flatten_terms
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
+
+    outs, leaves, cts, yardsticks = [], [], [], []
+    with full_f32():
+        for sig, terms, _ in calls:
+            train_terms = _grad_terms(terms)
+            leaves += flatten_terms(train_terms)[1]
+            outs += fused_gemm_stats(train_terms)
+            cts += _fused_cotangents(gen, sig[1], sig[3])
+            yardsticks.append(fused_backward_library(terms, outs[-3].detach(), *cts[-3:]))
+
+    def replay():
+        torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+
+    def library():
+        for fn in yardsticks:
+            fn()
+
+    with full_f32():
+        ms = cuda_ms(replay, reps=20, warmup=3)
+        device, ops, names = device_kernels(replay, 5)
+        host, host_text = host_us(replay, len(calls))
+    with torch.no_grad(), full_f32():
+        library_ms = cuda_ms(library, reps=20, warmup=3)
+        library_device = device_kernels(library, 5)[0]
+    top = ", ".join(f"{n} {v:.4f}" for n, v in sorted(names.items(), key=lambda kv: -kv[1])[:4])
+    log(f"[fused] the step's 36 backward calls, as training makes them (one torch.autograd.grad pass through the "
+        f"autograd Function): events {ms:.4f} ms, device time of everything they run {device:.4f} ms in "
+        f"{ops / len(calls):.2f} operations per call (profiler; {top}), host {host_text}; two torch.matmul a "
+        f"term on the same calls in order: events {library_ms:.4f} ms, device {library_device:.4f} ms | {card}")
+    return dict(ms=ms, device_ms=device, ops_per_call=ops / len(calls), host_us=host, library_ms=library_ms,
+                library_device_ms=library_device, kernels={n: round(v, 5) for n, v in names.items()})
+
+
+# phase 9a's cases where kernel #4 streams w's rows: its shared memory would not hold them with
+# dy_eff over all of N
+STREAMED_CASES = ("YOLOX-M dark5 conv3", "YOLOX-L dark5 conv3", "YOLOX-X dark5 conv3", "16 raw N=640")
+
+
+def fused_streamed_timing(cases, card):
+    """Kernel #4 on the cases where it streams w (checked against the plan):
+    events and device time a call (profiler), the plain version, the
+    yardstick and the bound."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.fused_bn import flatten_terms, fused_gemm_stats_backward_plain
+    from basedet_tpu_torch.ops.fused_bn_kernel import MAX_SMEM, backward_smem, fused_gemm_stats, \
+        fused_gemm_stats_backward
+
+    check(len(cases) == len(STREAMED_CASES), f"phase 9a lacks some of {STREAMED_CASES}")
+    for name, terms, (dy, ds, dss) in cases:
+        spec = flatten_terms(terms)[0]
+        N = terms[0][2].shape[1]
+        check(backward_smem(N, spec, 2) > MAX_SMEM, f"kernel #4 would keep w resident on {name}")
+        with torch.no_grad(), full_f32():
+            y = fused_gemm_stats(terms)[0]
+            call = lambda: fused_gemm_stats_backward(terms, y, dy, ds, dss)
+            ms = cuda_ms(call, reps=20, warmup=3)
+            device = device_kernels(call, 10)[0]
+            plain = cuda_ms(lambda: fused_gemm_stats_backward_plain(terms, y, dy, ds, dss), reps=5, warmup=1)
+            library = cuda_ms(fused_backward_library(terms, y, dy, ds, dss), reps=20, warmup=3)
+        log(f"[fused] backward, w streamed, {name} (M={y.shape[0]} K={terms[0][2].shape[0]} N={N}): events {ms:.4f} "
+            f"ms, device {device:.4f} ms (profiler), plain {plain:.4f}, two torch.matmul a term {library:.4f}, "
+            f"bound {bound(*_fused_bytes_ops(terms)[1], PEAK_BF16_PER_S)[0]:.4f} | {card}")
+
+
+def phase_fused_kernels(weights, card):
+    """Kernels #3 and #4 against their plain versions: on the fused calls of
+    one bf16 train forward of full-width YOLOX-S at batch 8 of 640x640 (real
+    activations, every distinct shape) and on edge cases; then each distinct
+    shape timed, kernel, plain version and the library yardsticks, and summed
+    over the calls of one step; then the step's forward and backward calls
+    replayed in order."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.fused_bn import _prologue, fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+    from basedet_tpu_torch.ops.fused_bn_kernel import _card, forward_plan, fused_gemm_stats, fused_gemm_stats_backward
+
+    calls = fused_step_calls(weights)
     first = {}
     for sig, terms, y in calls:
         first.setdefault(sig, terms)
@@ -1045,18 +1189,27 @@ def phase_fused_kernels(weights, card):
                                 # YOLOX-X's (dark4: n = 12, so 13), at their widths and batch 8 of 640x640
                                 ("7 raw, YOLOX-M dark3", (7,), 8 * 80 * 80, 96, 192),
                                 ("13 raw, YOLOX-X dark4", (13,), 8 * 40 * 40, 320, 640),
-                                # the strip kernel's edges: one row, a ragged strip, a strip and a
+                                # the strip kernels' edges: one row, a ragged strip, a strip and a
                                 # row; one panel of 64 columns, mostly padding
                                 ("M=1 act", ("act",), 1, 32, 64), ("M=127 2 raw", (2,), 127, 32, 64),
                                 ("M=129 act + raw", ("act", 1), 129, 64, 128),
-                                ("N=8 K=8 act", ("act",), 300, 8, 8), ("N=8 K=8 3 raw", (3,), 129, 8, 8)):
+                                ("N=8 K=8 act", ("act",), 300, 8, 8), ("N=8 K=8 3 raw", (3,), 129, 8, 8),
+                                # where the backward streams w's rows: conv3 of the dark5 CSP layer of
+                                # YOLOX-M, -L and -X at batch 8 of 640x640 (N = 1024 x width), and a raw
+                                # term of 16 inputs, the most a term takes, at N = 640
+                                ("YOLOX-M dark5 conv3", (1, 1), 3200, 384, 768),
+                                ("YOLOX-L dark5 conv3", (1, 1), 3200, 512, 1024),
+                                ("YOLOX-X dark5 conv3", (1, 1), 3200, 640, 1280),
+                                ("16 raw N=640", (16,), 12800, 320, 640)):
         cases.append((name, _random_fused_terms(gen, spec, M, K, N), _fused_cotangents(gen, M, N)))
     M, K, N = 5000, 96, 64
     cases.append(("ds = dss = 0", _random_fused_terms(gen, (1, 1), M, K, N), _fused_cotangents(gen, M, N, zero=True)))
     worst_err = check_fused_cases("fused", cases)
-    differ = [name for name, terms, _ in cases if not _fused_forward_repeats(terms)]
-    check(not differ, f"two runs of the fused forward differ on {differ}")
-    log(f"[fused] two runs of the forward kernel bit-equal in y, s and ss on all {len(cases)} cases")
+    differ = [(name, d) for name, terms, cts in cases if (d := _fused_repeats(terms, cts))]
+    check(not differ, f"two runs of the fused kernels differ on {differ}")
+    log(f"[fused] two runs of the forward kernel bit-equal in y, s and ss, and of the backward in every "
+        f"cotangent, on all {len(cases)} cases")
+    fused_streamed_timing([c for c in cases if c[0] in STREAMED_CASES], card)
 
     times = {}
     for sig, terms in first.items():
@@ -1074,6 +1227,7 @@ def phase_fused_kernels(weights, card):
                 plain=cuda_ms(lambda: fused_gemm_stats_plain(terms), reps=5, warmup=1),
                 library=cuda_ms(library, reps=20, warmup=3),
                 bwd=cuda_ms(lambda: fused_gemm_stats_backward(terms, y, dy, ds, dss), reps=20, warmup=3),
+                bwd_library=cuda_ms(fused_backward_library(terms, y, dy, ds, dss), reps=20, warmup=3),
                 bwd_plain=cuda_ms(lambda: fused_gemm_stats_backward_plain(terms, y, dy, ds, dss), reps=5, warmup=1))
         with full_f32():
             train_terms = _grad_terms(terms)
@@ -1087,53 +1241,47 @@ def phase_fused_kernels(weights, card):
         log(f"[fused] {n} x spec {sig[0]} M={sig[1]} K={sig[2]} N={sig[3]} (forward: {plan[0]} panels, "
             f"grid {plan[1]} x {plan[2]}): forward kernel {t['fwd']:.4f} ms "
             f"(bound {t['bound']:.4f}, plain {t['plain']:.4f}, torch.matmul + column sums {t['library']:.4f}); "
-            f"backward kernel {t['bwd']:.4f} ms (bound {t['bwd_bound']:.4f}, plain {t['bwd_plain']:.4f}) | {card}")
+            f"backward kernel {t['bwd']:.4f} ms (bound {t['bwd_bound']:.4f}, plain {t['bwd_plain']:.4f}, "
+            f"two torch.matmul a term {t['bwd_library']:.4f}) | {card}")
     step = {k: sum(times[c[0]][k] for c in calls) for k in ("fwd", "plain", "library", "bwd", "bwd_plain",
-                                                             "bound", "bwd_bound")}
+                                                             "bwd_library", "bound", "bwd_bound")}
     step_calls = [_grad_terms(c[1]) for c in calls]
 
     def replay():
         for terms in step_calls:
             fused_gemm_stats(terms)
 
-    def host_us():
-        host = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            replay()
-            host.append((time.perf_counter() - t0) * 1e6 / len(step_calls))
-            torch.cuda.synchronize()
-        host.sort()
-        return f"{host[len(host) // 2]:.1f} us per call (median of 20 passes, {host[0]:.1f}-{host[-1]:.1f})"
-
     # as det_train --amp calls the kernel: inputs that need gradients, gradients on, each call recorded
     # by autograd; then with gradients off, through the same autograd Function
     with full_f32():
         replay_ms = cuda_ms(replay, reps=20, warmup=3)
         device = device_ms(replay, 5, ("fwd_kernel",))["fwd_kernel"]
-        host = host_us()
+        host = host_us(replay, len(step_calls))[1]
     with torch.no_grad(), full_f32():
         replay_nograd_ms = cuda_ms(replay, reps=20, warmup=3)
-        host_nograd = host_us()
+        host_nograd = host_us(replay, len(step_calls))[1]
     log(f"[fused] the step's 36 forward calls in order, as training makes them (gradients on): events "
         f"{replay_ms:.4f} ms, device time of fwd_kernel {device:.4f} ms (profiler), host {host}; gradients off: "
         f"events {replay_nograd_ms:.4f} ms, host {host_nograd}; bound {step['bound']:.4f} ms, torch.matmul + "
         f"column sums {step['library']:.4f} ms | {card}")
+    replay_bwd = fused_backward_replay(calls, gen, card)
+    check(replay_bwd["ops_per_call"] <= 2.0, f"the fused backward ran {replay_bwd['ops_per_call']:.2f} device "
+                                             f"operations a call, not at most 2")
     fwd_bytes = sum(_fused_bytes_ops(c[1])[0][0] for c in calls)
     bwd_bytes = sum(_fused_bytes_ops(c[1])[1][0] for c in calls)
     log(f"[fused] per train step at batch 8 of 640x640 (36 calls each): forward kernels {step['fwd']:.3f} ms "
         f"(bound {step['bound']:.4f} ms: {fwd_bytes / 1e9:.3f} GB; plain {step['plain']:.3f}, torch.matmul + "
         f"column sums {step['library']:.3f}); backward kernels {step['bwd']:.3f} ms (bound {step['bwd_bound']:.4f} "
-        f"ms: {bwd_bytes / 1e9:.3f} GB; plain {step['bwd_plain']:.3f}) | {card}")
+        f"ms: {bwd_bytes / 1e9:.3f} GB; plain {step['bwd_plain']:.3f}, two torch.matmul a term "
+        f"{step['bwd_library']:.3f}) | {card}")
     by = [[bound(*_fused_bytes_ops(c[1])[i], PEAK_BF16_PER_S) for c in calls] for i in (0, 1)]
     bound_by = ["bytes" if sum(t for t, b in bs if b == "bytes") >= sum(t for t, _ in bs) / 2 else "operations"
                 for bs in by]
     fwd_err, bwd_err = _fused_errs(worst_err)
     fwd = dict(max_abs_err=fwd_err, ms=step["fwd"], plain_ms=step["plain"],
                bound_ms=step["bound"], bound_by=bound_by[0], library_ms=step["library"])
-    bwd = dict(max_abs_err=bwd_err, ms=step["bwd"],
-               plain_ms=step["bwd_plain"], bound_ms=step["bwd_bound"], bound_by=bound_by[1], library_ms=None)
+    bwd = dict(max_abs_err=bwd_err, ms=step["bwd"], plain_ms=step["bwd_plain"], bound_ms=step["bwd_bound"],
+               bound_by=bound_by[1], library_ms=step["bwd_library"])
     return fwd, bwd, step
 
 
@@ -1385,8 +1533,8 @@ def _edge_rois():
     return np.float32(rows)[None]
 
 
-def _roi_feats(gen, B):
-    return [torch.randn(B, ROI_C, h, w, device="cuda", generator=gen) for h, w in ROI_LEVELS]
+def _roi_feats(gen, B, C=ROI_C):
+    return [torch.randn(B, C, h, w, device="cuda", generator=gen) for h, w in ROI_LEVELS]
 
 
 def roi_align_touched(feats, rois, levels, output_size=(7, 7)):
@@ -1438,9 +1586,6 @@ def _check_roi_align(name, feats, rois):
 
 
 def phase_roi_align(card):
-    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
-    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
-
     rng, gen = np.random.RandomState(SEED), torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
     for B in (1, 2):
@@ -1450,20 +1595,43 @@ def phase_roi_align(card):
     worst = max(worst, _check_roi_align("edges", _roi_feats(gen, 1), torch.from_numpy(_edge_rois()).cuda()))
     big = [f * 1000.0 for f in _roi_feats(gen, 1)]  # the tolerance scales with max |F|
     worst = max(worst, _check_roi_align("edges |F|~4e3", big, torch.from_numpy(_edge_rois()).cuda()))
+    for C in (100, 6):  # channels off the kernel's slab, and not a multiple of 4
+        worst = max(worst, _check_roi_align(f"edges C={C}", _roi_feats(gen, 1, C), torch.from_numpy(_edge_rois()).cuda()))
+    feats = [f.contiguous(memory_format=torch.channels_last) for f in _roi_feats(gen, 1)]
+    worst = max(worst, _check_roi_align("channels-last F", feats, torch.from_numpy(_proposal_rois(rng, 1, 300)).cuda()))
+
+    t = roi_align_timing(rng, gen, card)
+    check(t["other_ops"] == 0, f"the RoIAlign wrapper ran device work besides its kernel: {t['names']}")
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
+
+
+def roi_align_timing(rng, gen, card):
+    """The RoIAlign wrapper at Faster R-CNN's eval shape (B = 1, R = 1000,
+    C = 256, P2-P5 of 800x1344) on proposal-like RoIs: events time of the
+    call, the device time of its kernel and of anything else it runs
+    (profiler), the plain version and the bound."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
 
     feats = _roi_feats(gen, 1)
     rois = torch.from_numpy(_proposal_rois(rng, 1, ROI_R)).cuda()
     levels = roi_level_assignment(rois, 2, 5)
-    ms = cuda_ms(lambda: multilevel_roi_align(feats, rois, levels, ROI_STRIDES), reps=50, warmup=5)
-    copy_ms = cuda_ms(lambda: [f.permute(0, 2, 3, 1).contiguous() for f in feats], reps=50, warmup=5)
+    call = lambda: multilevel_roi_align(feats, rois, levels, ROI_STRIDES)
+    ms = cuda_ms(call, reps=50, warmup=5)
+    device, ops, names = device_kernels(call, 10)
+    kernel = sum(v for n, v in names.items() if "roi_align" in n)
+    other = {n: v for n, v in names.items() if "roi_align" not in n}
     plain_ms = cuda_ms(lambda: multilevel_roi_align_plain(feats, rois, levels, ROI_STRIDES), reps=3, warmup=1)
     bound_ms, bound_by, feat_bytes = roi_align_bound(feats, rois, levels)
-    log(f"[roi] B=1 R={ROI_R} C={ROI_C} levels {ROI_LEVELS}: wrapper {ms:.4f} ms per call (of which "
-        f"the channels-last copy of P2-P5 alone {copy_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {feat_bytes / 1e6:.1f} MB of the "
-        f"{sum(f.numel() * 4 for f in feats) / 1e6:.1f} MB of P2-P5 touched) | {card}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    log(f"[roi] B=1 R={ROI_R} C={ROI_C} levels {ROI_LEVELS}: wrapper {ms:.4f} ms per call; device time "
+        f"(profiler) {device:.4f} ms in {ops:.0f} operations: the RoIAlign kernel {kernel:.4f} ms, anything else "
+        f"{sum(other.values()):.4f} ms {sorted(other)}; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {feat_bytes / 1e6:.1f} MB of the {sum(f.numel() * 4 for f in feats) / 1e6:.1f} MB of "
+        f"P2-P5 touched) | {card}")
+    return dict(ms=ms, device_ms=device, kernel_ms=kernel, other_ms=sum(other.values()),
+                other_ops=len(other), names=sorted(names), plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def roi_align_bwd_bound(grad, sizes):

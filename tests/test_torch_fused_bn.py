@@ -451,6 +451,34 @@ def test_forward_kernel_edge_shapes_and_repeat_bits_on_gpu():
                                b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32))
 
 
+@pytest.mark.cuda
+def test_forward_sums_repeat_bits_where_threads_lie_past_the_stripe_on_gpu():
+    """Kernel #3's cross-block sums at N between 128 and 256 (YOLOX-M's N =
+    192), where the 2N columns give fewer float4 lanes than a block has
+    threads and one stripe: every launch of a few hundred gives s and ss
+    bit-equal to the first, within tolerance of the plain version (threads
+    past the stripe wrote zeros over some sums, now and then)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused GEMM kernels have no CPU mode")
+    from chip_smoke import _random_fused_terms, check_fused_case
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for spec, m, k, n, reps in [((7,), 51200, 96, 192, 400), ((1, 1), 12800, 64, 136, 200),
+                                ((1, 1), 12800, 64, 248, 200)]:
+        terms = _random_fused_terms(gen, spec, m, k, n)
+        ratios, _, _ = check_fused_case(terms, torch.randn(m, n, device="cuda", generator=gen).bfloat16(),
+                                        torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda"))
+        assert ratios["s"] <= 1.0 and ratios["ss"] <= 1.0, (spec, m, k, n, ratios)
+        with torch.no_grad():
+            _, s0, ss0 = fused_gemm_stats(terms)
+            differ = 0
+            for _ in range(reps):
+                _, s, ss = fused_gemm_stats(terms)
+                differ += not (torch.equal(s.view(torch.int32), s0.view(torch.int32)) and
+                               torch.equal(ss.view(torch.int32), ss0.view(torch.int32)))
+        assert differ == 0, (spec, m, k, n, differ)
+
+
 def _round_f32(x) -> float:
     """An exact rational rounded to the nearest float32, ties to even (normal range)."""
     from fractions import Fraction
@@ -482,3 +510,163 @@ def test_prologue_reciprocal_rounds_like_division():
                 r0 = np.nextafter(r0, np.float32(np.inf if ulps > 0 else -np.inf))
             r = fma(float(r0), fma(-d, float(r0), 1.0), float(r0))
             assert fma(r, fma(-d, r, 1.0), r) == exact, (d, ulps)
+
+
+def test_backward_problem_template_is_cached_per_signature():
+    """The backward's C description is built once per call signature, apart
+    from the forward's: a call with new tensors of the same signature reuses
+    it with the new pointers, dx pointers after the inputs' in flat order;
+    another signature builds another."""
+    rng = np.random.RandomState(13)
+    terms = torch_terms(make_terms(rng, ("act", 2)))
+    spec, flat = flatten_terms(terms)
+    tpl = fused_bn_kernel._template(spec, M, N, (K, K), True)
+    assert fused_bn_kernel._template(spec, M, N, (K, K), True) is tpl
+    assert fused_bn_kernel._template(spec, M, N, (K, K), False) is not tpl
+    assert fused_bn_kernel._template(spec, M + 8, N, (K, K), True) is not tpl
+    dx = [16 * (1000 + i) for i in range(3)]  # the act term's dx, then the raw term's two
+    p = tpl.fill([a.data_ptr() for a in flat] + dx)
+    assert (p.M, p.N, p.n_terms) == (M, N, 2)
+    (_, x, w0), (_, raws, w1) = terms
+    assert (p.t[0].x[0], p.t[0].w, p.t[1].w, p.t[0].dx[0]) == (x.data_ptr(), w0.data_ptr(), w1.data_ptr(), dx[0])
+    for j, (xj, sc, sh) in enumerate(raws):
+        assert (p.t[1].x[j], p.t[1].scale[j], p.t[1].shift[j], p.t[1].dx[j]) == (
+            xj.data_ptr(), sc.data_ptr(), sh.data_ptr(), dx[1 + j])
+
+
+def test_backward_template_refuses_a_pointer_list_of_another_length():
+    """The backward template takes every input's pointer and every dx
+    pointer: a list missing the dx pointers, or with one too many, raises."""
+    spec, flat = flatten_terms(torch_terms(make_terms(np.random.RandomState(14), ("act", 2))))
+    tpl = fused_bn_kernel._template(spec, M, N, (K, K), True)
+    ptrs = list(range(16, 16 * (len(flat) + 4), 16))
+    tpl.fill(ptrs)
+    for bad in (ptrs[:len(flat)], ptrs + [16]):
+        with pytest.raises(ValueError, match="pointers"):
+            tpl.fill(bad)
+
+
+# the distinct fused calls of a YOLOX-S train step at batch 8 of 640x640 (spec, M, K per term, N),
+# and the edges of chip_smoke.py's kernel phase
+YOLOX_S_BWD = [(("act",), 204800, (64,), 32), ((1,), 204800, (32,), 32), ((2, 1), 204800, (32, 32), 64),
+               (("act",), 51200, (128,), 64), ((3,), 51200, (64,), 64), ((4, 1), 51200, (64, 64), 128),
+               (("act",), 51200, (256,), 64), ((1, 1), 51200, (64, 64), 128),
+               (("act",), 12800, (256,), 128), ((2,), 12800, (128,), 128), ((4, 1), 12800, (128, 128), 256),
+               (("act",), 12800, (512,), 128), ((1, 1), 12800, (128, 128), 256),
+               (("act",), 3200, (512,), 256), ((1,), 3200, (256,), 256), ((1, 1), 3200, (256, 256), 512)]
+EDGE_BWD = [(("act",), 1, (32,), 64), ((2,), 127, (32,), 64), (("act", 1), 129, (64, 64), 128),
+            (("act",), 300, (8,), 8), ((3,), 129, (8,), 8), ((2,), 777, (24,), 40),
+            ((7,), 51200, (96,), 192), ((13,), 12800, (320,), 640), ((4, 1), 3000, (256, 256), 512),
+            # conv3 of the dark5 CSP layer of YOLOX-M, -L and -X at batch 8 of 640x640 (N = 1024 x
+            # width), where w's rows stream; and a raw term of 16 inputs at N = 640, the most a term
+            # takes, where they stream too
+            ((1, 1), 3200, (384, 384), 768), ((1, 1), 3200, (512, 512), 1024),
+            ((1, 1), 3200, (640, 640), 1280), ((16,), 12800, (320,), 640)]
+
+
+@pytest.mark.parametrize("spec,m,ks,n", YOLOX_S_BWD + EDGE_BWD,
+                         ids=[f"{'+'.join(map(str, s))}-M{m}-K{'+'.join(map(str, k))}-N{n}"
+                              for s, m, k, n in YOLOX_S_BWD + EDGE_BWD])
+def test_backward_plan_covers_every_output_once(spec, m, ks, n):
+    """The backward's plan on an H100's 132 SMs (two blocks an SM where the
+    shared memory lets them): its column groups write every dW entry once,
+    and the groups that own a k-panel (n0 = 0) every dx column and every
+    dscale/dshift column once; the owners come first; the groups' partial
+    rows tile their region; the strip blocks take every strip once and fill
+    the card; the allocation holds every output apart; the shared memory
+    fits a block; w's rows stream exactly where keeping them resident
+    would not fit."""
+    spec = tuple(("act",) if s == "act" else ("raw", s) for s in spec)
+    blocks_for = lambda npn, window, smem: 2 if 2 * (smem + 1024) <= 233472 else 1
+    npn, window, stages, gx, gy, smem = fused_bn_kernel.backward_plan(m, n, spec, ks, 132, blocks_for)
+    assert npn in (1, 2) and 2 <= stages <= 6 and smem <= fused_bn_kernel.MAX_SMEM
+    assert window == (fused_bn_kernel.backward_smem(n, spec, 2) > fused_bn_kernel.MAX_SMEM)
+    assert window == (n > 640 or spec == (("raw", 16),)) and (not window or npn == 2)
+    assert 1 <= gx <= min(512, -(-m // 64)) and gx * gy >= min(132, -(-m // 64) * gy)
+    cols = fused_bn_kernel.backward_columns(spec, ks, n, npn, gx)
+    assert len(cols) == gy
+    dw = [np.zeros((k, n), int) for k in ks]
+    dx = [np.zeros(k, int) for k in ks]
+    rows = []
+    for c in cols:
+        k0, n0, t = c["k0"], c["n0"], c["t"]
+        assert c["width"] % 8 == 0 and c["len"] == c["ds_len"] + 64 * c["width"]
+        dw[t][k0:k0 + 64, n0:n0 + c["width"]] += 1
+        if n0 == 0:
+            dx[t][k0:k0 + 64] += 1
+            assert c["ds_len"] == (128 * spec[t][1] if spec[t][0] == "raw" else 0)
+        else:
+            assert c["ds_len"] == 0
+        rows.append((c["base"], c["base"] + gx * c["len"]))
+    assert all((d == 1).all() for d in dw) and all((d == 1).all() for d in dx)
+    assert cols[0]["n0"] == 0 and all(a["n0"] == 0 or b["n0"] != 0 for a, b in zip(cols, cols[1:]))  # owners first
+    rows.sort()
+    assert rows[0][0] == 0 and all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert sorted(s for bx in range(gx) for s in range(bx, -(-m // 64), gx)) == list(range(-(-m // 64)))
+    lay = fused_bn_kernel.backward_layout(spec, m, n, ks, npn, gx)
+    spans = [(2 * o if f32 else o, (2 * o if f32 else o) + (2 if f32 else 1) * int(np.prod(shape)))
+             for f32, o, shape, _ in lay.outputs]
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])) and spans[-1][1] <= lay.part
+    assert lay.total == lay.part + 2 * rows[-1][1] and lay.total % 2 == 0
+    assert lay.part % 8 == 0  # the partial rows start on 16 bytes
+    assert lay.max_len == max(c["len"] for c in cols)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_edge_shapes_and_repeat_bits_on_gpu():
+    """Kernel #4 at M = 1, 127 and 129, at K = N = 8, with 7, 13 and 16 raw
+    inputs, with ds = dss = 0 and at YOLOX-M, -L and -X's widest conv3 (N =
+    768, 1024, 1280, where w's rows stream) against its plain version (the
+    tolerances of ``chip_smoke.py``'s kernel phase), one launch a call, and
+    two launches of every case bit-equal in every cotangent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused GEMM kernels have no CPU mode")
+    from chip_smoke import _random_fused_terms, check_fused_case
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for spec, m, k, n, zero in [(("act",), 1, 32, 64, False), ((2,), 127, 32, 64, False),
+                                (("act", 1), 129, 64, 128, False), (("act",), 300, 8, 8, False),
+                                ((3,), 129, 8, 8, False), ((7,), 4096, 96, 192, False),
+                                ((13,), 1600, 320, 640, False), ((1, 1), 5000, 96, 64, True),
+                                ((16,), 1600, 320, 640, False), ((1, 1), 3200, 384, 768, False),
+                                ((1, 1), 3200, 512, 1024, False), ((1, 1), 3200, 640, 1280, False)]:
+        terms = _random_fused_terms(gen, spec, m, k, n)
+        dy = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
+        ds, dss = ((torch.zeros(n, device="cuda"),) * 2 if zero else
+                   (torch.randn(n, device="cuda", generator=gen) * 1e-2,
+                    torch.randn(n, device="cuda", generator=gen) * 1e-3))
+        launches = fused_gemm_stats_backward.launches
+        ratios, _, _ = check_fused_case(terms, dy, ds, dss)
+        assert fused_gemm_stats_backward.launches == launches + 1
+        assert all(v <= 1.0 for v in ratios.values()), (spec, m, k, n, ratios)
+        y = fused_gemm_stats(terms)[0].detach()
+        first = [a.clone() for a in fused_gemm_stats_backward(terms, y, dy, ds, dss)]
+        second = fused_gemm_stats_backward(terms, y, dy, ds, dss)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32),
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_prologue_past_the_exp_range_is_finite_on_gpu():
+    """A raw input whose pre-activation lies under -88.7, where exp(-pre) is
+    +inf in f32: silu and its derivative are 0 there, as in the plain
+    version, in both kernels (the prologue's reciprocal of +inf is 0, not
+    NaN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fused GEMM kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    m, k, n = 300, 64, 64
+    x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+    shift = torch.where(torch.arange(k, device="cuda") % 2 == 0, -100.0, 0.1)  # half the columns past the range
+    terms = [("raw", [(x, torch.ones(k, device="cuda"), shift)],
+              (torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5).bfloat16())]
+    with torch.no_grad():
+        y, s, ss = fused_gemm_stats(terms)
+        got = fused_gemm_stats_backward(terms, y, torch.randn(m, n, device="cuda", generator=gen).bfloat16(),
+                                        torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda"))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(a.float()).all()) for a in (y, s, ss, *got))
+    assert not got[0][:, ::2].any() and not got[1][::2].any() and not got[2][::2].any()

@@ -315,3 +315,34 @@ def test_roi_align_backward_kernel_matches_plain_on_gpu():
             assert a.shape == b.shape and float((a - b).abs().max()) <= tol
     with pytest.raises(NotImplementedError, match="no gradient"):
         pool_rois_multilevel(feats, rois.clone().requires_grad_(), STRIDES)
+
+
+@pytest.mark.cuda
+def test_roi_align_kernel_edges_off_the_slab_and_strided_on_gpu():
+    """The forward kernel reads each level through its own strides and pools
+    64 channels a block: edge RoIs with C off the slab (100, and 6, which is
+    not a multiple of 4 either), channels-last and sliced features, and a
+    pooled width of 8 (one lane per x tap), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the RoIAlign kernel has no CPU mode")
+    rng = np.random.RandomState(8)
+    rois = torch.from_numpy(_edge_rois()).cuda()
+    levels = roi_level_assignment(rois, 2, 5)
+    cases = []
+    for c in (100, 6, 64, 65):
+        cases.append(([f.cuda() for f in _nchw(_feats(rng, IMG, c))], (7, 7)))
+    cases.append(([f.cuda().contiguous(memory_format=torch.channels_last) for f in _nchw(_feats(rng, IMG, 72))],
+                  (7, 7)))
+    cases.append(([f.cuda()[:, 5:77] for f in _nchw(_feats(rng, IMG, 96))], (7, 7)))  # channel slices
+    cases.append(([f.cuda() for f in _nchw(_feats(rng, IMG, 16))], (8, 8)))
+    cases.append(([f.cuda() for f in _nchw(_feats(rng, IMG, 16))], (14, 3)))
+    for feats, size in cases:
+        launches = multilevel_roi_align.launches
+        got = multilevel_roi_align(feats, rois, levels, STRIDES, size)
+        torch.cuda.synchronize()
+        assert multilevel_roi_align.launches == launches + 1
+        want = multilevel_roi_align_plain(feats, rois, levels, STRIDES, size)
+        tol = 1e-5 * max(1.0, max(float(f.abs().max()) for f in feats))
+        assert got.shape == want.shape and float((got - want).abs().max()) <= tol, (feats[0].shape, size)
+    with pytest.raises(ValueError, match="bins across"):
+        multilevel_roi_align(cases[0][0], rois, levels, STRIDES, (7, 9))
