@@ -50,16 +50,37 @@
 // two Pallas backwards, basedet_tpu/ops/roi_align_window.py::_bwd_kernel_win
 // and basedet_tpu/ops/roi_align_pallas.py::_bwd_kernel: the adjoint of the
 // forward in the features,
-//   dF_l[b, y, x, c] = sum over the RoIs r of level l and the bins (i, j) of
+//   dF_l[b, c, y, x] = sum over the RoIs r of level l and the bins (i, j) of
 //                      Py[r, i, y] * Px[r, j, x] * g[b, r, i, j, c],
 // and no gradient for the RoIs. It lives in this file so that both
-// directions take their taps from the one axis_tap and roi_geometry. On this
-// card the work is a scatter: one thread per element of g adds its 16
-// weighted copies into a zero-filled channels-last dF with atomicAdd, in one
-// launch for every level and image. The TPU kernels' chunked accumulators,
-// window clustering, group masks and dense weight matmuls are not carried
-// over. The atomics make the order of each sum, and so its last bits, vary
-// from run to run.
+// directions take their taps from the one axis_tap and roi_geometry. What
+// bounds it: bytes (g read once, every level's dF written once, 4/5 of them
+// the zeros no RoI reaches). It has one writer for each element of dF, in
+// one launch for every level and image, and no atomics on values:
+//   - a block owns a tile of kTileY rows x kTileX columns of one level of one
+//     image and a slab of kBwdLanes channels: warp w takes row w of the tile,
+//     lane c channel c of the slab, and a thread keeps the kTileX columns of
+//     its (row, channel) in registers; the coarsest level's blocks come first,
+//     as its few tiles hold the longest lists;
+//   - it reads the image's RoIs a page of kThreads at a time and keeps, in
+//     RoI-index order, those of its level whose tap window (rows and columns
+//     between the first and the last sample's taps) meets its tile;
+//   - it takes them kChunk at a time through two shared-memory stages, one
+//     barrier a chunk: g's ph x pw bins for its slab by cp.async, and the
+//     weights of the tile's columns (Px restricted, kMaxPw x kTileX) and rows
+//     (Py restricted, kTileY x ph), each bin's row of them built by one
+//     thread from the RoI's taps, all for the next chunk while this one is
+//     summed;
+//   - a warp whose row the RoI's window covers forms U[j] = sum_i Py[i, y]
+//     g[i, j, c] (the i with a zero weight skipped), then adds sum_j Px[j, x]
+//     U[j] to the window's columns, 8 at a time, by fmaf in a fixed order;
+//   - the tile goes out once, zeros included, through shared memory in rows
+//     of 32 columns, into NCHW-contiguous dF.
+// Each element is summed in one order (the RoIs by index, then i, then j),
+// so two runs give the same bits. A tile's RoIs pass through its block one
+// chunk after another, so a tile that many RoIs cover (512 identical ones)
+// takes as long as its list. The TPU kernels' chunked accumulators, window
+// clustering, group masks and dense weight matmuls are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,11 +88,16 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kSampling = 2;
+constexpr int kSampling = 2;  // axis_tap's sample offsets (0.25, 0.75) assume it
 constexpr int kThreads = 256;
 constexpr int kSlab = 64;    // forward: channels of a block
-constexpr int kMaxPw = 8;    // forward: kSampling * 2 corners * pw lanes <= 32
+constexpr int kMaxPw = 8;    // forward: kSampling * 2 corners * pw lanes <= 32; backward: a column's weights
 constexpr int kStagePad = 4; // forward: floats between staged bins, for 16-byte rows off one bank
+constexpr int kTileY = kThreads / 32;  // backward: rows of a tile, one warp each
+constexpr int kTileX = 32;             // backward: columns of a tile, a thread's accumulators
+constexpr int kBwdLanes = 32;          // backward: channels of a block, one lane each
+constexpr int kChunk = 4;              // backward: RoIs a shared-memory stage holds
+constexpr int kTransposePitch = kTileX + 1;  // backward: floats between staged channels of a row
 
 struct Levels {
   const float* feat[kMaxLevels];
@@ -83,10 +109,13 @@ struct Levels {
 };
 
 // The levels of the backward: the geometry of `Levels` (its feature
-// pointers unused) and where each level's gradient goes.
+// pointers unused), where each level's gradient goes, its tiles and its
+// first block.
 struct LevelsOut {
   Levels in;
   float* grad[kMaxLevels];
+  int tiles_y[kMaxLevels], tiles_x[kMaxLevels];
+  long long first[kMaxLevels], blocks[kMaxLevels];
 };
 
 // Row (or column) index pair and weights of one sample along one axis, as
@@ -99,9 +128,8 @@ struct Tap {
 
 __device__ __forceinline__ Tap axis_tap(float start, float bin, int p, int s,
                                         int size) {
-  const float step = __fadd_rn(static_cast<float>(p),
-                               __fdiv_rn(__fadd_rn(static_cast<float>(s), 0.5f),
-                                         static_cast<float>(kSampling)));
+  // (s + 0.5) / kSampling, exact: 0.25 or 0.75
+  const float step = __fadd_rn(static_cast<float>(p), s == 0 ? 0.25f : 0.75f);
   const float coord = __fadd_rn(start, __fmul_rn(step, bin));
   const bool oob = coord < -1.f || coord > static_cast<float>(size);
   const float top = static_cast<float>(size - 1);
@@ -126,13 +154,17 @@ struct Geometry {
   float x1, y1, bin_h, bin_w;
 };
 
+__device__ __forceinline__ int level_of(const Levels& lv, const int* __restrict__ levels, long long br) {
+  const int l = levels[br];
+  return l < 0 ? 0 : (l >= lv.n ? lv.n - 1 : l);
+}
+
 __device__ __forceinline__ Geometry roi_geometry(const Levels& lv,
                                                  const float* __restrict__ rois,
                                                  const int* __restrict__ levels,
                                                  long long br, int ph, int pw) {
   Geometry g;
-  const int l = levels[br];
-  g.level = l < 0 ? 0 : (l >= lv.n ? lv.n - 1 : l);
+  g.level = level_of(lv, levels, br);
   const float sc = lv.scale[g.level];
   const float* roi = rois + br * 4;
   g.x1 = __fsub_rn(__fmul_rn(roi[0], sc), 0.5f);
@@ -142,26 +174,6 @@ __device__ __forceinline__ Geometry roi_geometry(const Levels& lv,
   g.bin_h = __fdiv_rn(__fsub_rn(y2, g.y1), static_cast<float>(ph));
   g.bin_w = __fdiv_rn(__fsub_rn(x2, g.x1), static_cast<float>(pw));
   return g;
-}
-
-// The element (b, r, i, j, c) that thread `idx` of a flat launch over
-// B*R*ph*pw*C owns; br = b * R + r.
-struct Element {
-  int c, j, i, b;
-  long long br;
-};
-
-__device__ __forceinline__ Element element_of(long long idx, int R, int C,
-                                              int ph, int pw) {
-  Element e;
-  e.c = static_cast<int>(idx % C);
-  long long rest = idx / C;
-  e.j = static_cast<int>(rest % pw);
-  rest /= pw;
-  e.i = static_cast<int>(rest % ph);
-  e.br = rest / ph;
-  e.b = static_cast<int>(e.br / R);
-  return e;
 }
 
 // Block: RoI br = blockIdx.x / slabs and channels [c0, c0 + kSlab), c0 =
@@ -258,43 +270,254 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
   }
 }
 
-// One thread per element (b, r, i, j, c) of g: its 2x2 samples' four
-// corners each receive weight * g. Consecutive threads take consecutive
-// channels, so each of the 16 atomicAdds of a warp lands on 32 consecutive
-// floats of dF. An element of g that is exactly 0 (the rows that the loss
-// weighs 0) adds nothing and is skipped, as is a sample outside the level.
-__global__ void __launch_bounds__(kThreads)
+// A RoI of the backward's list: its index in the image, its tap window on
+// the level (first and last rows and columns any sample reads, whatever its
+// weight) and its geometry.
+struct Entry {
+  int r, ylo, yhi, xlo, xhi;
+  float x1, y1, bin_h, bin_w;
+};
+
+// The rows or columns that the taps of one axis read, from its first and
+// last samples: the taps move monotonically with the sample (either way, as
+// the bin's sign says), so these two bound all of them.
+__device__ __forceinline__ void tap_window(float start, float bin, int p, int size,
+                                           int& lo, int& hi) {
+  const Tap a = axis_tap(start, bin, 0, 0, size);
+  const Tap z = axis_tap(start, bin, p - 1, kSampling - 1, size);
+  lo = min(a.lo, z.lo);
+  hi = max(a.hi, z.hi);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool copy, bool vec) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(copy ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(copy ? 4 : 0));
+}
+
+// One shared-memory stage of the backward, for up to kChunk RoIs: g's bins
+// of the block's slab (bins x kBwdLanes, channels past C zero), the weights
+// of the tile's columns (kMaxPw x kTileX, bins past pw zero) and of its rows
+// (kTileY x padded ph, bins past ph zero).
+struct Stage {
+  float* g;
+  float* wx;
+  float* wy;
+};
+
+__host__ __device__ __forceinline__ int padded_ph(int ph) { return (ph + 7) & ~7; }
+
+__host__ __device__ __forceinline__ int stage_floats(int ph, int pw) {
+  return kChunk * (ph * pw * kBwdLanes + kMaxPw * kTileX + kTileY * padded_ph(ph));
+}
+
+__device__ __forceinline__ Stage stage_at(float* base, int ph, int pw) {
+  Stage st;
+  st.g = base;
+  st.wx = st.g + kChunk * ph * pw * kBwdLanes;
+  st.wy = st.wx + kChunk * kMaxPw * kTileX;
+  return st;
+}
+
+// The weights of bin p of one axis on the `n` tile rows (or columns) from
+// `at`, into w[0], w[stride], ...: zeros, then each sample's lo and hi taps
+// added in order, as _axis_weights sums them (a row takes at most one
+// nonzero term from each sample, so the order cannot change a bit).
+__device__ __forceinline__ void bin_weights(float start, float bin, int p, int size, int at,
+                                            int n, float* w, int stride) {
+  for (int t = 0; t < n; ++t) w[t * stride] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSampling; ++s) {
+    const Tap u = axis_tap(start, bin, p, s, size);
+    if (u.lo >= at && u.lo < at + n) w[(u.lo - at) * stride] = __fadd_rn(w[(u.lo - at) * stride], u.wlo);
+    if (u.hi >= at && u.hi < at + n) w[(u.hi - at) * stride] = __fadd_rn(w[(u.hi - at) * stride], u.whi);
+  }
+}
+
+// Block: level l, image b, tile (ty, tx) and channels [c0, c0 + kBwdLanes),
+// the slab fastest, then the tile's column, row, image and level, the
+// coarsest level first (its few tiles hold the longest lists). Shared
+// memory: the page's list (kThreads entries), then two stages (reused by
+// the final transpose).
+__global__ void __launch_bounds__(kThreads, 3)
 roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
                      const float* __restrict__ rois,
-                     const int* __restrict__ levels, int B, int R, int C,
-                     int ph, int pw) {
-  const long long total = (long long)B * R * ph * pw * C;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const float gv = grad[idx];
-  if (gv == 0.f) return;
-  const Element e = element_of(idx, R, C, ph, pw);
-  const Geometry g = roi_geometry(lv.in, rois, levels, e.br, ph, pw);
-  const int H = lv.in.h[g.level], W = lv.in.w[g.level];
+                     const int* __restrict__ levels, int R, int C, int ph,
+                     int pw, int slabs, bool vec) {
+  extern __shared__ float4 smem4[];
+  Entry* list = reinterpret_cast<Entry*>(smem4);
+  float* stages = reinterpret_cast<float*>(list + kThreads);
+  __shared__ int warp_kept[kTileY];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  float* d = lv.grad[g.level] + (size_t)e.b * H * W * C + e.c;
+  long long blk = blockIdx.x;
+  int l = 0;
+  while (blk < lv.first[l] || blk >= lv.first[l] + lv.blocks[l]) ++l;
+  blk -= lv.first[l];
+  const int c0 = static_cast<int>(blk % slabs) * kBwdLanes;
+  blk /= slabs;
+  const int x0 = static_cast<int>(blk % lv.tiles_x[l]) * kTileX;
+  blk /= lv.tiles_x[l];
+  const int y0 = static_cast<int>(blk % lv.tiles_y[l]) * kTileY;
+  const int b = static_cast<int>(blk / lv.tiles_y[l]);
+  const int H = lv.in.h[l], W = lv.in.w[l], y = y0 + warp;
+  const int bins = ph * pw, php = padded_ph(ph), per = stage_floats(ph, pw);
+  const float* gimg = grad + (long long)b * R * bins * C + c0;
+
+  float acc[kTileX];
 #pragma unroll
-  for (int sy = 0; sy < kSampling; ++sy) {
-    const Tap ty = axis_tap(g.y1, g.bin_h, e.i, sy, H);
-    if (ty.wlo == 0.f && ty.whi == 0.f) continue;
-    float* row_lo = d + (size_t)ty.lo * W * C;
-    float* row_hi = d + (size_t)ty.hi * W * C;
-    const float glo = __fmul_rn(ty.wlo, gv), ghi = __fmul_rn(ty.whi, gv);
+  for (int xx = 0; xx < kTileX; ++xx) acc[xx] = 0.f;
+
+  for (int page = 0; page < R; page += kThreads) {
+    // the page's RoIs of this level whose window meets the tile, in order
+    const int r = page + tid;
+    bool keep = false;
+    Entry e;
+    if (r < R && level_of(lv.in, levels, (long long)b * R + r) == l) {  // the level first: cheap
+      const Geometry g = roi_geometry(lv.in, rois, levels, (long long)b * R + r, ph, pw);
+      tap_window(g.y1, g.bin_h, ph, H, e.ylo, e.yhi);
+      tap_window(g.x1, g.bin_w, pw, W, e.xlo, e.xhi);
+      keep = e.ylo < y0 + kTileY && e.yhi >= y0 && e.xlo < x0 + kTileX && e.xhi >= x0;
+      e.r = r;
+      e.x1 = g.x1;
+      e.y1 = g.y1;
+      e.bin_h = g.bin_h;
+      e.bin_w = g.bin_w;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int n = 0, at = 0;
 #pragma unroll
-    for (int sx = 0; sx < kSampling; ++sx) {
-      const Tap tx = axis_tap(g.x1, g.bin_w, e.j, sx, W);
-      if (tx.wlo == 0.f && tx.whi == 0.f) continue;
-      atomicAdd(row_lo + (size_t)tx.lo * C, __fmul_rn(tx.wlo, glo));
-      atomicAdd(row_lo + (size_t)tx.hi * C, __fmul_rn(tx.whi, glo));
-      atomicAdd(row_hi + (size_t)tx.lo * C, __fmul_rn(tx.wlo, ghi));
-      atomicAdd(row_hi + (size_t)tx.hi * C, __fmul_rn(tx.whi, ghi));
+    for (int w = 0; w < kTileY; ++w) {
+      at += w < warp ? warp_kept[w] : 0;
+      n += warp_kept[w];
+    }
+    if (keep) list[at + __popc(ballot & ((1u << lane) - 1))] = e;
+    __syncthreads();
+
+    // list entries q0.. into stage s: g by cp.async, and the weights, each
+    // bin's row of them by one thread (the columns' from warp 0 on, the
+    // rows' from warp kTileY / 2 on, beside the other warps' copies)
+    auto load = [&](int q0, int s) {
+      const Stage st = stage_at(stages + s * per, ph, pw);
+      const int qn = min(kChunk, n - q0);
+      for (int q = 0; q < qn; ++q) {
+        const float* src = gimg + (long long)list[q0 + q].r * bins * C;
+        float* dst = st.g + q * bins * kBwdLanes;
+        if (vec) {
+          for (int t = tid; t < bins * (kBwdLanes / 4); t += kThreads) {
+            const int bin = t / (kBwdLanes / 4), c = 4 * (t % (kBwdLanes / 4));
+            const bool in = c0 + c < C;
+            cp_async(dst + bin * kBwdLanes + c, in ? src + (long long)bin * C + c : grad, in, true);
+          }
+        } else {
+          for (int t = tid; t < bins * kBwdLanes; t += kThreads) {
+            const int bin = t / kBwdLanes, c = t % kBwdLanes;
+            const bool in = c0 + c < C;
+            cp_async(dst + bin * kBwdLanes + c, in ? src + (long long)bin * C + c : grad, in, false);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      const int tx = tid, ty = tid - kThreads / 2;
+      if (tx < qn * pw) {
+        const Entry& en = list[q0 + tx / pw];
+        bin_weights(en.x1, en.bin_w, tx % pw, W, x0, kTileX,
+                    st.wx + ((tx / pw) * kMaxPw + tx % pw) * kTileX, 1);
+      } else if (tx < qn * kMaxPw) {  // the rows of bins past pw
+        const int z = tx - qn * pw;
+        float* w = st.wx + ((z / (kMaxPw - pw)) * kMaxPw + pw + z % (kMaxPw - pw)) * kTileX;
+        for (int t = 0; t < kTileX; ++t) w[t] = 0.f;
+      }
+      if (ty >= 0 && ty < qn * php) {
+        const Entry& en = list[q0 + ty / php];
+        float* w = st.wy + (ty / php) * kTileY * php + ty % php;
+        if (ty % php < ph)
+          bin_weights(en.y1, en.bin_h, ty % php, H, y0, kTileY, w, php);
+        else
+          for (int t = 0; t < kTileY; ++t) w[t * php] = 0.f;
+      }
+    };
+
+    const int chunks = (n + kChunk - 1) / kChunk;
+    if (chunks > 0) {
+      load(0, 0);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
+    for (int k = 0; k < chunks; ++k) {
+      if (k + 1 < chunks) load((k + 1) * kChunk, (k + 1) & 1);
+      // this warp's row of the chunk's RoIs, into the accumulators
+      const Stage st = stage_at(stages + (k & 1) * per, ph, pw);
+      const int q0 = k * kChunk, qn = min(kChunk, n - q0);
+      for (int q = 0; q < qn; ++q) {
+        const Entry& en = list[q0 + q];
+        if (y < en.ylo || y > en.yhi) continue;  // the same for the whole warp
+        // U[j] = sum_i Py[i, y] g[i, j, c], the bins i of zero weight skipped
+        float u[kMaxPw];
+#pragma unroll
+        for (int j = 0; j < kMaxPw; ++j) u[j] = 0.f;
+        const float4* wy = reinterpret_cast<const float4*>(st.wy + (q * kTileY + warp) * php);
+        const float* gq = st.g + q * bins * kBwdLanes + lane;
+        for (int i0 = 0; i0 < ph; i0 += 8) {
+          const float4 a = wy[i0 / 4], z = wy[i0 / 4 + 1];
+          const float w8[8] = {a.x, a.y, a.z, a.w, z.x, z.y, z.z, z.w};
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii) {
+            if (w8[ii] == 0.f) continue;  // bins past ph too
+            const float* gi = gq + (i0 + ii) * pw * kBwdLanes;
+#pragma unroll
+            for (int j = 0; j < kMaxPw; ++j)
+              if (j < pw) u[j] = __fmaf_rn(w8[ii], gi[j * kBwdLanes], u[j]);
+          }
+        }
+        // the window's columns, 8 at a time: each column's sum over j in
+        // order, the 8 columns' chains side by side
+        const int xa = max(en.xlo - x0, 0), xb = min(en.xhi - x0, kTileX - 1);
+        const float4* wx = reinterpret_cast<const float4*>(st.wx + q * kMaxPw * kTileX);
+#pragma unroll
+        for (int x8 = 0; x8 < kTileX / 8; ++x8) {
+          if (8 * x8 + 7 < xa || 8 * x8 > xb) continue;  // the same for the whole warp
+#pragma unroll
+          for (int j = 0; j < kMaxPw; ++j) {
+            if (j >= pw) break;
+            const float4 a = wx[(j * kTileX + 8 * x8) / 4], z = wx[(j * kTileX + 8 * x8) / 4 + 1];
+            const float w8[8] = {a.x, a.y, a.z, a.w, z.x, z.y, z.z, z.w};
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[8 * x8 + c] = __fmaf_rn(w8[c], u[j], acc[8 * x8 + c]);
+          }
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // the next chunk's stage is in, this one's is free
     }
   }
+
+  // the tile, zeros included: each warp's row through shared memory, channel
+  // by channel in rows of kTileX columns
+  __syncthreads();
+  float* tr = stages + warp * kBwdLanes * kTransposePitch;
+#pragma unroll
+  for (int xx = 0; xx < kTileX; ++xx) tr[lane * kTransposePitch + xx] = acc[xx];
+  __syncwarp();
+  const int x = x0 + lane;
+  if (y < H && x < W) {
+    float* out = lv.grad[l] + ((long long)b * C + c0) * H * W + (long long)y * W + x;
+    const int cn = min(kBwdLanes, C - c0);
+    for (int c = 0; c < cn; ++c) out[(long long)c * H * W] = tr[c * kTransposePitch + lane];
+  }
+}
+
+// The backward's list and stages, in bytes, or 0 where they would not fit in
+// `max_bytes`.
+size_t bwd_smem(int ph, int pw, size_t max_bytes) {
+  const size_t stages = 2 * sizeof(float) * stage_floats(ph, pw);
+  const size_t transpose = sizeof(float) * kTileY * kBwdLanes * kTransposePitch;
+  const size_t bytes = sizeof(Entry) * kThreads + (stages > transpose ? stages : transpose);
+  return bytes <= max_bytes ? bytes : 0;
 }
 
 // Levels past n_levels repeat the last one, so that a clamped level id
@@ -353,29 +576,48 @@ extern "C" int basedet_roi_align_fwd(const float* const* feats,
   return static_cast<int>(cudaGetLastError());
 }
 
-// grads: n_levels device pointers to channels-last (B, H_l, W_l, C) f32,
-// zero-filled by the caller, into which the kernel adds; grad_out
-// (B, R, ph, pw, C) f32; the rest as for the forward. Launches on `stream`,
-// does not synchronise, returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for more levels than the kernel holds.
+// grads: n_levels device pointers to NCHW-contiguous (B, C, H_l, W_l) f32,
+// every element of which the kernel writes; grad_out (B, R, ph, pw, C) f32;
+// the rest as for the forward. Launches on `stream`, does not synchronise,
+// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// more levels than the kernel holds, pw > kMaxPw, bins that do not fit
+// shared memory or too many blocks.
 extern "C" int basedet_roi_align_bwd(float* const* grads, const int* heights,
                                      const int* widths, const int* strides,
                                      int n_levels, const float* grad_out,
                                      const float* rois, const int* levels,
                                      int B, int R, int C, int ph, int pw,
                                      void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels)
+  if (n_levels < 1 || n_levels > kMaxLevels || pw < 1 || pw > kMaxPw || ph < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)B * R * ph * pw * C;
-  if (total <= 0) return 0;
+  if ((long long)B * C <= 0) return 0;
   LevelsOut lv;
   lv.in = make_levels(nullptr, nullptr, heights, widths, strides, n_levels);
-  for (int l = 0; l < kMaxLevels; ++l)
+  const int slabs = (C + kBwdLanes - 1) / kBwdLanes;
+  long long blocks = 0;
+  for (int l = kMaxLevels - 1; l >= 0; --l) {  // the coarsest level's blocks first
     lv.grad[l] = grads[l < n_levels ? l : n_levels - 1];
-  const long long blocks = (total + kThreads - 1) / kThreads;
+    lv.tiles_y[l] = (lv.in.h[l] + kTileY - 1) / kTileY;
+    lv.tiles_x[l] = (lv.in.w[l] + kTileX - 1) / kTileX;
+    lv.first[l] = blocks;
+    lv.blocks[l] = l < n_levels ? (long long)B * lv.tiles_y[l] * lv.tiles_x[l] * slabs : 0;
+    blocks += lv.blocks[l];
+  }
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  roi_align_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (blocks == 0) return 0;
+  int device = 0, max_smem = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const size_t smem = bwd_smem(ph, pw, static_cast<size_t>(max_smem));
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        roi_align_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (err) return err;
+  }
+  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(grad_out) % 16 == 0;
+  roi_align_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      lv, grad_out, rois, levels, B, R, C, ph, pw);
+      lv, grad_out, rois, levels, R, C, ph, pw, slabs, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,14 @@ as the Pallas kernel and the scan version give it. Costs must be finite.
 
 On the card the kernel is bound by bytes: it reads each valid row of cost and
 ious once and skips padded gts, where the plain version makes 2k full passes
-over (B, K, M). See ``csrc/matching.cu``. The assignment is piecewise
-constant, so nothing here carries a gradient: callers pass detached tensors.
+over (B, K, M). One launch a call: a block per (image, gt) row finds its k
+largest ious and dk lowest costs by a radix select over order-preserving
+32-bit keys (the row in shared memory where it fits, ``MAX_STAGED``), and
+the last block of each image decodes the image's claims. Its scratch, 64-bit
+claim keys per anchor and a done-counter per image, is allocated once per
+device and stream and cached: the kernel leaves it as it found it. See
+``csrc/matching.cu``. The assignment is piecewise constant, so nothing here
+carries a gradient: callers pass detached tensors.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 from basedet_tpu_torch.ops._build import CSRC, load_library
 
 SOURCE = CSRC / "matching.cu"
-MAX_TOPK = 10  # the kernel's per-thread lists hold this many keys
+MAX_TOPK = 10  # kMaxK of the source: the most ious summed and costs taken
+MAX_STAGED = 16384  # kMaxStaged of the source: longer rows are streamed from device memory
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +43,7 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -58,14 +65,33 @@ def _check(cost: torch.Tensor, ious: torch.Tensor, gt_valid: torch.Tensor) -> No
         raise ValueError("cost, ious and gt_valid lie on different devices")
 
 
+_SCRATCH = {}
+
+
+def _scratch(device: torch.device, stream: int, B: int, M: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch on one stream, at least (B, M) claim keys (int64,
+    all bits set: the kernel's kNone) and B done-counters (int32, 0). The
+    kernel leaves both so, so they are made once and grown only when a call
+    needs more."""
+    key = (device.index, stream)
+    keys, done = _SCRATCH.get(key, (None, None))
+    if keys is None or keys.numel() < B * M or done.numel() < B:
+        n_keys = max(B * M, 0 if keys is None else keys.numel())
+        n_done = max(B, 0 if done is None else done.numel())
+        keys = torch.full((n_keys,), -1, dtype=torch.int64, device=device)
+        done = torch.zeros(n_done, dtype=torch.int32, device=device)
+        _SCRATCH[key] = keys, done
+    return keys, done
+
+
 def dynamic_k_matching(
     cost: torch.Tensor, ious: torch.Tensor, gt_valid: torch.Tensor, candidate_topk: int = 10
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched dynamic-k matching → (best_gt (B, M) int32, fg (B, M) bool).
 
     A CUDA tensor goes through the kernel (``dynamic_k_matching.launches``
-    counts its launches); a CPU tensor goes through
-    :func:`dynamic_k_matching_plain`."""
+    counts its launches): one launch, the outputs its only allocation. A CPU
+    tensor goes through :func:`dynamic_k_matching_plain`."""
     _check(cost, ious, gt_valid)
     if cost.device.type == "cpu":
         return dynamic_k_matching_plain(cost, ious, gt_valid, candidate_topk)
@@ -79,15 +105,16 @@ def dynamic_k_matching(
         raise ValueError(f"candidate_topk must give 1 <= k <= {MAX_TOPK}, got {k}")
     if B * K >= 2**31 or M >= 2**31:
         raise ValueError(f"dynamic_k_matching supports B*K, M < 2**31, got {B}x{K}, {M}")
-    best_key = torch.empty((B, M), dtype=torch.int64, device=cost.device)
-    best_gt = torch.empty((B, M), dtype=torch.int32, device=cost.device)
-    fg = torch.empty((B, M), dtype=torch.bool, device=cost.device)
+    out = torch.empty(5 * B * M, dtype=torch.uint8, device=cost.device)
+    best_gt = out[:4 * B * M].view(torch.int32).view(B, M)
+    fg = out[4 * B * M:].view(torch.bool).view(B, M)
     lib = _library()
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
+        keys, done = _scratch(cost.device, stream, B, M)
         err = lib.basedet_dynamic_k_matching(
             cost.data_ptr(), ious.data_ptr(), gt_valid.data_ptr(), B, K, M, k,
-            best_key.data_ptr(), best_gt.data_ptr(), fg.data_ptr(), stream,
+            keys.data_ptr(), done.data_ptr(), best_gt.data_ptr(), fg.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"matching kernel launch failed: CUDA error {err}")

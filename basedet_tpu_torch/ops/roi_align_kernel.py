@@ -16,13 +16,17 @@ reads the FPN's NCHW levels in place, through each level's pointer and
 strides (no copy); a block computes one RoI's geometry and taps once and
 pools a slab of 64 channels, a warp's loads running along a feature row, and
 stores its staged output in rows of C floats. One launch pools every level
-and image; one zero-fill and one launch scatter the gradient back into every
-level.
+and image.
 
-The gradient goes to the features only; RoIs that require one are refused,
-as the JAX package gives them none. The backward sums with f32 ``atomicAdd``,
-so the order of each sum, and with it the last bits of the gradient, vary
-from run to run.
+The backward has one writer for each element of dF: a block owns a tile of
+one level of one image (``TILE_Y`` rows by ``TILE_X`` columns) and a slab of
+32 channels, keeps the RoIs whose tap window meets the tile, in RoI-index
+order, sums their separable adjoint restricted to the tile in registers and
+stores the tile once, zeros included, into NCHW-contiguous dF. One launch
+writes every level and image, with no zero-fill and no atomics, so two runs
+give the same bits. :func:`tile_gather_model` is its decomposition in
+Python, for the CPU tests. The gradient goes to the features only; RoIs
+that require one are refused, as the JAX package gives them none.
 
 The kernels are built from the repository's source at first use and bound
 with ``ctypes`` (``ops/_build.py``).
@@ -34,10 +38,13 @@ import functools
 import math
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.ops._build import CSRC, load_library
 from basedet_tpu_torch.ops.roi_align import (
+    _level_weights,
     multilevel_roi_align_backward_plain,
     multilevel_roi_align_plain,
     roi_level_assignment,
@@ -46,6 +53,7 @@ from basedet_tpu_torch.ops.roi_align import (
 SOURCE = CSRC / "roi_align.cu"
 MAX_LEVELS = 4
 MAX_PW = 8  # kMaxPw of the source: bins across a pooled output
+TILE_Y, TILE_X = 8, 32  # kTileY, kTileX of the source: the backward's tile of a level
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,15 +142,14 @@ def multilevel_roi_align_backward(
 ) -> List[torch.Tensor]:
     """The gradient of :func:`multilevel_roi_align` in its features: grad
     (B, R, ph, pw, C) f32 and the forward's rois, levels and strides, with
-    ``sizes`` the (H_l, W_l) per level → dF per level, shaped (B, C, H_l,
-    W_l) f32 (channels-last in memory on the card), zero where no RoI of the
-    level lands.
+    ``sizes`` the (H_l, W_l) per level → dF per level, NCHW-contiguous (B, C,
+    H_l, W_l) f32, zero where no RoI of the level lands.
 
     A CUDA tensor goes through the kernel
     (``multilevel_roi_align_backward.launches`` counts its launches): one
-    zero-fill of all levels, one launch. It sums with f32 ``atomicAdd``, so
-    two runs on the same inputs may differ in the last bits. A CPU tensor
-    goes through the plain version."""
+    launch writes every element of every level once, so two runs on the same
+    inputs give the same bits. It takes at most ``MAX_PW`` bins across, as
+    the forward does. A CPU tensor goes through the plain version."""
     _check_rois(len(sizes), rois, levels, strides)
     if (grad.dim() != 5 or grad.shape[:2] != rois.shape[:2] or grad.dtype != torch.float32
             or grad.device != rois.device):
@@ -153,22 +160,100 @@ def multilevel_roi_align_backward(
     if rois.device.type != "cuda":
         raise ValueError(f"no RoIAlign kernel for device {rois.device}")
     B, R, ph, pw, C = grad.shape
-    counts = [B * h * w * C for h, w in sizes]
-    flat = torch.zeros(sum(counts), dtype=torch.float32, device=rois.device)
-    nhwc = [t.view(B, h, w, C) for t, (h, w) in zip(flat.split(counts), sizes)]
+    if not 1 <= pw <= MAX_PW or ph < 1:
+        raise ValueError(f"the RoIAlign backward kernel takes at most {MAX_PW} bins across, got {(ph, pw)}")
+    counts = [B * C * h * w for h, w in sizes]
+    flat = torch.empty(sum(counts), dtype=torch.float32, device=rois.device)
+    dfs = [t.view(B, C, h, w) for t, (h, w) in zip(flat.split(counts), sizes)]
     grad, rois, levels = grad.contiguous(), rois.contiguous(), levels.contiguous()
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream(rois.device).cuda_stream
         err = _library().basedet_roi_align_bwd(
-            *_level_args(nhwc, sizes, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
+            *_level_args(dfs, sizes, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
             B, R, C, ph, pw, stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign backward kernel launch failed: CUDA error {err}")
     multilevel_roi_align_backward.launches += 1
-    return [t.permute(0, 3, 1, 2) for t in nhwc]
+    return dfs
 
 
 multilevel_roi_align_backward.launches = 0
+
+
+def _axis_taps(start: np.ndarray, bin_size: np.ndarray, p: int, s: int, size: int):
+    """The source's ``axis_tap`` in numpy f32, over arrays of RoIs: the rows
+    (lo, hi) that sample s of bin p reads (NaN coordinates clamp to 0, as
+    ``fminf``/``fmaxf`` give them)."""
+    f32 = np.float32
+    step = f32(p) + (f32(s) + f32(0.5)) / f32(2)
+    coord = start + step * bin_size
+    top = f32(size - 1)
+    c = np.fmin(np.fmax(coord, f32(0)), top)
+    lo = np.floor(c)
+    return lo.astype(np.int64), np.minimum(lo + f32(1), top).astype(np.int64)
+
+
+def tap_windows(rois: torch.Tensor, levels: torch.Tensor, strides: Sequence[int],
+                sizes: Sequence[Tuple[int, int]], output_size: Tuple[int, int]) -> np.ndarray:
+    """The backward kernel's window of every RoI, (B, R, 5) int64: its level
+    (clamped to the levels present) and the first and last rows and columns
+    that its taps read on it, from the first and last samples of each axis
+    (the taps move monotonically with the sample)."""
+    ph, pw = output_size
+    box = rois.detach().cpu().numpy().astype(np.float32)
+    level = np.clip(levels.cpu().numpy(), 0, len(strides) - 1)
+    scale = np.float32(1.0) / np.float32([strides[l] for l in range(len(strides))])[level]
+    x1, y1, x2, y2 = (box[..., k] * scale - np.float32(0.5) for k in range(4))
+    bin_h, bin_w = (y2 - y1) / np.float32(ph), (x2 - x1) / np.float32(pw)
+    h = np.int64([sizes[l][0] for l in range(len(sizes))])[level]
+    w = np.int64([sizes[l][1] for l in range(len(sizes))])[level]
+    out = np.zeros(box.shape[:2] + (5,), np.int64)
+    out[..., 0] = level
+    with np.errstate(invalid="ignore", over="ignore"):
+        for k, (start, size, p) in enumerate(((y1, h, ph), (x1, w, pw))):
+            for idx in np.ndindex(box.shape[:2]):
+                a = _axis_taps(start[idx], (bin_h, bin_w)[k][idx], 0, 0, int(size[idx]))
+                z = _axis_taps(start[idx], (bin_h, bin_w)[k][idx], p - 1, 1, int(size[idx]))
+                out[idx + (1 + 2 * k,)] = min(a[0], z[0])
+                out[idx + (2 + 2 * k,)] = max(a[1], z[1])
+    return out
+
+
+def tile_gather_model(
+    grad: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    strides: Sequence[int],
+    sizes: Sequence[Tuple[int, int]],
+    tile: Tuple[int, int] = (TILE_Y, TILE_X),
+):
+    """The backward kernel's decomposition in Python: for every level l,
+    image b and tile (ty, tx) of ``tile`` rows and columns, the RoIs of
+    level l whose window (:func:`tap_windows`) meets the tile, in RoI-index
+    order, each adding the plain adjoint restricted to the tile. Returns (dF
+    per level (B, C, H_l, W_l) f32, {(l, b, ty, tx): [r, ...]} for every
+    tile)."""
+    B, R, ph, pw, C = grad.shape
+    win = tap_windows(rois, levels, strides, sizes, (ph, pw))
+    out, lists = [], {}
+    with full_f32():
+        for l, (size, stride) in enumerate(zip(sizes, strides)):
+            H, W = size
+            py, px = _level_weights(rois, levels, l, stride, (H, W), (ph, pw), 2)
+            d = torch.zeros((B, C, H, W), dtype=torch.float32, device=grad.device)
+            for b in range(B):
+                for ty in range(-(-H // tile[0])):
+                    for tx in range(-(-W // tile[1])):
+                        y0, x0 = ty * tile[0], tx * tile[1]
+                        ys, xs = slice(y0, min(y0 + tile[0], H)), slice(x0, min(x0 + tile[1], W))
+                        kept = [r for r in range(R) if win[b, r, 0] == l and win[b, r, 1] < y0 + tile[0]
+                                and win[b, r, 2] >= y0 and win[b, r, 3] < x0 + tile[1] and win[b, r, 4] >= x0]
+                        lists[(l, b, ty, tx)] = kept
+                        for r in kept:
+                            u = torch.einsum("iy,ijc->yjc", py[b, r, :, ys], grad[b, r].float())
+                            d[b, :, ys, xs] += torch.einsum("jx,yjc->cyx", px[b, r, :, xs], u)
+            out.append(d)
+    return out, lists
 
 
 class _RoIAlignOnCard(torch.autograd.Function):

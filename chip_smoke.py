@@ -24,7 +24,9 @@ Run from the root of the repository. Phases, each of which raises on failure:
      suppressions); time both, with the
      mask and sweep launches apart (profiler);
   4. the same for the SimOTA matching kernel, at the train slice's shape
-     (8, 100, 8400) and on edge cases and one 832x832 case;
+     (8, 100, 8400) and on edge cases and one 832x832 case; time it at 3 and
+     40 valid gts per image and at 832x832 (40 valid), events beside its
+     device time (profiler), and check that a call is one device operation;
   4b. hold the RoIAlign kernel to its plain version within 1e-5 of
      max(1, max|F|), at Faster R-CNN's eval shape (B = 1 and 2, R = 1000,
      C = 256, the levels of an 800x1344 input), on edge cases (C = 256, 100
@@ -32,9 +34,12 @@ Run from the root of the repository. Phases, each of which raises on failure:
      device time (profiler) into the kernel's and anything else's, which
      must be nothing (the kernel reads the FPN's NCHW levels in place);
   4c. hold the RoIAlign backward kernel to its plain version within 2e-5 of
-     max(1, max|dF|) (ROI_BWD_RTOL says why not 1e-5), at Faster R-CNN's train shape (B = 2, R = 512, C = 256)
-     on proposal-like RoIs, on edge cases and on 512 identical RoIs (the most
-     contended atomics); time both;
+     max(1, max|dF|) (ROI_BWD_RTOL says why not 1e-5), at Faster R-CNN's train
+     shape (B = 2, R = 512, C = 256) on proposal-like RoIs, on edge cases (and
+     |g|~1e3) and on 512 identical RoIs (the most RoIs on one tile); check that
+     two runs are bit-equal and every dF is NCHW-contiguous; time both, the
+     kernel's device time (profiler) apart from anything else, which must be
+     nothing (one device operation a call);
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
@@ -109,7 +114,11 @@ Run from the root of the repository. Phases, each of which raises on failure:
  13. time its inference at batch 1 and batch 8, split into backbone+FPN,
      RPN+proposals, RoIAlign, box head and post-process, with peak memory;
      and one train step at batch 2, split by the module's stage methods,
-     with the RoIAlign backward's own time, images/s and peak memory;
+     with the RoIAlign backward's own time, images/s and peak memory; the
+     RoIAlign backward on the step's own g (events and device time), then one
+     backward under the profiler: the copies and adds on a dF-sized tensor
+     after it and the NHWC kernels (convolution gradients, layout
+     conversions) the backward runs;
  14. CenterNet R50-DCNv2 (full width, random weights from a seed with BN,
      biases and the DCN offset branches spread) through det_train: batch 16
      of 512x512, 4 steps; check that the scatter kernel ran three times per
@@ -186,9 +195,11 @@ FRCNN_CANDIDATES = 1000 + 100  # TRAIN_POST_NMS_TOPK proposals + MAX_INSTANCES g
 RPN_LABEL_AGREE = 0.999
 # RoIAlign backward against its plain version, as a share of max(1, max|dF|). 1e-5 holds where a
 # pixel sums a few hundred terms; the proposal-like case's 102 zero-area padding RoIs all land on
-# P2's corner pixel, which sums ~5,000 terms to |dF| ~ 195: there the kernel measured 5.4e-6 off the
-# plain version and 2.3e-6 off its own second run (the atomics' order), too close to 1e-5 to hold
-# on every run (NVIDIA H100 80GB HBM3, 700.00 W)
+# P2's corner pixel, which sums ~5,000 terms to |dF| ~ 195: there a kernel that summed with atomics
+# measured 5.4e-6 off the plain version and 2.3e-6 off its own second run, too close to 1e-5 to
+# hold on every run (NVIDIA H100 80GB HBM3, 700.00 W). The one-writer kernel sums each element in
+# one fixed order (RoIs by index, then the bins), so its runs are bit-equal, but that order is
+# still not the plain version's
 ROI_BWD_RTOL = 2e-5
 ROI_R, ROI_C, ROI_STRIDES = 1000, 256, (4, 8, 16, 32)
 ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
@@ -258,7 +269,9 @@ def device_kernels(fn, iters, warmup=2, attempts=3, names=()):
     ms per call}). A profiler pass now and then reports no kernels at all (its
     records arrive after the pass): a pass that reports nothing, or none of
     the operations whose name contains one of ``names``, is repeated, up to
-    ``attempts`` times."""
+    ``attempts`` times. A pass can also miss a launch or two (9 of 10 seen):
+    each operation counts as its mean time a launch times its launches a call
+    rounded to a whole number."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -273,9 +286,10 @@ def device_kernels(fn, iters, warmup=2, attempts=3, names=()):
         key = "self_device_time_total" if len(averages) and hasattr(averages[0], "self_device_time_total") \
             else "self_cuda_time_total"
         ops = [e for e in averages if getattr(e, key) > 0]
-        found = {e.key: getattr(e, key) / 1000 / iters for e in ops}
+        per_call = {e.key: max(1, round(e.count / iters)) for e in ops}
+        found = {e.key: getattr(e, key) / 1000 / e.count * per_call[e.key] for e in ops}
         if ops and all(any(n in k for k in found) for n in names):
-            return sum(found.values()), sum(e.count for e in ops) / iters, found
+            return sum(found.values()), sum(per_call.values()), found
     raise RuntimeError(f"chip_smoke: the profiler saw no device time for some of {names or 'the operations'} in "
                        f"{attempts} passes")
 
@@ -531,30 +545,48 @@ def _check_matching(name, cost, ious, valid):
     return int((best - ref_best).abs().max()) + int((fg != ref_fg).sum())
 
 
-def phase_matching(card):
+def matching_bound(valid, M):
+    """The matching's bound: cost and ious read once for valid rows, best gt
+    (i32) and fg (bool) written per anchor; ~2 operations per element read."""
+    rows = int(valid.sum())
+    return bound(rows * M * 8 + valid.shape[0] * M * 5, 2 * rows * M)
+
+
+def matching_timing(cases, card):
+    """The matching kernel's wrapper on each (name, cost, ious, valid) case:
+    events time per call, its device time and device operations per call
+    (profiler), the plain version and the bound."""
     from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching, dynamic_k_matching_plain
 
+    times = {}
+    for name, *arrays in cases:
+        cost, ious, valid = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+        call = lambda: dynamic_k_matching(cost, ious, valid)
+        ms = cuda_ms(call, reps=50, warmup=5)
+        device, ops, names = device_kernels(call, 20)
+        plain_ms = cuda_ms(lambda: dynamic_k_matching_plain(cost, ious, valid), reps=10, warmup=2)
+        bound_ms, bound_by = matching_bound(arrays[2], cost.shape[2])
+        times[name] = dict(ms=ms, device_ms=device, ops=ops, names=sorted(names), plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        B, K, M = cost.shape
+        log(f"[match] {name}, B={B} K={K} M={M}, {int(arrays[2].sum())} valid rows: kernel {ms:.4f} ms per call "
+            f"(events), device time {device:.4f} ms in {ops:.2f} operations a call (profiler: {sorted(names)}); "
+            f"plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}) | {card}")
+    return times
+
+
+def phase_matching(card):
     cases = _matching_cases()
     worst = max(_check_matching(name, *(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays))
                 for name, *arrays in cases)
-    times = {}
-    for name, *arrays in cases[:2]:
-        cost, ious, valid = (torch.from_numpy(a).cuda() for a in arrays)
-        ms = cuda_ms(lambda: dynamic_k_matching(cost, ious, valid), reps=50, warmup=5)
-        plain_ms = cuda_ms(lambda: dynamic_k_matching_plain(cost, ious, valid), reps=10, warmup=2)
-        times[name] = (ms, plain_ms)
-        log(f"[match] {name}, B={MATCH_B} K={MATCH_K} M={MATCH_M}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms per call | {card}")
     log(f"[match] {len(cases)} cases equal")
-    ms, plain_ms = times["slice 3 valid"]  # det_train's dummy batches carry 3 boxes per image
-    valid_rows = int(cases[0][3].sum())
-    # cost and ious read once for valid rows, best gt (i32) and fg (bool)
-    # written per anchor; ~2 operations per element read
-    bound_ms, bound_by = bound(valid_rows * MATCH_M * 8 + MATCH_B * MATCH_M * 5,
-                               2 * valid_rows * MATCH_M)
-    log(f"[match] bound at 3 valid gts per image: {bound_ms:.5f} ms ({bound_by}) | {card}")
-    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    timed = [c for c in cases if c[0] in ("slice 3 valid", "slice 40 valid", "832x832")]
+    times = matching_timing(timed, card)
+    for name, t in times.items():
+        check(t["ops"] == 1, f"the matching wrapper ran {t['ops']} device operations a call on {name!r}, not 1")
+    t = times["slice 3 valid"]  # det_train's dummy batches carry 3 boxes per image
+    return dict(max_abs_err=float(worst), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
 
 
 @torch.no_grad()
@@ -1654,23 +1686,24 @@ def _check_roi_align_bwd(name, grad, rois):
     want = multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
     again = multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    rerun = max(float((g - a).abs().max()) for g, a in zip(got, again))
     biggest = max(float(w.abs().max()) for w in want)
     tol = ROI_BWD_RTOL * max(1.0, biggest)
     per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    equal = all(torch.equal(g, a) for g, a in zip(got, again))
     log(f"[roi-bwd] {name:16s} B={rois.shape[0]} R={rois.shape[1]} C={grad.shape[-1]}, RoIs per level "
         f"P2-P5 {per_level}: max |kernel - plain| {err:.3e} (tol {tol:.3e}, max |dF| {biggest:.3e}); "
-        f"two runs of the kernel differ by {rerun:.3e} (the atomics' order)")
+        f"two runs of the kernel bit-equal: {equal}")
     check(all(g.shape == w.shape for g, w in zip(got, want)), "RoIAlign backward: wrong dF shapes")
+    check(all(g.is_contiguous() for g in got), f"RoIAlign backward: a dF is not NCHW-contiguous on case {name!r}")
+    check(equal, f"RoIAlign backward: two runs differ on case {name!r}")
     check(err <= tol, f"RoIAlign backward kernel differs from its plain version by {err} on case {name!r}")
     return err
 
 
-def phase_roi_align_bwd(card):
-    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
-    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
-
-    rng, gen = np.random.RandomState(SEED + 2), torch.Generator(device="cuda").manual_seed(SEED + 2)
+def roi_align_bwd_cases(seed=SEED + 2):
+    """Phase 4c's RoI sets at Faster R-CNN's train shape (B = 2, R = 512) and
+    their g: {name: (g, rois)}, on the card."""
+    rng, gen = np.random.RandomState(seed), torch.Generator(device="cuda").manual_seed(seed)
     B, R = FRCNN_TRAIN_B, FRCNN_TRAIN_R
 
     def grad_like(rois):
@@ -1679,31 +1712,47 @@ def phase_roi_align_bwd(card):
     spread_rois = torch.from_numpy(_proposal_rois(rng, B, R)).cuda()
     same_rois = torch.from_numpy(np.broadcast_to(np.float32([301.3, 211.7, 642.9, 505.1]), (B, R, 4)).copy()).cuda()
     edge_rois = torch.from_numpy(_edge_rois()).cuda()
-    worst = 0.0
-    for name, rois in (("proposal-like", spread_rois), ("edges", edge_rois), ("identical RoIs", same_rois)):
-        worst = max(worst, _check_roi_align_bwd(name, grad_like(rois), rois))
-    worst = max(worst, _check_roi_align_bwd("edges |g|~1e3", grad_like(edge_rois) * 1000.0, edge_rois))
+    cases = {name: (grad_like(rois), rois) for name, rois in (
+        ("proposal-like", spread_rois), ("edges", edge_rois), ("identical RoIs", same_rois))}
+    cases["edges |g|~1e3"] = (grad_like(edge_rois) * 1000.0, edge_rois)
+    return cases
 
-    times = {}
-    for name, rois in (("proposal-like", spread_rois), ("identical RoIs", same_rois)):
-        grad, levels = grad_like(rois), roi_level_assignment(rois, 2, 5)
-        ms = cuda_ms(lambda: multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS),
-                     reps=30, warmup=5)
-        plain_ms = cuda_ms(lambda: multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS),
-                           reps=3, warmup=1)
-        times[name] = (ms, plain_ms)
-    zero_ms = cuda_ms(lambda: torch.zeros(sum(B * h * w * ROI_C for h, w in ROI_LEVELS), device="cuda"),
-                      reps=30, warmup=5)
-    grad = grad_like(spread_rois)
+
+def roi_align_bwd_timing(grad, rois, card, name, plain=True):
+    """The RoIAlign backward's wrapper on one g and its RoIs: events time per
+    call, the device time of its kernel and of anything else it runs, device
+    operations per call (profiler), the plain version and the bound."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    levels = roi_level_assignment(rois, 2, 5)
+    call = lambda: multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    ms = cuda_ms(call, reps=30, warmup=5)
+    device, ops, names = device_kernels(call, 10, names=("roi_align_bwd",))
+    kernel = sum(v for n, v in names.items() if "roi_align_bwd" in n)
+    other = {n: v for n, v in names.items() if "roi_align_bwd" not in n}
+    plain_ms = (cuda_ms(lambda: multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS),
+                        reps=3, warmup=1) if plain else None)
     bound_ms, bound_by, d_bytes = roi_align_bwd_bound(grad, ROI_LEVELS)
-    ms, plain_ms = times["proposal-like"]
-    log(f"[roi-bwd] B={B} R={R} C={ROI_C} levels {ROI_LEVELS}: wrapper {ms:.4f} ms per call on "
-        f"proposal-like RoIs (of which the zero-fill of dF alone {zero_ms:.4f} ms), plain {plain_ms:.3f} ms; "
-        f"on {R} identical RoIs {times['identical RoIs'][0]:.4f} ms, plain {times['identical RoIs'][1]:.3f} ms; "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {grad.numel() * 4 / 1e6:.1f} MB of g read, "
-        f"{d_bytes / 1e6:.1f} MB of dF written) | {card}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+    per_level = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f"[roi-bwd] {name}, B={grad.shape[0]} R={grad.shape[1]} C={grad.shape[-1]}, RoIs per level P2-P5 "
+        f"{per_level}: wrapper {ms:.4f} ms per call (events); device time {device:.4f} ms in {ops:.2f} operations "
+        f"a call (profiler): the kernel {kernel:.4f} ms, anything else {sum(other.values()):.4f} ms {sorted(other)}; "
+        + (f"plain {plain_ms:.3f} ms; " if plain else "")
+        + f"bound {bound_ms:.4f} ms ({bound_by}: {grad.numel() * 4 / 1e6:.1f} MB of g read, {d_bytes / 1e6:.1f} MB "
+        f"of dF written), the kernel at {bound_ms / kernel:.3f} of it | {card}")
+    return dict(ms=ms, device_ms=device, kernel_ms=kernel, other_ms=sum(other.values()), ops=ops,
+                names=sorted(names), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_roi_align_bwd(card):
+    cases = roi_align_bwd_cases()
+    worst = max(_check_roi_align_bwd(name, grad, rois) for name, (grad, rois) in cases.items())
+    times = {name: roi_align_bwd_timing(*cases[name], card, name) for name in ("proposal-like", "identical RoIs")}
+    t = times["proposal-like"]
+    check(t["ops"] == 1, f"the RoIAlign backward wrapper ran {t['ops']} device operations a call, not 1: {t['names']}")
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
 
 
 @torch.no_grad()
@@ -2016,21 +2065,97 @@ def phase_frcnn_train_vs_cpu(weights):
     check(norm_rel <= GRAD_NORM_RTOL, f"Faster R-CNN gradient norms differ by {norm_rel:.3e}")
 
 
-def phase_frcnn_train_timing(weights, card):
-    """One f32 Faster R-CNN train step at batch 2 of 800x1333 (input already
-    on the card): the stage methods each timed alone on the previous stage's
-    outputs, gradients enabled; get_losses, get_losses with backward and the
-    whole step as nested prefixes; and the RoIAlign backward alone on the
-    arguments a real backward gave it."""
-    from basedet_tpu_torch.layers.common.function import full_f32
+def frcnn_train_inputs(weights):
+    """Full-width Faster R-CNN in train mode on the card, its train state and
+    step, its first batch on the card and the sampling noise of step 0."""
     from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
-    from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNNModule
-    from basedet_tpu_torch.ops.roi_align import roi_level_assignment
-    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
 
     model, state, step, batch = _frcnn_train_setup(weights, "cuda")
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
     noise = draw_sampling_noise(42, 0, FRCNN_TRAIN_B, FRCNN_ANCHORS, FRCNN_CANDIDATES, "cuda")
+    return model, state, step, batch, noise
+
+
+# dF of each pooled level at the train shape, as the profiler prints input shapes
+DF_SHAPES = [[FRCNN_TRAIN_B, ROI_C, h, w] for h, w in ROI_LEVELS]
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy", "aten::add", "aten::add_")
+
+
+def frcnn_backward_report(model, batch, noise, card):
+    """What a Faster R-CNN train step's backward does with the RoIAlign
+    backward's output (f32, batch 2 of 800x1333): the gradient that reaches
+    the pooled features and its RoIs recorded from one backward, the
+    RoIAlign backward timed alone on them (``roi_align_bwd_timing``); then
+    one backward under torch.profiler: the copies and adds that take a
+    dF-sized (B, 256, H_l, W_l) tensor, and the device kernels that run in
+    NHWC (a name containing "nhwc": cuDNN's NHWC convolution gradients and
+    its layout conversions), each with its count and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNNModule
+
+    m = model.module
+    grads = []
+    with recording(FasterRCNNModule, "pool", lambda args, out: (out.register_hook(grads.append), args[2])[1]) as pooled_rois, \
+            full_f32():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch, noise=noise)[0].backward()
+    g, rois = grads[-1].contiguous(), pooled_rois[-1]
+    roi_bwd = roi_align_bwd_timing(g, rois, card, "the train step's own g", plain=False)
+    nonzero = float((g != 0).float().mean())
+    del grads, g
+
+    for _ in range(3):
+        m.zero_grad(set_to_none=True)
+        with full_f32():
+            loss = model.get_losses(batch, noise=noise)[0]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof, \
+                full_f32():
+            loss.backward()
+            torch.cuda.synchronize()
+        averages = prof.key_averages(group_by_input_shape=True)
+        key = "device_time_total" if len(averages) and hasattr(averages[0], "device_time_total") else "cuda_time_total"
+        kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    check(kernels, "the profiler saw no device kernel in the Faster R-CNN backward")
+    ms = lambda e: getattr(e, key) / 1000
+    busy = sum(ms(e) for e in kernels)
+    nhwc = {}
+    for e in kernels:
+        if "nhwc" in e.key.lower():
+            n, t = nhwc.get(e.key, (0, 0.0))
+            nhwc[e.key] = (n + e.count, t + ms(e))
+    copies = {}
+    for e in averages:
+        shapes = [list(sh) for sh in (e.input_shapes or [])]
+        if e.key in COPY_OPS and any(sh in DF_SHAPES for sh in shapes):
+            name = f"{e.key} {shapes}"
+            n, t = copies.get(name, (0, 0.0))
+            copies[name] = (n + e.count, t + ms(e))
+    roi = sum(ms(e) for e in kernels if "roi_align_bwd" in e.key)
+    log(f"[frcnn-bwd] one f32 backward, batch {FRCNN_TRAIN_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: device "
+        f"{busy:.3f} ms in {sum(e.count for e in kernels)} kernels (profiler), the RoIAlign backward kernel {roi:.4f} ms; "
+        f"NHWC kernels {sum(n for n, _ in nhwc.values())} ({sum(t for _, t in nhwc.values()):.3f} ms): "
+        f"{ {k[:110]: (n, round(t, 4)) for k, (n, t) in sorted(nhwc.items())} }; copies and adds on a dF-sized "
+        f"tensor {sum(n for n, _ in copies.values())} ({sum(t for _, t in copies.values()):.3f} ms): "
+        f"{ {k: (n, round(t, 4)) for k, (n, t) in sorted(copies.items())} } | {card}")
+    return dict(roi_bwd=roi_bwd, nonzero=nonzero, busy_ms=busy, roi_kernel_ms=roi, nhwc=nhwc, copies=copies)
+
+
+def phase_frcnn_train_timing(weights, card):
+    """One f32 Faster R-CNN train step at batch 2 of 800x1333 (input already
+    on the card): the stage methods each timed alone on the previous stage's
+    outputs, gradients enabled; get_losses, get_losses with backward and the
+    whole step as nested prefixes; and ``frcnn_backward_report``: the
+    RoIAlign backward alone on the arguments a real backward gave it, and
+    what the backward around it does with dF."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    model, state, step, batch, noise = frcnn_train_inputs(weights)
     m, reps = model.module, 10
 
     def timed(fn):
@@ -2059,22 +2184,14 @@ def phase_frcnn_train_timing(weights, card):
 
     t_loss, _ = timed(lambda: model.get_losses(batch, noise=noise)[0])
     t_fb, _ = timed(losses_backward)
-    # the gradient that reaches the pooled features in a real backward, and its RoIs
-    grads = []
-    with recording(FasterRCNNModule, "pool", lambda args, out: (out.register_hook(grads.append), args[2])[1]) as pooled_rois, \
-            full_f32():
-        losses_backward()
-    g, rois = grads[-1].contiguous(), pooled_rois[-1]
-    levels = roi_level_assignment(rois, 2, 5)
-    t_roi_bwd = cuda_ms(lambda: multilevel_roi_align_backward(g, rois, levels, ROI_STRIDES, ROI_LEVELS),
-                        reps=30, warmup=3)
+    report = frcnn_backward_report(model, batch, noise, card)
+    t_roi_bwd, nonzero = report["roi_bwd"]["ms"], report["nonzero"]
     launches = multilevel_roi_align_backward.launches
     torch.cuda.reset_peak_memory_stats()
     t_step = cuda_ms(lambda: step(state, batch), reps=reps, warmup=2)
     peak = torch.cuda.max_memory_allocated()
     check(multilevel_roi_align_backward.launches > launches,
           "Faster R-CNN train timing ran no RoIAlign backward kernel")
-    nonzero = float((g != 0).float().mean())
     log(f"[timing] Faster R-CNN R50-FPN f32 train step, batch {FRCNN_TRAIN_B} of "
         f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: {t_step:.3f} ms per step ({1000 * FRCNN_TRAIN_B / t_step:.2f} "
         f"img/s); stages each alone, gradients enabled: backbone+FPN {t_feat:.3f}, RPN head {t_rpn:.3f}, "

@@ -10,7 +10,14 @@ sums the top-k ious one f32 add at a time, largest first, as both JAX kernels
 do. numpy's ``sum`` adds pairwise, which lands on the other side of an integer
 on the "integer sums" case below (2.9999995 against 3.0 for one of its rows).
 
-JAX is imported inside the fixture, so the CUDA test at the end also runs on a
+``matching_model`` is the kernel's algorithm in numpy (csrc/matching.cu): keys
+that order like the floats (-0.0 folded onto +0.0), a radix select of the k
+largest ious and the dk lowest costs digit by digit, the ties at the cost
+threshold taken in index order through per-thread runs, claims by the lowest
+(cost key, gt); the row staged as keys or streamed (its floats read again on
+every pass). It is held to ``dynamic_k_matching_plain`` on every case.
+
+JAX is imported inside the fixture, so the CUDA tests at the end also run on a
 machine without JAX:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_matching.py -m cuda``.
 """
@@ -18,7 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching, dynamic_k_matching_plain
+from basedet_tpu_torch.ops.matching_kernel import (
+    MAX_STAGED,
+    dynamic_k_matching,
+    dynamic_k_matching_plain,
+)
+
+THREADS = 1024  # kThreads of the source: the runs of the cost ties
+NONE = np.uint64(2**64 - 1)
 
 
 def _naive(cost, ious, valid, k):
@@ -82,6 +96,92 @@ def matching_cases():
 CASES = list(matching_cases())
 
 
+def ordered_keys(values):
+    """csrc/matching.cu's ordered_bits: f32 → u32 that order like the
+    floats, -0.0 folded onto +0.0."""
+    u = np.where(values == 0, np.float32(0), values).astype(np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def from_ordered_keys(keys):
+    keys = np.asarray(keys, np.uint32)
+    return np.where(keys & np.uint32(0x80000000), keys & np.uint32(0x7FFFFFFF), ~keys).astype(np.uint32).view(np.float32)
+
+
+def radix_select_model(read, M, want):
+    """The kernel's radix_select: ``read()`` gives the row's keys (again on
+    every pass); the 8-bit digits from the top down, each keeping the bucket
+    that holds rank ``want`` (1-based, lowest first), until the bucket holds
+    exactly the ranks still wanted or all 32 bits are fixed. Returns
+    (prefix, mask, want, group): keys under ``mask`` below ``prefix`` are
+    taken, and ``want`` of the ``group`` keys equal to it."""
+    prefix = mask = 0
+    for shift in (24, 16, 8, 0):
+        keys = read()
+        assert keys.shape == (M,) and keys.dtype == np.uint32
+        hist = np.bincount((keys[(keys & np.uint32(mask)) == prefix] >> np.uint32(shift)) & 0xFF, minlength=256)
+        incl = np.cumsum(hist)
+        digit = int(np.argmax(incl >= want))
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+        want -= int(incl[digit] - hist[digit])
+        group = int(hist[digit])
+        if group == want:
+            break
+    return prefix, mask, want, group
+
+
+def matching_model(cost, ious, valid, k, staged=None):
+    """The kernel on one batch (B, K, M) in numpy → (best_gt, fg). A row is
+    staged (its keys made once) where M <= MAX_STAGED unless ``staged`` says
+    otherwise, else streamed (its floats turned into keys on every pass)."""
+    B, K, M = cost.shape
+    staged = M <= MAX_STAGED if staged is None else staged
+    best, fg = np.zeros((B, M), np.int32), np.zeros((B, M), bool)
+    for b in range(B):
+        claims = np.full(M, NONE, np.uint64)
+        for g in range(K):
+            if not valid[b, g]:
+                continue
+            if staged:
+                ku, kc = ~ordered_keys(ious[b, g]), ordered_keys(cost[b, g])
+                read_u, read_c = (lambda: ku), (lambda: kc)
+            else:
+                read_u, read_c = (lambda: ~ordered_keys(ious[b, g])), (lambda: ordered_keys(cost[b, g]))
+            # dk: the k largest ious, summed largest first, one f32 add at a time
+            prefix, mask, want, group = radix_select_model(read_u, M, k)
+            keys = read_u()
+            masked = keys & np.uint32(mask)
+            top = keys[(masked < prefix) | ((group == want) & (masked == prefix))]
+            top = np.sort(np.concatenate([top, np.full(k - len(top), prefix, np.uint32)]))
+            assert len(top) == k
+            total = np.float32(0)
+            for v in from_ordered_keys(~top):
+                total = np.float32(total + v)
+            dk = int(np.clip(int(total), 1, k))
+            # the dk lowest costs; ties at the threshold by per-thread runs in index order
+            prefix, mask, want, group = radix_select_model(read_c, M, dk)
+            keys = read_c()
+            masked = keys & np.uint32(mask)
+            chosen = masked < prefix
+            if group == want:
+                chosen |= masked == prefix
+            else:
+                run = -(-M // THREADS)
+                ties = keys == prefix
+                starts = np.concatenate([[0], np.cumsum([ties[t * run:(t + 1) * run].sum() for t in range(THREADS)])])
+                for t in range(THREADS):
+                    for m in np.flatnonzero(ties[t * run:(t + 1) * run]) + t * run:
+                        if starts[t] < want:
+                            chosen[m] = True
+                        starts[t] += 1
+            assert chosen.sum() == dk
+            claims[chosen] = np.minimum(claims[chosen], (keys[chosen].astype(np.uint64) << np.uint64(32)) | np.uint64(g))
+        fg[b] = claims != NONE
+        best[b] = np.where(fg[b], (claims & np.uint64(0xFFFFFFFF)).astype(np.int64), 0)
+    return best, fg
+
+
 @pytest.fixture(scope="module")
 def jx():
     import jax
@@ -115,6 +215,53 @@ def test_plain_matches_pallas_scan_and_oracle(jx, name):
         ref_best, ref_fg = _naive(cost[b], ious[b], valid[b], k)
         np.testing.assert_array_equal(fg[b], ref_fg)
         np.testing.assert_array_equal(best[b], ref_best)
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "streamed"])
+@pytest.mark.parametrize("name", CASES)
+def test_matching_model_matches_plain(name, staged):
+    cost, ious, valid = matching_cases()[name]
+    best, fg = matching_model(cost, ious, valid, min(10, cost.shape[2]), staged)
+    ref_best, ref_fg = _plain(cost, ious, valid)
+    np.testing.assert_array_equal(fg, ref_fg)
+    np.testing.assert_array_equal(best, ref_best)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_radix_select_model_finds_the_rank(seed):
+    """The threshold of rank ``want`` against a sort, on keys with many
+    equal values, a shared top digit, -0.0 beside +0.0 and negatives."""
+    rng = np.random.RandomState(seed)
+    values = np.concatenate([
+        np.float32(1e5) + rng.randint(0, 40, 300).astype(np.float32),  # one top digit, many ties
+        rng.choice(np.float32([0.0, -0.0, 0.5, -2.0]), 50), rng.uniform(-30, 30, 150).astype(np.float32)])
+    keys = ordered_keys(values[rng.permutation(len(values))])
+    assert ordered_keys(np.float32([-0.0]))[0] == ordered_keys(np.float32([0.0]))[0]
+    ranked = np.sort(keys)
+    for want in (1, 2, 5, 10, 57, 300, 499, 500):
+        prefix, mask, left, group = radix_select_model(lambda: keys, len(keys), want)
+        masked = keys & np.uint32(mask)
+        assert int((masked < prefix).sum()) == want - left and int((masked == prefix).sum()) == group
+        assert 1 <= left <= group
+        assert (ranked[want - 1] & np.uint32(mask)) == prefix
+        if group != left:  # only a full key leaves ties
+            assert mask == 0xFFFFFFFF and ranked[want - 1] == prefix
+
+
+def test_matching_model_streams_past_the_staged_row():
+    """At M = 22,300 (OTA at 800x1333) the row is streamed; the model, both
+    ways, equals the plain version on three images of YOLOX-like rows."""
+    assert 22300 > MAX_STAGED
+    rng = np.random.RandomState(3)
+    cost = (rng.uniform(0, 30, (3, 4, 22300)) + 1e5 * (rng.uniform(size=(3, 4, 22300)) > 0.02)).astype(np.float32)
+    ious = (rng.uniform(size=(3, 4, 22300)) ** 6).astype(np.float32)
+    cost[:, :, 100:160] = np.round(cost[:, :, 100:160])  # ties at the threshold
+    valid = np.array([[True, True, False, True], [True, False, False, False], [False] * 4])
+    ref_best, ref_fg = _plain(cost, ious, valid)
+    for staged in (None, True):
+        best, fg = matching_model(cost, ious, valid, 10, staged)
+        np.testing.assert_array_equal(fg, ref_fg)
+        np.testing.assert_array_equal(best, ref_best)
 
 
 def test_matching_on_cpu_takes_the_plain_version():
@@ -156,3 +303,40 @@ def test_matching_kernel_matches_plain_on_gpu():
         ref_best, ref_fg = dynamic_k_matching_plain(*args)
         assert torch.equal(fg, ref_fg), name
         assert torch.equal(best, ref_best), name
+
+
+@pytest.mark.cuda
+def test_matching_kernel_streams_rows_past_shared_memory_on_gpu():
+    """M = 22,300 (OTA at 800x1333), past the staged row: the kernel equals
+    the plain version, with ties at the cost threshold and invalid rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the matching kernel has no CPU mode")
+    rng = np.random.RandomState(4)
+    B, K, M = 4, 20, 22300
+    assert M > MAX_STAGED
+    cost = (rng.uniform(0, 30, (B, K, M)) + 1e5 * (rng.uniform(size=(B, K, M)) > 0.02)).astype(np.float32)
+    ious = (rng.uniform(size=(B, K, M)) ** 6).astype(np.float32)
+    cost[:, :, 100:160] = np.round(cost[:, :, 100:160])
+    valid = np.arange(K)[None] < np.array([[3], [20], [0], [11]])
+    args = [torch.from_numpy(a).cuda() for a in (cost, ious, valid)]
+    launches = dynamic_k_matching.launches
+    best, fg = dynamic_k_matching(*args)
+    torch.cuda.synchronize()
+    assert dynamic_k_matching.launches == launches + 1
+    ref_best, ref_fg = dynamic_k_matching_plain(*args)
+    assert torch.equal(fg, ref_fg) and torch.equal(best, ref_best)
+
+
+@pytest.mark.cuda
+def test_matching_kernel_leaves_its_scratch_reset_on_gpu():
+    """The kernel's cached claim keys and done-counters must be back at kNone
+    and 0 after every call: 200 calls in a row, over shapes that share and
+    grow the scratch, each equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the matching kernel has no CPU mode")
+    cases = [[torch.from_numpy(a).cuda() for a in arrays] for arrays in matching_cases().values()]
+    refs = [dynamic_k_matching_plain(*args) for args in cases]
+    for i in range(200):
+        args, (ref_best, ref_fg) = cases[i % len(cases)], refs[i % len(cases)]
+        best, fg = dynamic_k_matching(*args)
+        assert torch.equal(fg, ref_fg) and torch.equal(best, ref_best), i

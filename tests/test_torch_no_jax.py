@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2")
@@ -184,3 +186,18 @@ def test_port_sources_never_import_jax():
     assert offenders == []
     assert pattern.search("from basedet_tpu.utils import logger")
     assert not pattern.search("from basedet_tpu_torch.utils import logger")
+
+
+@pytest.mark.parametrize("tool", ["det_train", "det_test"])
+def test_tools_default_to_cuda_and_raise_without_it(tool, monkeypatch, tmp_path):
+    """det_train and det_test run on the card unless the caller asks for the
+    CPU: with no --device and no CUDA they raise, naming --device cpu,
+    before they build anything."""
+    import importlib
+
+    import torch
+
+    main = importlib.import_module(f"basedet_tpu_torch.tools.{tool}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["-f", YOLOX, "GLOBAL.OUTPUT_DIR", str(tmp_path)])

@@ -17,6 +17,13 @@ to ``jax.grad`` of the separable version and of both Pallas kernels within
 terms of unit-scale gradients, summed in each implementation's own order.
 The RoIs get no gradient anywhere.
 
+The backward kernel's decomposition, ``tile_gather_model`` (tiles of a level,
+each summing the RoIs whose tap window meets it, in RoI-index order), is held
+to the plain backward and to ``jax.grad`` of the separable version within
+ROI_BWD_RTOL of max(1, max|dF|), at the kernel's tile and at a small one that
+cuts the tiny levels into many tiles; every RoI with a nonzero weight on a
+tile must be on its list.
+
 The kernels themselves run only on the card: ``-m cuda`` there. JAX is
 imported inside the fixtures, so the CUDA tests at the end also run on the
 card's machine, which has no JAX.
@@ -28,14 +35,18 @@ import pytest
 import torch
 
 from basedet_tpu_torch.ops.roi_align import (
+    _level_weights,
     multilevel_roi_align_backward_plain,
     multilevel_roi_align_plain,
     roi_level_assignment,
 )
 from basedet_tpu_torch.ops.roi_align_kernel import (
+    TILE_X,
+    TILE_Y,
     multilevel_roi_align,
     multilevel_roi_align_backward,
     pool_rois_multilevel,
+    tile_gather_model,
 )
 
 STRIDES = (4, 8, 16, 32)
@@ -43,6 +54,11 @@ IMG = 128
 C = 8
 B = 2
 ATOL = 2e-5
+# The backward kernel and its model against the plain backward and the JAX package's, as a share of
+# max(1, max|dF|): the same weighted terms of g summed in other orders (RoI by RoI, bins i then j, by
+# fmaf on the card); chip_smoke.py's ROI_BWD_RTOL states the measurement on the card behind 2e-5
+ROI_BWD_RTOL = 2e-5
+SMALL_TILE = (4, 8)  # cuts the 32x32 P2 of the tests into 8 x 4 tiles
 
 
 def _feats(rng, img=IMG, c=C, b=B):
@@ -112,12 +128,29 @@ CASES = {
     "edges": lambda rng: _edge_rois(),
 }
 GRAD_CASES = {**CASES, "one_level": _one_level_rois}
+
+
+def _tile_edge_rois(rng, R=16):
+    """RoIs with corners within 2 px of multiples of 32 px (8 columns of P2,
+    4 of P3, the small tile's edges and the kernel's tile rows): windows that
+    start, end or cross on the edges of tiles; sides 6-100 px put them on P2
+    and P3."""
+    corner = 32.0 * rng.randint(0, IMG // 32, (B, R, 2)) + rng.choice([-2.0, -1.0, -0.5, 0.0, 1.0, 2.0], (B, R, 2))
+    side = rng.choice([6.0, 30.0, 33.0, 62.0, 100.0], (B, R, 2))
+    return np.concatenate([corner, corner + side], -1).astype(np.float32)
+
+
+def _identical_rois(rng, R=16):
+    return np.broadcast_to(np.float32([20.3, 31.7, 90.1, 77.4]), (B, R, 4)).copy()
+
+
+MODEL_CASES = {**GRAD_CASES, "tile_edges": _tile_edge_rois, "identical": _identical_rois}
 SIZES = [(IMG // s, IMG // s) for s in STRIDES]
 
 
 def _grad_inputs(case, seed):
     rng = np.random.RandomState(seed)
-    feats, rois = _feats(rng), GRAD_CASES[case](rng)
+    feats, rois = _feats(rng), MODEL_CASES[case](rng)
     g = rng.randn(B, rois.shape[1], 7, 7, C).astype(np.float32)
     return feats, rois, g
 
@@ -208,6 +241,55 @@ def test_plain_backward_matches_fused_kernel_backward_interpret(jx, case):
     _assert_grads_close(_plain_backward(rois, g), want, 1e-5)
 
 
+def _model(rois, g, tile):
+    rois = torch.from_numpy(rois)
+    levels = roi_level_assignment(rois, 2, 5)
+    got, lists = tile_gather_model(torch.from_numpy(g), rois, levels, STRIDES, SIZES, tile)
+    return [d.permute(0, 2, 3, 1).numpy() for d in got], lists, levels
+
+
+@pytest.mark.parametrize("tile", [(TILE_Y, TILE_X), SMALL_TILE], ids=["kernel_tile", "small_tile"])
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_tile_gather_model_matches_plain_backward(case, tile):
+    _, rois, g = _grad_inputs(case, 15)
+    got, lists, levels = _model(rois, g, tile)
+    _assert_grads_close(got, _plain_backward(rois, g), ROI_BWD_RTOL)
+    assert sum(len(kept) for kept in lists.values()) > 0
+    for lvl, d in enumerate(got):  # a level with no RoI gets an exact zero
+        assert (np.abs(d).max() > 0) == bool((levels == lvl).any()), lvl
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_tile_gather_model_matches_jax_grad_of_separable(jx, case):
+    feats, rois, g = _grad_inputs(case, 16)
+    want = jx.jax.grad(lambda fs: jx.jnp.sum(jx.batched(list(fs), jx.jnp.asarray(rois), STRIDES) * g))(
+        tuple(jx.jnp.asarray(f) for f in feats))
+    _assert_grads_close(_model(rois, g, (TILE_Y, TILE_X))[0], want, ROI_BWD_RTOL)
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_tile_lists_hold_every_roi_that_reaches_the_tile_in_order(case):
+    """A tile's list is in RoI-index order, holds only RoIs of its level, and
+    holds every RoI whose weights reach one of its elements: the windows are
+    conservative, so no term of the adjoint is lost."""
+    _, rois, g = _grad_inputs(case, 17)
+    _, lists, levels = _model(rois, g, SMALL_TILE)
+    rois_t = torch.from_numpy(rois)
+    (th, tw), reached = SMALL_TILE, 0
+    for lvl, (size, stride) in enumerate(zip(SIZES, STRIDES)):
+        py, px = _level_weights(rois_t, levels, lvl, stride, size, (7, 7), 2)
+        rows, cols = (py != 0).any(2), (px != 0).any(2)  # (B, R, H), (B, R, W)
+        for (l, b, ty, tx), kept in lists.items():
+            if l != lvl:
+                continue
+            assert kept == sorted(kept) and all(int(levels[b, r]) == l for r in kept)
+            hit = (rows[b, :, ty * th:(ty + 1) * th].any(1) & cols[b, :, tx * tw:(tx + 1) * tw].any(1))
+            missing = set(np.flatnonzero(hit.numpy()).tolist()) - set(kept)
+            assert not missing, (l, b, ty, tx, sorted(missing))
+            reached += int(hit.sum())
+    assert reached > 0
+
+
 def test_backward_wrapper_takes_the_plain_version_on_cpu():
     feats, rois, g = _grad_inputs("random", 14)
     rois, g = torch.from_numpy(rois), torch.from_numpy(g)
@@ -288,7 +370,8 @@ def test_roi_align_kernel_matches_plain_on_gpu():
 def test_roi_align_backward_kernel_matches_plain_on_gpu():
     """The backward kernel against the plain backward, and the Function's
     backward through ``pool_rois_multilevel`` against autograd of the plain
-    forward. The tolerance covers the atomics' order of summation."""
+    forward; dF NCHW-contiguous, and a second run bit-equal to the first.
+    The tolerance covers the orders of summation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the RoIAlign backward kernel has no CPU mode")
     rng = np.random.RandomState(7)
@@ -308,8 +391,11 @@ def test_roi_align_backward_kernel_matches_plain_on_gpu():
         tol = 1e-5 * max(1.0, max(float(w.abs().max()) for w in want))
         for a, b in zip(got, want):
             assert a.shape == b.shape and float((a - b).abs().max()) <= tol
+            assert a.is_contiguous()
+        again = multilevel_roi_align_backward(g, rois, levels, STRIDES, sizes)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         through = torch.autograd.grad(pool_rois_multilevel(feats, rois, STRIDES), feats, g)
-        assert multilevel_roi_align_backward.launches == launches + 2
+        assert multilevel_roi_align_backward.launches == launches + 3  # got, again, through
         plain = multilevel_roi_align_plain(feats, rois, levels, STRIDES)
         for a, b in zip(through, torch.autograd.grad(plain, feats, g)):
             assert a.shape == b.shape and float((a - b).abs().max()) <= tol
@@ -346,3 +432,38 @@ def test_roi_align_kernel_edges_off_the_slab_and_strided_on_gpu():
         assert got.shape == want.shape and float((got - want).abs().max()) <= tol, (feats[0].shape, size)
     with pytest.raises(ValueError, match="bins across"):
         multilevel_roi_align(cases[0][0], rois, levels, STRIDES, (7, 9))
+
+
+@pytest.mark.cuda
+def test_roi_align_backward_kernel_edges_on_gpu():
+    """The backward kernel off its fast paths: C off the 32-channel slab and
+    not a multiple of 4 (g copied 4 bytes at a time), g at an odd offset, an
+    8x8 and a 14x3 pooled output, no RoI at all, and RoIs on the edges of
+    tiles at a level wider than one tile; against the plain backward, dF
+    NCHW-contiguous and a second run bit-equal; pw > 8 refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the RoIAlign backward kernel has no CPU mode")
+    rng = np.random.RandomState(9)
+    img = 512
+    sizes = [(img // s, img // s) for s in STRIDES]
+    edges = torch.from_numpy(np.concatenate([_edge_rois(img), _tile_edge_rois(rng) * 4], 1)).cuda()
+    cases = [(edges, 100, (7, 7)), (edges, 6, (7, 7)), (edges, 65, (8, 8)), (edges, 16, (14, 3)),
+             (edges[:, :0], 32, (7, 7)), (torch.from_numpy(_random_rois(rng, 300, img=img)).cuda(), 64, (7, 7))]
+    for i, (rois, c, (ph, pw)) in enumerate(cases):
+        levels = roi_level_assignment(rois, 2, 5)
+        g = torch.from_numpy(rng.randn(B, rois.shape[1], ph, pw, c).astype(np.float32)).cuda()
+        if i == 0:  # at an odd offset of its storage: no 16-byte copies
+            g = torch.cat([torch.zeros(1, device="cuda"), g.flatten()])[1:].view(g.shape)
+        launches = multilevel_roi_align_backward.launches
+        got = multilevel_roi_align_backward(g, rois, levels, STRIDES, sizes)
+        torch.cuda.synchronize()
+        assert multilevel_roi_align_backward.launches == launches + 1
+        want = multilevel_roi_align_backward_plain(g, rois, levels, STRIDES, sizes)
+        tol = ROI_BWD_RTOL * max(1.0, max(float(w.abs().max()) for w in want))
+        again = multilevel_roi_align_backward(g, rois, levels, STRIDES, sizes)
+        for a, b, r in zip(got, want, again):
+            assert a.shape == b.shape and a.is_contiguous() and float((a - b).abs().max()) <= tol, (i, c, ph, pw)
+            assert torch.equal(a, r), (i, c, ph, pw)
+    with pytest.raises(ValueError, match="bins across"):
+        multilevel_roi_align_backward(torch.zeros(B, 4, 7, 9, 8, device="cuda"), edges[:, :4],
+                                      roi_level_assignment(edges[:, :4], 2, 5), STRIDES, sizes)
