@@ -15,8 +15,9 @@ import torch.nn.functional as F
 from basedet_tpu_torch.layers.common.function import first_argmax, topk_scores
 from basedet_tpu_torch.layers.common.sampling import sample_mask
 from basedet_tpu_torch.layers.losses import smooth_l1_loss
+from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import gather_rows
-from basedet_tpu_torch.structures import BoxCoder, box_iou
+from basedet_tpu_torch.structures import BoxCoder
 
 
 class RCNNPredictor(nn.Module):

@@ -15,8 +15,9 @@ from basedet_tpu_torch.layers.common.function import topk_scores
 from basedet_tpu_torch.layers.common.matcher import Matcher
 from basedet_tpu_torch.layers.common.sampling import sample_mask
 from basedet_tpu_torch.layers.losses import binary_cross_entropy, smooth_l1_loss
+from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, batched_nms_padded, gather_rows
-from basedet_tpu_torch.structures import BoxCoder, box_iou, clip_boxes, nonempty_mask
+from basedet_tpu_torch.structures import BoxCoder, clip_boxes, nonempty_mask
 
 
 class RPNHead(nn.Module):
@@ -91,7 +92,7 @@ def rpn_ground_truth(
     quota per image that depends on its positives."""
     K = gt.shape[1]
     gt_valid = torch.arange(K, device=gt.device)[None, :] < num_valid[:, None]
-    overlaps = box_iou(gt[..., :4], anchors[None])  # (B, K, R)
+    overlaps = box_iou(gt[..., :4], anchors)  # (B, K, R), the anchors shared by every image
     match_idx, labels = matcher(overlaps, gt_valid)
     offsets = box_coder.encode(anchors[None], gather_rows(gt[..., :4], match_idx))
     offsets = torch.where((labels == 1)[..., None], offsets, 0.0)

@@ -25,8 +25,9 @@ from basedet_tpu_torch.layers.head.yolo_head import YOLOXHead
 from basedet_tpu_torch.layers.losses import binary_cross_entropy, iou_loss, smooth_l1_loss
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.csp_darknet import CSPDarknet
+from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
-from basedet_tpu_torch.structures import box_iou, convert_boxes
+from basedet_tpu_torch.structures import convert_boxes
 from basedet_tpu_torch.utils.registry import registers
 
 

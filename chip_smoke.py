@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of basedet_tpu_torch on one NVIDIA GPU:
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent-iou IOU_CU]
 
 Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
@@ -43,18 +43,23 @@ Run from the root of the repository. Phases, each of which raises on failure:
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
-     the matching kernel ran once per step and its plain version never, the
-     losses are finite and the checkpoints written; then hold the kernel to
-     its plain version on the cost and ious of the run's first step;
+     the matching kernel and the IoU kernel (SimOTA's) ran once per step and
+     their plain versions never, the losses are finite and the checkpoints
+     written; then hold the matching kernel to its plain version on the cost
+     and ious of the run's first step; keep that step's IoU arguments;
   6. drive the eval slice through its entry point: det_test on det_train's
      dumped weights over 8 requests of one 640x640 image, checking the NMS
-     kernel ran, the plain version did not, and NMS suppressed;
+     kernel ran, the plain version did not, and NMS suppressed; here and on
+     every det_test below the IoU kernel and its plain version run 0 times;
   7. hold the card's inference to a CPU run of the same weights and image;
   8. hold one train step on the card to one on the CPU, same weights and
      batch of 2 at 640x640: losses, foreground anchors, gradient norm, BN
      statistics;
   9. time YOLOX-S f32 inference at batch 1 and batch 32, and one f32 train
-     step at batch 8 of 640x640 split into its parts, with peak memory;
+     step at batch 8 of 640x640 split into its parts, with peak memory; then
+     the assignment and the step with their IoU through the kernel and
+     through the plain version (before the routing), in turns, each with its
+     peak memory;
   9a. hold the fused 1x1-GEMM + BN-statistics kernels, forward and backward,
      to their plain versions on the 36 fused calls of a bf16 YOLOX-S train
      forward at batch 8 of 640x640 (every distinct shape, real activations)
@@ -77,8 +82,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
      time on the same calls in order;
   9b. det_train --amp TRAINER.AMP.FUSED_BN True on full-width YOLOX-S, 4
      steps of 8 images (832x832 after the multiscale resize): 36 forward and
-     36 backward fused launches per step, the matching kernel once, plain
-     versions never; then the kernels held to their plain versions, within
+     36 backward fused launches per step, the matching and IoU kernels once,
+     plain versions never; then the kernels held to their plain versions, within
      FUSED_SUM_RTOL, on the first backward call of each distinct 832x832
      shape, with the inputs and cotangents the step gave it; then det_test
      on its dumped_model.pt, in f32;
@@ -99,7 +104,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
  11. Faster R-CNN R50-FPN (full width, random weights from a seed with the
      frozen BN statistics, affine and biases spread) through det_train:
      batch 2 of 800x1333, 4 steps; check that per step the RoIAlign forward
-     kernel, its backward kernel and the NMS kernel each ran once and the
+     kernel, its backward kernel and the NMS kernel each ran once, the IoU
+     kernel twice (RPN targets, R-CNN sampling; their arguments kept) and the
      plain versions never, that the losses are finite and that the sampled
      RoIs landed on every level P2-P5; then det_test on its dumped weights
      over 8 requests of one 800x1333 image: the RoIAlign kernel 8 times, the
@@ -118,7 +124,9 @@ Run from the root of the repository. Phases, each of which raises on failure:
      RoIAlign backward on the step's own g (events and device time), then one
      backward under the profiler: the copies and adds on a dF-sized tensor
      after it and the NHWC kernels (convolution gradients, layout
-     conversions) the backward runs;
+     conversions) the backward runs; the RPN targets, the R-CNN sampling and
+     the step with their IoUs through the kernel and through the plain
+     version, as in phase 9;
  14. CenterNet R50-DCNv2 (full width, random weights from a seed with BN,
      biases and the DCN offset branches spread) through det_train: batch 16
      of 512x512, 4 steps; check that the scatter kernel ran three times per
@@ -146,12 +154,18 @@ Run from the root of the repository. Phases, each of which raises on failure:
      padded gts x 201,600 anchors per image) and its plain version never,
      the losses are finite, every step has foreground and ignored anchors
      and the run low-quality matches; keep the IoU calls' arguments;
- 20. hold the IoU kernel to its plain version, max |diff| 0, on the first
-     step's own gts and anchors, at Faster R-CNN's RPN shape (2, 100,
-     268569), SimOTA's (8, 100, 8400), the 2-D (300, 130) and on edge cases
-     (zero-area, inverted, identical, touching and disjoint boxes,
-     coordinates up to 1e4, M = 1, N off the block); time both at the four
-     shapes beside the bound;
+ 20. hold the IoU kernel to its plain version bit for bit (the sign of zero
+     included), two runs bit-equal, on the first step's own arguments of
+     each main path (RetinaNet's gts and anchors, Faster R-CNN's RPN targets
+     and R-CNN sampling, YOLOX's SimOTA at 832x832), on 100 gts of COCO-like
+     sizes per image against the RPN's anchors, on a case where every pair
+     overlaps, the 2-D (300, 130) and on edge cases (zero-area, inverted,
+     identical, touching and disjoint boxes, coordinates up to 1e4, M = 1, N
+     off the block, -0.0 coordinates, every pair overlapping); time each of
+     the first seven by device time (profiler) and events beside the plain
+     version, the bound and the share of pairs computed in full; with
+     --parent-iou, another tree's csrc/iou.cu is built and timed beside, in
+     turns (parent, change, change, parent);
  21. det_test on its dumped weights over 8 requests of one 800x1333 image:
      the NMS kernel 8 times at K = 5000, its plain version never, NMS
      suppressing, detections on every request;
@@ -164,8 +178,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
      memory; after the other models' timing, its inference at batch 1 and
      8 (network, per-level top-1000 + decode, NMS + rescale); with
      --profile, a profiler pass over the train step;
- 24. print the kernel report (eight kernels in six sources), the card, and
-     the result line.
+ 24. print the kernel report (eight kernels in six sources; the IoU's
+     launches path by path), the card, and the result line.
 """
 import argparse
 import concurrent.futures
@@ -637,6 +651,28 @@ def nms_counts():
                      lambda args, keep: list(zip(args[1].sum(1).tolist(), keep.sum(1).tolist())))
 
 
+IOU_COUNTS = {}  # main path -> (IoU kernel launches, plain IoU calls) in its run
+
+
+@contextlib.contextmanager
+def iou_counted(path):
+    """Zero kernel #10's launch count and its plain version's call count just before the body (a
+    main path's run) and keep both, read just after, under ``path``."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+
+    box_iou.launches, box_iou_plain.calls = 0, 0
+    yield
+    IOU_COUNTS[path] = (box_iou.launches, box_iou_plain.calls)
+
+
+def check_iou_counts(path, expected):
+    """The IoU kernel launched ``expected`` times on ``path`` and its plain version never."""
+    launches, plain = IOU_COUNTS[path]
+    check(launches == expected, f"{path}: the IoU kernel launched {launches} times, not {expected}")
+    check(plain == 0, f"{path}: the plain IoU ran {plain} times on the main path")
+    return f"IoU kernel launches {launches}, plain calls {plain}"
+
+
 def _kept_range(calls):
     seen = [pair for call in calls for pair in call]
     kept = [k for _, k in seen]
@@ -670,8 +706,11 @@ def _train_opts(out_dir, weights):
 
 def phase_train(out_dir, weights):
     """det_train on full-width YOLOX-S, 4 steps of 8 images; the matching
-    counts are zeroed just before and read just after."""
+    and IoU counts are zeroed just before and read just after. Returns the
+    matching launches, the dumped weights and the first step's SimOTA IoU
+    arguments (gts, predicted boxes)."""
     from basedet_tpu_torch.layers.common import matcher
+    from basedet_tpu_torch.models.det import yolox
     from basedet_tpu_torch.models.det.yolox import YOLOX
     from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching, dynamic_k_matching_plain
     from basedet_tpu_torch.tools import det_train
@@ -679,7 +718,9 @@ def phase_train(out_dir, weights):
     keep_inputs = lambda args, out: [a.clone() for a in args[:3]]
     keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
     with recording(matcher, "dynamic_k_matching", keep_inputs) as matched, \
-            recording(YOLOX, "get_losses", keep_losses) as losses:
+            recording(YOLOX, "get_losses", keep_losses) as losses, \
+            recording(yolox, "box_iou", lambda args, out: tuple(a.clone() for a in args)) as iou_calls, \
+            iou_counted("YOLOX-S det_train"):
         dynamic_k_matching.launches, dynamic_k_matching_plain.calls = 0, 0
         t0 = time.perf_counter()
         trainer = det_train.main(["-f", CONFIG, "--device", "cuda", *_train_opts(out_dir, weights)])
@@ -692,6 +733,7 @@ def phase_train(out_dir, weights):
     check(steps == 4 and len(losses) == 4, f"det_train took {steps} steps, not 4")
     check(launches == steps, f"the matching kernel launched {launches} times in {steps} steps")
     check(plain_calls == 0, f"the plain matching ran {plain_calls} times on the main path")
+    iou = check_iou_counts("YOLOX-S det_train", steps)
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
     for name in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
         check(os.path.exists(os.path.join(ckpt, name)), f"det_train wrote no {name}")
@@ -701,17 +743,18 @@ def phase_train(out_dir, weights):
                          for step in losses)
     log(f"[train] det_train YOLOX-S, 4 steps of 8 images 640x640 resized to {size}x{size} "
         f"(multiscale, RandomState(step // 10)), f32, in {seconds:.2f} s; matching kernel launches "
-        f"{launches}, plain calls {plain_calls}; lr {trainer.meters['lr'].latest:.4g} = the floor and "
+        f"{launches}, plain calls {plain_calls}; SimOTA's {iou} at {tuple(iou_calls[0][0].shape)} x "
+        f"{tuple(iou_calls[0][1].shape)}; lr {trainer.meters['lr'].latest:.4g} = the floor and "
         f"L1 on: a 1-epoch run lies wholly in the 15-epoch no-aug tail; losses per step: {per_step}; "
         f"checkpoints latest.pt, epoch_1.pt, dumped_model.pt written")
     for i, (cost, ious, valid) in enumerate(matched):
         _check_matching(f"train step {i + 1}", cost, ious, valid)
-    return launches, os.path.join(ckpt, "dumped_model.pt")
+    return launches, os.path.join(ckpt, "dumped_model.pt"), iou_calls[0]
 
 
-def phase_slice(out_dir, cfg, weights):
-    """det_test on 8 requests; the NMS counts are zeroed just before and
-    read just after."""
+def phase_slice(out_dir, cfg, weights, path="YOLOX-S det_test"):
+    """det_test on 8 requests; the NMS and IoU counts are zeroed just before
+    and read just after (it reaches no IoU)."""
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from basedet_tpu_torch.tools import det_test
 
@@ -719,7 +762,7 @@ def phase_slice(out_dir, cfg, weights):
             "GLOBAL.OUTPUT_DIR", out_dir]
     nms_keep.launches, nms_keep_plain.calls = 0, 0
     t0 = time.perf_counter()
-    with nms_counts() as seen:
+    with nms_counts() as seen, iou_counted(path):
         results = det_test.main(["-f", CONFIG, "-w", weights, "--device", "cuda", *opts])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -733,10 +776,11 @@ def phase_slice(out_dir, cfg, weights):
     check(launches > 0, "the NMS kernel was never launched on the main path")
     check(plain_calls == 0, f"the plain NMS ran {plain_calls} times on the main path")
     check(any(k < v for call in seen for v, k in call), "NMS suppressed nothing on the main path")
+    iou = check_iou_counts(path, 0)
     log(f"[slice] det_test YOLOX-S (depth {cfg.MODEL.DEPTH_FACTOR}, width {cfg.MODEL.WIDTH_FACTOR}, "
         f"{cfg.DATA.NUM_CLASSES} classes) with det_train's {os.path.basename(weights)} on 8 requests "
         f"of 640x640: {results}, {len(records)} finite detections in {seconds:.2f} s; "
-        f"NMS kernel launches {launches}, plain calls {plain_calls}; "
+        f"NMS kernel launches {launches}, plain calls {plain_calls}; {iou}; "
         f"NMS kept per image {_kept_range(seen)}")
     return launches
 
@@ -831,6 +875,44 @@ def phase_train_vs_cpu(weights):
 AMP_LABELS = {None: "f32", "bf16": "bf16, fused chain off", "fused": "bf16, fused chain on"}
 
 
+@contextlib.contextmanager
+def plain_iou_callers():
+    """RPN targets, R-CNN sampling and SimOTA calling the plain IoU on the card, as they did before
+    they went through kernel #10: the routing's "before", for timing."""
+    from basedet_tpu_torch.layers.head import rcnn
+    from basedet_tpu_torch.models.det import rpn, yolox
+    from basedet_tpu_torch.ops.iou_kernel import box_iou_plain
+
+    modules = (rpn, rcnn, yolox)
+    saved = [m.box_iou for m in modules]
+    for m in modules:
+        m.box_iou = box_iou_plain
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.box_iou = fn
+
+
+def routing_timing(label, card, **runs):
+    """Each of ``runs`` (a train step, or a stage of it that calls the IoU) with its IoUs through
+    kernel #10 and through the plain version (the routing's before), in turns (kernel, plain,
+    plain, kernel): means of 10 runs each (events), and the peak memory of each
+    (torch.cuda.max_memory_allocated)."""
+    for name, run in runs.items():
+        times, peaks = {"kernel": [], "plain": []}, {"kernel": 0, "plain": 0}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            with plain_iou_callers() if which == "plain" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times[which].append(cuda_ms(run, reps=10, warmup=2))
+                peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
+        span = {k: f"{min(v):.3f}-{max(v):.3f}" for k, v in times.items()}
+        log(f"[routing] {label}, {name}: IoU through the kernel {span['kernel']} ms, peak "
+            f"{peaks['kernel'] / 2**30:.3f} GiB; through the plain version on the card (before the routing) "
+            f"{span['plain']} ms, peak {peaks['plain'] / 2**30:.3f} GiB; kernel, plain, plain, kernel | {card}")
+
+
 def phase_train_timing(weights, card, amp=None, fused_step=None):
     """One train step at batch 8 of 640x640 (input already on the card,
     multiscale pinned), f32 or under the bf16 policy with the fused chain off
@@ -885,6 +967,9 @@ def phase_train_timing(weights, card, amp=None, fused_step=None):
         f"{t_fb - t_loss:.3f} ms, SGD+EMA {t_step - t_fb:.3f} ms (parts are differences of means "
         f"of 10 runs each){share}; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
+    if amp is None:
+        routing_timing("YOLOX-S f32 train step, batch 8 of 640x640", card,
+                       assignment=lambda: model.assign(*assigned[0]), step=lambda: step(state, batch))
     return t_step, lambda: step(state, batch)
 
 
@@ -1340,7 +1425,7 @@ def phase_train_amp(out_dir, weights):
     keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
     with recording(YOLOX, "get_losses", keep_losses) as losses, \
             recording(csp_fused, "fused_gemm_stats", lambda args, out: _fused_signature(args[0])[1]) as rows, \
-            fused_backward_calls(first_per_shape=True) as backward:
+            fused_backward_calls(first_per_shape=True) as backward, iou_counted("YOLOX-S det_train --amp"):
         for fn in kernels:
             fn.launches = 0
         for fn in plains:
@@ -1358,6 +1443,7 @@ def phase_train_amp(out_dir, weights):
     check(launches == [36 * steps, 36 * steps, steps],
           f"fused forward, fused backward and matching kernels launched {launches} times in {steps} steps")
     check(plain_calls == [0, 0, 0], f"plain versions ran {plain_calls} times on the main path")
+    iou = check_iou_counts("YOLOX-S det_train --amp", steps)
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
     check(compute_dtype() is None, "the bf16 policy outlived the train step")
     check(all(p.dtype == torch.float32 for p in trainer.model.module.parameters()), "parameters left f32")
@@ -1369,7 +1455,8 @@ def phase_train_amp(out_dir, weights):
     log(f"[amp-train] det_train --amp TRAINER.AMP.FUSED_BN True, YOLOX-S, 4 steps of 8 images 640x640 "
         f"resized to {size}x{size}, bf16 policy, in {seconds:.2f} s; launches: fused forward {launches[0]}, "
         f"fused backward {launches[1]} (36 per step, the first on {rows[0]} rows), matching {launches[2]}; "
-        f"plain calls {plain_calls}; losses per step: {per_step}; checkpoints written")
+        f"plain calls {plain_calls}; SimOTA's {iou} (f32 inputs under the bf16 policy); losses per step: "
+        f"{per_step}; checkpoints written")
     rows_832 = {8 * (size // stride) ** 2 for stride in (4, 8, 16, 32)}  # the CSP layers' strides
     check(len(backward) == launches[1] and {sig[1] for sig, _, _ in backward} == rows_832,
           f"the fused backward calls have shapes {[sig for sig, _, _ in backward]}")
@@ -1815,8 +1902,12 @@ def _frcnn_train_opts(out_dir, weights):
 
 def phase_frcnn_train(out_dir, weights):
     """det_train on full-width Faster R-CNN, 4 steps of 2 images of 800x1333;
-    the RoIAlign (forward and backward) and NMS counts are zeroed just before
-    and read just after."""
+    the RoIAlign (forward and backward), NMS and IoU counts are zeroed just
+    before and read just after (the IoU twice a step: RPN targets and R-CNN
+    sampling). Returns the launches, the dumped weights and the first step's
+    two IoU calls' arguments."""
+    from basedet_tpu_torch.layers.head import rcnn
+    from basedet_tpu_torch.models.det import rpn
     from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNN, FasterRCNNModule
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from basedet_tpu_torch.ops.roi_align import (multilevel_roi_align_backward_plain,
@@ -1833,8 +1924,11 @@ def phase_frcnn_train(out_dir, weights):
     keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
     kernels = (multilevel_roi_align, multilevel_roi_align_backward, nms_keep)
     plains = (multilevel_roi_align_plain, multilevel_roi_align_backward_plain, nms_keep_plain)
+    keep_args = lambda args, out: tuple(a.clone() for a in args)
     with recording(FasterRCNNModule, "sample", sampled) as samples, \
-            recording(FasterRCNN, "get_losses", keep_losses) as losses, nms_counts() as seen:
+            recording(FasterRCNN, "get_losses", keep_losses) as losses, nms_counts() as seen, \
+            recording(rpn, "box_iou", keep_args) as rpn_iou, recording(rcnn, "box_iou", keep_args) as rcnn_iou, \
+            iou_counted("Faster R-CNN det_train"):
         for fn in kernels:
             fn.launches = 0
         for fn in plains:
@@ -1853,6 +1947,11 @@ def phase_frcnn_train(out_dir, weights):
     check(launches == [steps] * 3, f"RoIAlign forward, backward and NMS kernels launched {launches} "
                                    f"times in {steps} steps")
     check(plain_calls == [0, 0, 0], f"plain versions ran {plain_calls} times on the main path")
+    iou = check_iou_counts("Faster R-CNN det_train", 2 * steps)
+    check(len(rpn_iou) == len(rcnn_iou) == steps, f"{len(rpn_iou)} RPN and {len(rcnn_iou)} R-CNN IoU calls "
+                                                   f"in {steps} steps")
+    check(tuple(rpn_iou[0][0].shape) == (FRCNN_TRAIN_B, 100, 4) and tuple(rpn_iou[0][1].shape) == (FRCNN_ANCHORS, 4),
+          f"the RPN's IoU took {[tuple(a.shape) for a in rpn_iou[0]]}, not the full-width shapes")
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
     check(all(len(step) == 5 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
     # the synthetic gt boxes reach P3 and P4 (sqrt(area) up to ~410 px) and an untrained RPN's best
@@ -1868,16 +1967,19 @@ def phase_frcnn_train(out_dir, weights):
     log(f"[frcnn-train] det_train Faster R-CNN R50-FPN, 4 steps of {FRCNN_TRAIN_B} images "
         f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} (padded 800x1344), f32, in {seconds:.2f} s; kernel launches: "
         f"RoIAlign forward {launches[0]}, RoIAlign backward {launches[1]}, NMS {launches[2]}; plain calls "
-        f"{plain_calls}; lr {trainer.meters['lr'].latest:.4g} (step 3 of the 500-step warm-up); losses per "
-        f"step: {per_step}; sampled per step (foreground, background of {FRCNN_TRAIN_B * FRCNN_TRAIN_R} "
+        f"{plain_calls}; {iou} (RPN targets at {tuple(rpn_iou[0][0].shape)} x {tuple(rpn_iou[0][1].shape)}, "
+        f"R-CNN sampling at {tuple(rcnn_iou[0][0].shape)} x {tuple(rcnn_iou[0][1].shape)}); lr "
+        f"{trainer.meters['lr'].latest:.4g} (step 3 of the 500-step warm-up); losses per step: {per_step}; "
+        f"sampled per step (foreground, background of {FRCNN_TRAIN_B * FRCNN_TRAIN_R} "
         f"rows): {[s[:2] for s in samples]}; sampled RoIs per level P2-P5 over the 4 steps {per_level}; "
         f"RPN NMS kept per image {_kept_range(seen)}; checkpoints latest.pt, epoch_1.pt, dumped_model.pt written")
-    return launches, os.path.join(ckpt, "dumped_model.pt")
+    return launches, os.path.join(ckpt, "dumped_model.pt"), {"rpn": rpn_iou[0], "rcnn": rcnn_iou[0]}
 
 
 def phase_frcnn_slice(out_dir, weights):
-    """det_test on full-width Faster R-CNN over 8 requests; the RoIAlign and
-    NMS counts are zeroed just before and read just after."""
+    """det_test on full-width Faster R-CNN over 8 requests; the RoIAlign,
+    NMS and IoU counts are zeroed just before and read just after (it reaches
+    no IoU)."""
     from basedet_tpu_torch.models.det import faster_rcnn
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
@@ -1894,7 +1996,7 @@ def phase_frcnn_slice(out_dir, weights):
     nms_keep.launches, nms_keep_plain.calls = 0, 0
     t0 = time.perf_counter()
     with recording(faster_rcnn, "pool_rois_multilevel", level_counts) as levels, \
-            nms_counts() as seen:
+            nms_counts() as seen, iou_counted("Faster R-CNN det_test"):
         results = det_test.main(["-f", FRCNN_CONFIG, "-w", weights, "--device", "cuda",
                                  *_frcnn_opts(out_dir)])
     torch.cuda.synchronize()
@@ -1912,6 +2014,7 @@ def phase_frcnn_slice(out_dir, weights):
     check(roi_plain == 0, f"the plain RoIAlign ran {roi_plain} times on the main path")
     check(nms_launches == 16, f"the NMS kernel launched {nms_launches} times for 8 requests")
     check(nms_plain == 0, f"the plain NMS ran {nms_plain} times on the main path")
+    check_iou_counts("Faster R-CNN det_test", 0)
     check(all(n > 0 for n in per_level), f"RoIs per level P2-P5 {per_level}: a level got none")
     rpn, final = seen[0::2], seen[1::2]
     log(f"[frcnn] det_test Faster R-CNN R50-FPN with {os.path.basename(weights)} on 8 requests of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
@@ -2176,6 +2279,11 @@ def phase_frcnn_train_timing(weights, card):
         proposals, valid, gt, num_gt, noise["rcnn_fg"], noise["rcnn_bg"], noise["rcnn_tie"]))
     t_pool, pooled = timed(lambda: m.pool(feats, rois))
     t_head, _ = timed(lambda: m.head_losses(pooled, roi_labels, targets, weights))
+    label = f"Faster R-CNN R50-FPN f32 train step, batch {FRCNN_TRAIN_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}"
+    routing_timing(label, card, rpn_targets=lambda: m.rpn_targets(feats, gt, num_gt, noise["rpn_pos"],
+                                                                  noise["rpn_neg"]),
+                   sampling=lambda: m.sample(proposals, valid, gt, num_gt, noise["rcnn_fg"], noise["rcnn_bg"],
+                                             noise["rcnn_tie"]))
     del feats, rpn_out, pooled
 
     def losses_backward():
@@ -2201,6 +2309,7 @@ def phase_frcnn_train_timing(weights, card):
         f"step's own g, {nonzero:.3f} of it nonzero), SGD {t_step - t_fb:.3f} ms (differences of means "
         f"of {reps} runs of nested prefixes); peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
+    routing_timing(label, card, step=lambda: step(state, batch))
 
 
 def phase_frcnn_timing(model, card):
@@ -2342,8 +2451,8 @@ def make_cnet_weights(out_dir):
 
 
 def phase_cnet_train(out_dir, weights):
-    """det_train on full-width CenterNet, 4 steps of 16 images of 512x512; the scatter counts are
-    zeroed just before and read just after. Keeps the first step's three scatter calls (the
+    """det_train on full-width CenterNet, 4 steps of 16 images of 512x512; the scatter and IoU counts
+    are zeroed just before and read just after (it reaches no IoU). Keeps the first step's three scatter calls (the
     gather's row ids and, on the way back, its cotangent) and its sampling statistics."""
     from basedet_tpu_torch.layers.blocks import deformable
     from basedet_tpu_torch.models.det.centernet import CenterNet
@@ -2368,7 +2477,7 @@ def phase_cnet_train(out_dir, weights):
     keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
     with recording(CenterNet, "get_losses", keep_losses) as losses, \
             recording(deformable, "gather_rows_batched", keep_gather), \
-            recording(deformable, "bilinear_sample_batched", sampling) as taps:
+            recording(deformable, "bilinear_sample_batched", sampling) as taps, iou_counted("CenterNet det_train"):
         scatter_rows.launches, scatter_rows_plain.calls = 0, 0
         t0 = time.perf_counter()
         trainer = det_train.main(["-f", CNET_CONFIG, "--device", "cuda", *_cnet_train_opts(out_dir, weights)])
@@ -2381,6 +2490,7 @@ def phase_cnet_train(out_dir, weights):
     check(steps == 4 and len(losses) == 4, f"CenterNet det_train took {steps} steps, not 4")
     check(launches == 3 * steps, f"the scatter kernel launched {launches} times in {steps} steps, not 3 each")
     check(plain_calls == 0, f"the plain scatter ran {plain_calls} times on the main path")
+    check_iou_counts("CenterNet det_train", 0)
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
     check(all(len(step) == 4 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
     check(len(kept) == 3 and all("values" in e for e in kept), "the first step's scatter calls were not seen")
@@ -2465,7 +2575,8 @@ def phase_cnet_slice(out_dir, weights):
     from basedet_tpu_torch.tools import det_test
 
     t0 = time.perf_counter()
-    results = det_test.main(["-f", CNET_CONFIG, "-w", weights, "--device", "cuda", *_cnet_opts(out_dir)])
+    with iou_counted("CenterNet det_test"):
+        results = det_test.main(["-f", CNET_CONFIG, "-w", weights, "--device", "cuda", *_cnet_opts(out_dir)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     with open(os.path.join(out_dir, "predict_coco.json")) as f:
@@ -2473,8 +2584,9 @@ def phase_cnet_slice(out_dir, weights):
     check(len(records) >= 1, "CenterNet det_test gave no detections")
     check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), "non-finite detections")
     check({r["image_id"] for r in records} == set(range(8)), "not every request was answered")
+    iou = check_iou_counts("CenterNet det_test", 0)
     log(f"[cnet] det_test CenterNet R50-DCNv2 with {os.path.basename(weights)} on 8 requests of "
-        f"{CNET_IMAGE[0]}x{CNET_IMAGE[1]}: {results}, {len(records)} finite detections in {seconds:.2f} s")
+        f"{CNET_IMAGE[0]}x{CNET_IMAGE[1]}: {results}, {len(records)} finite detections in {seconds:.2f} s; {iou}")
 
 
 def _cnet_train_setup(weights, device, batch):
@@ -2620,10 +2732,23 @@ def _iou_boxes(rng, shape, size=200.0):
     return torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
 
 
+def _overlapping(rng, shape, centre, reach):
+    """xyxy f32 boxes of ``shape`` (..., 4) that all contain the point ``centre``: each side lies 1
+    to ``reach`` from it, so every pair of them intersects and the kernel's skip never fires."""
+    d = rng.uniform(1, reach, shape)
+    cx, cy = centre
+    return torch.from_numpy(np.stack([cx - d[..., 0], cy - d[..., 1], cx + d[..., 2], cy + d[..., 3]],
+                                     -1).astype(np.float32))
+
+
 def iou_edges(rng):
     """Edge cases of kernel #10, on the CPU: name -> (boxes1, boxes2). The special boxes meet each
     other in zero-area, inverted (union <= 0), identical (IoU exactly 1), touching-edge and disjoint
-    pairs, and at coordinates up to 1e4."""
+    pairs, and at coordinates up to 1e4. Then -0.0 coordinates, where a difference is exactly -0.0
+    and the plain version's zero takes its sign from max(-0.0, 0) (+0.0 on the H100, -0.0 in
+    PyTorch on the CPU; the kernel never skips a row or strip that holds one), among zero-padded
+    rows that the skip takes in the strip without one; and a set in which every pair overlaps (no
+    skip at all)."""
     special = torch.tensor([
         [10, 10, 10, 30],  # zero width
         [10, 10, 30, 10],  # zero height
@@ -2639,12 +2764,24 @@ def iou_edges(rng):
         [1234.5, 9000, 9876.25, 9999.75],
     ], dtype=torch.float32)
     mixed = torch.cat([special, _iou_boxes(rng, (20, 4))])
+    neg0 = torch.tensor([
+        [0, 0, 10, -0.0],  # against [0, 0, 10, 10]: ih = max(-0.0 - 0, 0), union 100, IoU a zero
+        [0, 0, -0.0, 10],  # the same in x
+        [-0.0, -0.0, 10, 10],  # max(-0.0, 0) on the left of each difference
+        [0, 0, 10, 10],
+    ], dtype=torch.float32)
+    rows = torch.cat([neg0, torch.zeros(12, 4), _iou_boxes(rng, (24, 4))])  # -0.0 in 3 rows, 12 gt padding rows
     return {
         "zero-area, inverted, identical, touching, disjoint, 1e4 (2, 32) x (1030,)":
             (torch.stack([mixed, mixed.flip(0)]), torch.cat([special, _iou_boxes(rng, (1018, 4), 1e4)])),
         "M = 1, N = 4097 (off the block and off 4)": (_iou_boxes(rng, (1, 4)), _iou_boxes(rng, (4097, 4))),
         "boxes2 per image (3, 17) x (3, 1021)": (_iou_boxes(rng, (3, 17, 4)), _iou_boxes(rng, (3, 1021, 4))),
         "one set against itself (257,) x (257,)": (mixed.repeat(9, 1)[:257], mixed.repeat(9, 1)[:257]),
+        "-0.0 coordinates among zero rows (2, 40) x (300,)":
+            (torch.stack([rows, rows.flip(0)]), torch.cat([neg0, _iou_boxes(rng, (124, 4)), neg0.flip(0),
+                                                            _iou_boxes(rng, (168, 4))])),
+        "dense: every pair overlaps (2, 37) x (2, 515)":
+            (_overlapping(rng, (2, 37, 4), (100.0, 100.0), 90.0), _overlapping(rng, (2, 515, 4), (100.0, 100.0), 90.0)),
     }
 
 
@@ -2742,7 +2879,6 @@ def phase_retina_train(out_dir, weights):
     from basedet_tpu_torch.layers.common.matcher import Matcher
     from basedet_tpu_torch.models.det import retinanet
     from basedet_tpu_torch.models.det.retinanet import RetinaNet
-    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
     from basedet_tpu_torch.tools import det_train
 
     def assigned(args, out):  # foreground, ignored, the low-quality rule's picks and those under the threshold
@@ -2751,19 +2887,16 @@ def phase_retina_train(out_dir, weights):
     keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
     with recording(retinanet, "box_iou", lambda args, out: tuple(a.clone() for a in args)) as iou_calls, \
             recording(Matcher, "__call__", assigned) as assignments, \
-            recording(RetinaNet, "get_losses", keep_losses) as losses:
-        box_iou.launches, box_iou_plain.calls = 0, 0
+            recording(RetinaNet, "get_losses", keep_losses) as losses, iou_counted("RetinaNet det_train"):
         t0 = time.perf_counter()
         trainer = det_train.main(["-f", RETINA_CONFIG, "--device", "cuda", *_retina_train_opts(out_dir, weights)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches, plain_calls = box_iou.launches, box_iou_plain.calls
 
     steps = trainer.state.step
     ckpt = os.path.join(out_dir, "retina_ckpt")
     check(steps == 4 and len(losses) == 4, f"RetinaNet det_train took {steps} steps, not 4")
-    check(launches == steps, f"the IoU kernel launched {launches} times in {steps} steps")
-    check(plain_calls == 0, f"the plain IoU ran {plain_calls} times on the main path")
+    iou = check_iou_counts("RetinaNet det_train", steps)
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
     check(all(len(step) == 3 and step["total_loss"] > 0 for step in losses), f"losses {losses}")
     check(len(assignments) == steps and all(fg > 0 and ign > 0 and picks > 0 for fg, ign, picks, _ in assignments),
@@ -2775,20 +2908,72 @@ def phase_retina_train(out_dir, weights):
         check(os.path.exists(os.path.join(ckpt, name)), f"RetinaNet det_train wrote no {name}")
     per_step = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items()) for step in losses)
     log(f"[retina-train] det_train RetinaNet R50-FPN, 4 steps of {RETINA_B} images {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
-        f"(padded 800x1344), f32, in {seconds:.2f} s; IoU kernel launches {launches} at {tuple(gts.shape)} x "
-        f"{tuple(anchors.shape)}, plain calls {plain_calls}; lr {trainer.meters['lr'].latest:.4g}; losses per step: "
+        f"(padded 800x1344), f32, in {seconds:.2f} s; {iou} at {tuple(gts.shape)} x {tuple(anchors.shape)}; lr "
+        f"{trainer.meters['lr'].latest:.4g}; losses per step: "
         f"{per_step}; per step (foreground, ignored, the low-quality rule's picks, those of them under the "
         f"0.5 threshold) of {RETINA_B * RETINA_ANCHORS} anchors: {assignments}; checkpoints latest.pt, epoch_1.pt, dumped_model.pt written")
-    return launches, iou_calls[0], os.path.join(ckpt, "dumped_model.pt")
+    return iou_calls[0], os.path.join(ckpt, "dumped_model.pt")
 
 
-def phase_iou_kernel(card, step_call):
-    """Kernel #10 against its plain version (max |diff| 0 required) on the first train step's own
-    gts and anchors, at Faster R-CNN's RPN shape (100 gts x 268,569 anchors per image), SimOTA's
-    (8, 100, 8400) with boxes2 per image, the 2-D (300, 130) of tests/ops/test_iou_pallas.py, and
-    the edge cases; the kernel and the plain version timed at the four shapes."""
+def _coco_like_boxes(rng, B, K, h, w):
+    """(B, K, 4) f32 gt boxes of COCO-like sizes on an h x w image: small, medium and large in
+    COCO's shares of instances (41%, 34%, 24%; sqrt(area) log-uniform in [8, 32), [32, 96) and
+    [96, 640)), aspect ratios log-uniform in [1/3, 3], centres uniform, clipped to the image."""
+    size_class = rng.choice(3, (B, K), p=[0.41, 0.34, 0.25])
+    lo, hi = np.log([8.0, 32.0, 96.0])[size_class], np.log([32.0, 96.0, 640.0])[size_class]
+    side = np.exp(rng.uniform(lo, hi))
+    aspect = np.exp(rng.uniform(np.log(1 / 3), np.log(3), (B, K)))
+    bw, bh = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    cx, cy = rng.uniform(0, w, (B, K)), rng.uniform(0, h, (B, K))
+    boxes = np.stack([np.clip(cx - bw / 2, 0, w), np.clip(cy - bh / 2, 0, h), np.clip(cx + bw / 2, 0, w),
+                      np.clip(cy + bh / 2, 0, h)], -1)
+    return torch.from_numpy(boxes.astype(np.float32))
+
+
+def parent_iou(source):
+    """Kernel #10 of another tree, built from its ``csrc/iou.cu`` with this tree's flags and called
+    through the same C entry as this tree's wrapper calls: a function of (boxes1, boxes2) on the
+    card."""
+    import ctypes
+    from pathlib import Path
+
+    from basedet_tpu_torch.ops import _build
+
+    fn = ctypes.CDLL(str(_build.build_library(Path(source).resolve())[0])).basedet_box_iou
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(boxes1, boxes2):
+        flat = boxes1.dim() == 2
+        b1, b2 = (boxes1[None] if flat else boxes1).contiguous(), boxes2.contiguous()
+        B, M, N = b1.shape[0], b1.shape[1], b2.shape[-2]
+        out = torch.empty(B, M, N, dtype=torch.float32, device=b1.device)
+        err = fn(b1.data_ptr(), b2.data_ptr(), B, M, N, N * 4 if b2.dim() == 3 else 0, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's IoU kernel failed to launch: CUDA error {err}")
+        return out[0] if flat else out
+
+    return call
+
+
+def _iou_device_ms(fn):
+    return device_ms(fn, 20, ("iou_kernel",))["iou_kernel"]
+
+
+def phase_iou_kernel(card, step_calls, parent_source=None):
+    """Kernel #10 against its plain version, bit for bit (the sign of zero included), on the main
+    paths' own arguments (``step_calls``: RetinaNet's gts and anchors, Faster R-CNN's RPN targets
+    and R-CNN sampling, YOLOX's SimOTA, each of its det_train's first step), on 100 gts of COCO-like
+    sizes per image against the RPN's anchors, on a case where every pair overlaps (the skip never
+    fires), on the 2-D (300, 130) of tests/ops/test_iou_pallas.py and on the edge cases; two runs
+    bit-equal. Each timed case: device time (profiler) and events of the kernel, the plain
+    version's events, the bound and the share of (row, strip) pairs the kernel computes in full
+    (``iou_skip_mask``). With ``parent_source`` (another tree's csrc/iou.cu), that kernel is built,
+    held to the plain version on the same cases and timed beside this one in turns (parent,
+    change, change, parent)."""
     from basedet_tpu_torch.layers.common.anchor_generator import DefaultAnchorGenerator
-    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+    from basedet_tpu_torch.ops.iou_kernel import STRIP_COLS, box_iou, box_iou_plain, iou_skip_mask
     from basedet_tpu_torch.tools import import_config
 
     rng = np.random.RandomState(SEED + 10)
@@ -2797,39 +2982,67 @@ def phase_iou_kernel(card, step_call):
                                      tuple(m.FPN.STRIDES), m.ANCHOR.OFFSET)
     rpn_anchors = torch.cat(rpn_gen([*ROI_LEVELS, (13, 21)], "cuda"))
     check(rpn_anchors.shape[0] == FRCNN_ANCHORS, f"{rpn_anchors.shape[0]} Faster R-CNN anchors")
+    h, w = FRCNN_IMAGE
     timed = {
-        "RetinaNet train step (gts, anchors)": step_call,
-        "Faster R-CNN RPN targets": (_iou_boxes(rng, (FRCNN_TRAIN_B, 100, 4), 1333.0).cuda(), rpn_anchors),
-        "SimOTA (boxes2 per image)": (_iou_boxes(rng, (MATCH_B, MATCH_K, 4), 640.0).cuda(),
-                                      _iou_boxes(rng, (MATCH_B, MATCH_M, 4), 640.0).cuda()),
+        **step_calls,
+        "COCO-like: 100 gts per image x the RPN anchors": (_coco_like_boxes(rng, FRCNN_TRAIN_B, 100, h, w).cuda(),
+                                                          rpn_anchors),
+        "dense: every pair overlaps": (_overlapping(rng, (RETINA_B, 100, 4), (w / 2, h / 2), h / 2).cuda(),
+                                       _overlapping(rng, (RETINA_ANCHORS, 4), (w / 2, h / 2), h / 2).cuda()),
         "2-D (300, 130)": (_iou_boxes(rng, (300, 4)).cuda(), _iou_boxes(rng, (130, 4)).cuda()),
     }
-    worst = 0.0
+    parent = parent_iou(parent_source) if parent_source else None
+    worst, parent_bits = 0.0, []
     cases = {**timed, **{k: (a.cuda(), b.cuda()) for k, (a, b) in iou_edges(rng).items()}}
     for name, (b1, b2) in cases.items():
         err, bits = check_iou_case(b1, b2)
+        again = box_iou(b1, b2)
+        repeat = torch.equal(again.view(torch.int32), box_iou(b1, b2).view(torch.int32))
         worst = max(worst, err)
         log(f"[iou] {name}: {tuple(b1.shape)} x {tuple(b2.shape)}: max |kernel - plain| {err:.3e}, "
-            f"bit-equal {bits}")
-        check(err == 0.0, f"IoU kernel against its plain version on {name}: max |diff| {err:.3e}")
+            f"bit-equal {bits}, two runs bit-equal {repeat}")
+        check(bits, f"IoU kernel against its plain version on {name}: not bit-equal (max |diff| {err:.3e})")
+        check(repeat, f"two runs of the IoU kernel differ on {name}")
+        if parent is not None:
+            ref = box_iou_plain(b1, b2)
+            parent_bits.append((name, torch.equal(parent(b1, b2).view(torch.int32), ref.view(torch.int32))))
     b1, _ = cases["one set against itself (257,) x (257,)"]
     proper = (b1[:, 2] > b1[:, 0]) & (b1[:, 3] > b1[:, 1])
     check(bool((box_iou(b1, b1).diagonal()[proper] == 1.0).all()), "a box against itself is not IoU 1")
+    if parent is not None:
+        log(f"[iou] the parent's kernel ({parent_source}) bit-equal to the plain version: {parent_bits}")
     out = {}
     for name, (b1, b2) in timed.items():
-        ms = cuda_ms(lambda: box_iou(b1, b2), reps=20, warmup=3)
+        call = lambda: box_iou(b1, b2)
+        ms = cuda_ms(call, reps=20, warmup=3)
         plain_ms = cuda_ms(lambda: box_iou_plain(b1, b2), reps=5, warmup=1)
         bound_ms, bound_by = iou_bound(b1, b2)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[iou] {name} {tuple(b1.shape)} x {tuple(b2.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}) | {card}")
-    log(f"[iou] {len(cases)} cases equal to the plain version (max |diff| 0)")
-    return dict(max_abs_err=worst, library_ms=None, **out["RetinaNet train step (gts, anchors)"])
+        dense = 1.0 - float(iou_skip_mask(b1, b2).float().mean())
+        if parent is None:
+            device = [_iou_device_ms(call)]
+            turns = ""
+        else:
+            old = lambda: parent(b1, b2)
+            order = (old, call, call, old)
+            dev = [_iou_device_ms(f) for f in order]
+            events = [cuda_ms(f, reps=20, warmup=3) for f in order]
+            device = dev[1:3]
+            turns = (f"; parent, change, change, parent: device {', '.join(f'{t:.4f}' for t in dev)} ms, "
+                     f"events {', '.join(f'{t:.4f}' for t in events)} ms")
+        out[name] = dict(ms=ms, device_ms=min(device), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[iou] {name} {tuple(b1.shape)} x {tuple(b2.shape)}: kernel device {min(device):.4f}-"
+            f"{max(device):.4f} ms (profiler), events {ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} "
+            f"ms ({bound_by}), device time at {bound_ms / min(device):.2f} of it; {dense:.4f} of the (row, "
+            f"{STRIP_COLS}-column strip) pairs computed in full{turns} | {card}")
+    log(f"[iou] {len(cases)} cases bit-equal to the plain version, two runs bit-equal")
+    retina = out["RetinaNet det_train (gts, anchors)"]
+    return dict(max_abs_err=worst, library_ms=None, **{k: retina[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                                 "bound_by")})
 
 
 def phase_retina_slice(out_dir, weights):
-    """det_test on full-width RetinaNet over 8 requests of one 800x1333 image; the NMS counts are
-    zeroed just before and read just after."""
+    """det_test on full-width RetinaNet over 8 requests of one 800x1333 image; the NMS and IoU counts
+    are zeroed just before and read just after (it reaches no IoU)."""
     from basedet_tpu_torch.ops import nms as nms_ops
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from basedet_tpu_torch.tools import det_test
@@ -2837,7 +3050,7 @@ def phase_retina_slice(out_dir, weights):
     seen = lambda args, keep: (args[0].shape[1], list(zip(args[1].sum(1).tolist(), keep.sum(1).tolist())))
     nms_keep.launches, nms_keep_plain.calls = 0, 0
     t0 = time.perf_counter()
-    with recording(nms_ops, "nms_keep", seen) as calls:
+    with recording(nms_ops, "nms_keep", seen) as calls, iou_counted("RetinaNet det_test"):
         results = det_test.main(["-f", RETINA_CONFIG, "-w", weights, "--device", "cuda", *_retina_opts(out_dir)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2849,6 +3062,7 @@ def phase_retina_slice(out_dir, weights):
     check({r["image_id"] for r in records} == set(range(8)), "not every request was answered")
     check(launches == 8, f"the NMS kernel launched {launches} times for 8 requests")
     check(plain_calls == 0, f"the plain NMS ran {plain_calls} times on the main path")
+    check_iou_counts("RetinaNet det_test", 0)
     check(all(k == RETINA_FINAL_K for k, _ in calls), f"NMS took {[k for k, _ in calls]} candidates, not 5000")
     check(any(k < v for _, call in calls for v, k in call), "NMS suppressed nothing on the main path")
     log(f"[retina] det_test RetinaNet R50-FPN with {os.path.basename(weights)} on 8 requests of "
@@ -3086,6 +3300,8 @@ def phase_retina_timing(model, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
+    parser.add_argument("--parent-iou", metavar="IOU_CU", help="also build another tree's csrc/iou.cu and time it "
+                        "beside this one's, in turns")
     args = parser.parse_args()
     card = phase_device()
     phase_build()
@@ -3095,21 +3311,21 @@ def main():
     roi_bwd = phase_roi_align_bwd(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg, model, weights = make_weights(out_dir)
-        match_launches, dumped = phase_train(out_dir, weights)
+        match_launches, dumped, yolox_iou = phase_train(out_dir, weights)
         launches = phase_slice(out_dir, cfg, dumped)
         phase_card_vs_cpu(cfg, model, weights)
         phase_train_vs_cpu(weights)
         steps = {None: phase_train_timing(weights, card)}
         fused_fwd, fused_bwd, fused_step = phase_fused_kernels(weights, card)
         (amp_fused, amp_fused_bwd, amp_match), amp_err, amp_dumped = phase_train_amp(out_dir, weights)
-        amp_nms = phase_slice(out_dir, cfg, amp_dumped)
+        amp_nms = phase_slice(out_dir, cfg, amp_dumped, "YOLOX-S det_test of the --amp run")
         for errs in (amp_err, phase_amp_train_vs_cpu(weights)):
             for report, err in zip((fused_fwd, fused_bwd), _fused_errs(errs)):
                 report["max_abs_err"] = max(report["max_abs_err"], err)
         steps["bf16"] = phase_train_timing(weights, card, "bf16")
         steps["fused"] = phase_train_timing(weights, card, "fused", fused_step)
         frcnn_cfg, frcnn, frcnn_weights = make_frcnn_weights(out_dir)
-        (train_roi, train_roi_bwd, train_nms), frcnn_dumped = phase_frcnn_train(out_dir, frcnn_weights)
+        (train_roi, train_roi_bwd, train_nms), frcnn_dumped, frcnn_iou = phase_frcnn_train(out_dir, frcnn_weights)
         roi_launches, frcnn_nms_launches = phase_frcnn_slice(out_dir, frcnn_dumped)
         phase_frcnn_card_vs_cpu(frcnn_cfg, frcnn, frcnn_weights)
         phase_frcnn_train_vs_cpu(frcnn_weights)
@@ -3122,9 +3338,13 @@ def main():
         phase_cnet_card_vs_cpu(cnet_weights)
         cnet_step = phase_cnet_train_timing(cnet_weights, card, scatter["ms"])
         retina_cfg, retina, retina_weights = make_retina_weights(out_dir)
-        iou_launches, iou_call, retina_dumped = phase_retina_train(out_dir, retina_weights)
-        iou = phase_iou_kernel(card, iou_call)
-        del iou_call
+        retina_iou, retina_dumped = phase_retina_train(out_dir, retina_weights)
+        iou = phase_iou_kernel(card, {
+            "RetinaNet det_train (gts, anchors)": retina_iou,
+            "Faster R-CNN det_train RPN targets (gts, anchors)": frcnn_iou["rpn"],
+            "Faster R-CNN det_train R-CNN sampling (candidates, gts)": frcnn_iou["rcnn"],
+            "YOLOX-S det_train SimOTA (gts, predicted boxes)": yolox_iou}, args.parent_iou)
+        del retina_iou, frcnn_iou, yolox_iou
         retina_nms = phase_retina_slice(out_dir, retina_dumped)
         phase_retina_card_vs_cpu(retina_cfg, retina, retina_weights)
         retina_step = phase_retina_train_timing(retina_weights, card)
@@ -3144,13 +3364,13 @@ def main():
              f"{CNET_IMAGE[1]}", cnet_step[1], 3, cnet_step[0]),
             ("step_retinanet", f"RetinaNet R50-FPN f32 train step, batch {RETINA_B} of {FRCNN_IMAGE[0]}x"
              f"{FRCNN_IMAGE[1]}", retina_step[1], 3, retina_step[0])])
+    iou_by_path = {path: launches for path, (launches, _) in IOU_COUNTS.items()}
     log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
         f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
         f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
         f"multilevel_roi_align {train_roi} on det_train + {roi_launches} on det_test; fused_gemm_stats and "
         f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp; scatter_rows {cnet_launches} on "
-        f"CenterNet det_train; box_iou {iou_launches} on RetinaNet det_train; nms_keep {retina_nms} on RetinaNet "
-        f"det_test")
+        f"CenterNet det_train; box_iou {iou_by_path}; nms_keep {retina_nms} on RetinaNet det_test")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
@@ -3183,7 +3403,8 @@ def main():
         **{k: scatter[k] for k in keys},
     }, {
         "name": "box_iou", "route": "cuda", "source": "basedet_tpu_torch/csrc/iou.cu",
-        "replaces": "basedet_tpu/ops/iou_pallas.py:37", "launches": iou_launches, **{k: iou[k] for k in keys},
+        "replaces": "basedet_tpu/ops/iou_pallas.py:37", "launches": sum(iou_by_path.values()),
+        "launches_by_path": iou_by_path, **{k: iou[k] for k in keys},
     }]}
     log(json.dumps(report))
     log(card)

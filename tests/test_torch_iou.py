@@ -4,15 +4,20 @@ which a CPU tensor takes) against ``box_iou_pallas(..., interpret=True)`` and
 against the JAX package's ``structures.box_iou``, as 2-D, batched and
 broadcast inputs, at sizes off the 256 tile, and on edge cases (zero-area,
 inverted, identical, touching-edge and disjoint boxes, coordinates up to
-1e4; ``chip_smoke.iou_edges``); then the wrapper's dispatch and refusals.
+1e4, -0.0 coordinates, every pair overlapping; ``chip_smoke.iou_edges``);
+then the wrapper's dispatch and refusals; then ``iou_tile_model``, the
+kernel's strips and skip rule on the CPU, bit-equal to the plain version (the
+sign of zero included) on those cases, on random draws and on zero-padded gt
+rows, where the skip takes every padded row.
 
 Inputs come from ``numpy.random.RandomState`` seeds. Tolerance 1e-6
 absolute. Measured: the plain version is bit-equal to the JAX package's
 ``box_iou`` on every case here (the same operations in the same order), and
 within 1.8e-7 of the Pallas kernel run in interpret mode, which XLA
 compiles to other bits at some sizes. The CUDA kernel itself runs only on
-the card (``test_kernel_matches_plain_on_gpu``, skipped here), where
-``chip_smoke.py`` holds it to the plain version with max |diff| 0. JAX is
+the card (the ``-m cuda`` tests, skipped here: the edge cases and the four
+callers' shapes, bit-equal and bit-equal run to run), where ``chip_smoke.py``
+holds it to the plain version bit for bit. JAX is
 imported inside the tests that use it, so that the card's machine, which
 has none, can collect this file.
 """
@@ -20,9 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+from basedet_tpu_torch.ops.iou_kernel import STRIP_COLS, box_iou, box_iou_plain, iou_skip_mask, iou_tile_model
 from basedet_tpu_torch.structures import pairwise_intersection
-from chip_smoke import _iou_boxes, iou_edges
+from chip_smoke import _iou_boxes, check_iou_case, iou_edges
 
 ATOL = 1e-6
 
@@ -144,16 +149,124 @@ def test_wrapper_raises(case):
     assert box_iou_plain.calls == calls
 
 
+def bits(t):
+    return t.view(torch.int32)
+
+
+def padded_gts(rng, B, K, n, size):
+    """(B, K, 4) gts as the detectors pad them: n real boxes per image, zero
+    boxes after."""
+    gts = torch.zeros(B, K, 4)
+    gts[:, :n] = _iou_boxes(rng, (B, n, 4), size)
+    return gts
+
+
+def anchor_grid(stride, cells, sizes):
+    """Anchor-like boxes centred on a stride grid, reaching past the image's
+    left and top edges: (cells², len(sizes), 4) flattened location-major."""
+    c = (torch.arange(cells, dtype=torch.float32) * stride)
+    cy, cx = torch.meshgrid(c, c, indexing="ij")
+    half = torch.tensor(sizes, dtype=torch.float32)[None, :] / 2
+    cx, cy = cx.reshape(-1, 1), cy.reshape(-1, 1)
+    return torch.stack([cx - half, cy - half, cx + half, cy + half], -1).reshape(-1, 4)
+
+
+def _model_cases():
+    rng = np.random.RandomState(3)
+    cases = {f"edge: {k}": v for k, v in iou_edges(np.random.RandomState(4)).items()}
+    cases.update({
+        "random (2, 45) x (1000,)": (_iou_boxes(rng, (2, 45, 4), 600.0), _iou_boxes(rng, (1000, 4), 600.0)),
+        "random per image (3, 33) x (3, 300)": (_iou_boxes(rng, (3, 33, 4), 300.0),
+                                                _iou_boxes(rng, (3, 300, 4), 300.0)),
+        "random 2-D (64,) x (129,)": (_iou_boxes(rng, (64, 4), 100.0), _iou_boxes(rng, (129, 4), 100.0)),
+        "padded gts (2, 100) x anchors (3600,)": (padded_gts(rng, 2, 100, 3, 480.0),
+                                                  anchor_grid(16.0, 30, (32.0, 64.0, 128.0, 256.0))),
+    })
+    return cases
+
+
+MODEL_CASES = _model_cases()
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_tile_model_is_bit_equal_to_plain(name):
+    a, b = MODEL_CASES[name]
+    got, want = iou_tile_model(a, b), box_iou_plain(a, b)
+    assert got.shape == want.shape
+    assert torch.equal(bits(got), bits(want))
+
+
+def test_skip_takes_every_padded_row():
+    """Zero boxes meet no anchor with a positive intersection, the border
+    strips' included (there min(0, x2) - max(0, x1) is exactly 0): the kernel
+    stores their rows with no arithmetic."""
+    a, b = MODEL_CASES["padded gts (2, 100) x anchors (3600,)"]
+    skip = iou_skip_mask(a, b)
+    assert skip.shape == (2, 100, -(-3600 // STRIP_COLS))
+    assert bool(skip[:, 3:].all())
+    assert 0.0 < float(skip[:, :3].float().mean()) < 1.0
+
+
+def test_skip_never_fires_where_every_pair_overlaps():
+    a, b = MODEL_CASES["edge: dense: every pair overlaps (2, 37) x (2, 515)"]
+    assert not bool(iou_skip_mask(a, b).any())
+    assert bool((box_iou_plain(a, b) > 0).all())
+
+
+def test_negative_zero_turns_the_skip_off():
+    """A row or a strip with a -0.0 coordinate takes the full arithmetic,
+    which gives the plain version's -0.0 results; the zero rows still skip in
+    the strip without one."""
+    a, b = MODEL_CASES["edge: -0.0 coordinates among zero rows (2, 40) x (300,)"]
+    want = box_iou_plain(a, b)
+    assert bool(((want == 0) & torch.signbit(want)).any())
+    skip = iou_skip_mask(a, b)
+    assert not bool(skip[:, :, :2].any())  # strips 0 and 1 hold -0.0 boxes
+    zero_rows = (a == 0).all(-1)
+    assert bool(skip[..., 2][zero_rows].all())
+    neg0_rows = ((a == 0) & torch.signbit(a)).any(-1)
+    assert not bool(skip[neg0_rows].any())
+
+
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the IoU kernel has no CPU mode")
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu():
     """Kernel #10 against its plain version on the card, on ``chip_smoke.py``'s
-    edge cases: max |diff| 0."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the IoU kernel has no CPU mode")
-    from chip_smoke import check_iou_case
-
+    edge cases: bit-equal (max |diff| 0, the sign of zero included)."""
+    _needs_gpu()
     for name, (a, b) in iou_edges(np.random.RandomState(5)).items():
         launches = box_iou.launches
-        err, _ = check_iou_case(a.cuda(), b.cuda())
+        err, equal = check_iou_case(a.cuda(), b.cuda())
         assert box_iou.launches == launches + 1, name
-        assert err == 0.0, (name, err)
+        assert err == 0.0 and equal, (name, err)
+
+
+CALLER_SHAPES = {  # name: (B, M, N, boxes2 per image)
+    "RetinaNet (2, 100) x (201600,)": (2, 100, 201600, False),
+    "RPN targets (2, 100) x (268569,)": (2, 100, 268569, False),
+    "R-CNN sampling (2, 1100) x (2, 100)": (2, 1100, 100, True),
+    "SimOTA (8, 100) x (8, 8400)": (8, 100, 8400, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CALLER_SHAPES))
+def test_kernel_bit_equal_at_the_callers_shapes_on_gpu(name):
+    """The four callers' shapes, with gts padded as the detectors pad them:
+    bit-equal to the plain version, and two runs bit-equal."""
+    _needs_gpu()
+    B, M, N, per_image = CALLER_SHAPES[name]
+    rng = np.random.RandomState(6)
+    if M > N:  # R-CNN sampling: the proposals, then the padded gts, against the gts
+        b = padded_gts(rng, B, N, 3, 1333.0).cuda()
+        a = torch.cat([_iou_boxes(rng, (B, M - N, 4), 1333.0).cuda(), b], 1)
+    else:
+        a = padded_gts(rng, B, M, 3, 1333.0).cuda()
+        b = _iou_boxes(rng, (B, N, 4) if per_image else (N, 4), 1333.0).cuda()
+    got = box_iou(a, b)
+    assert torch.equal(bits(got), bits(box_iou_plain(a, b)))
+    assert torch.equal(bits(got), bits(box_iou(a, b)))
