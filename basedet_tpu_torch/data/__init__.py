@@ -3,7 +3,11 @@ from .build import (
     YOLOXDataloaderBuilder,
     build_test_dataloader,
     build_train_dataloader,
+    world_size,
 )
+from .datasets import COCODataset, MosaicDataset, register_dataset, resolve_dataset
+from .transforms import DataRNG, TransformCompose, build_transforms
 
-__all__ = ["DataloaderBuilder", "YOLOXDataloaderBuilder", "build_test_dataloader",
-           "build_train_dataloader"]
+__all__ = ["COCODataset", "DataRNG", "DataloaderBuilder", "MosaicDataset",
+           "TransformCompose", "YOLOXDataloaderBuilder", "build_test_dataloader", "build_train_dataloader",
+           "build_transforms", "register_dataset", "resolve_dataset", "world_size"]

@@ -1,79 +1,98 @@
-"""Data loaders (counterpart of ``basedet_tpu/data/build.py``). Only the
-synthetic ``dummy`` dataset is ported; any other is refused."""
+"""Data loaders (counterpart of ``basedet_tpu/data/build.py``): the COCO-format
+datasets that ``DATA.TRAIN.name`` and ``DATA.TEST.name`` name
+(``data/datasets/info.py``), or the synthetic ``dummy`` batches.
+
+The global batch is ``MODEL.BATCHSIZE`` times the world size, which is
+``torch.distributed``'s where it is initialised and 1 otherwise. On a CUDA
+``device`` the batches leave the loader page-locked (a pinned
+``CanvasRing``) and cross to the card without blocking the host.
+"""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
+from basedet_tpu_torch.data.collators.pack import CanvasRing
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.registry import registers
 
 
-def _refuse(name: str, key: str, transforms=()):
-    unported = f" and its transforms {', '.join(transforms)} are" if transforms else " is"
-    raise NotImplementedError(
-        f"dataset {name!r}: COCO loading{unported} not ported to basedet_tpu_torch yet; "
-        f"use {key} dummy"
-    )
+def world_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _forever(loader) -> Iterator[Dict[str, np.ndarray]]:
-    while True:
-        yield from loader
+def _ring(device) -> CanvasRing:
+    return CanvasRing(pin=torch.device(device).type == "cuda")
 
 
-def _dummy_train_stream(cfg, image_size, transforms=()) -> Iterator[Dict[str, np.ndarray]]:
-    name = cfg.DATA.TRAIN.get("name", "dummy")
-    if name != "dummy":  # the synthetic batches take no augmentation
-        _refuse(name, "DATA.TRAIN.name", transforms)
-    return _forever(DummyLoader(
-        batch_size=cfg.MODEL.BATCHSIZE,
+def _dummy_stream(cfg, image_size) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic batches without end; an epoch that yields none raises."""
+    loader = DummyLoader(
+        batch_size=cfg.MODEL.BATCHSIZE * world_size(),
         image_size=tuple(image_size),
         max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
         num_classes=cfg.DATA.NUM_CLASSES,
-    ))
-
-
-def build_train_dataloader(cfg) -> Iterator[Dict[str, np.ndarray]]:
-    """``dummy``: an endless stream of synthetic batches of ``BATCHSIZE``
-    images at ``AUG.TRAIN_SETTING.INPUT_SIZE``, gt padded to
-    ``DATA.MAX_INSTANCES``, as the JAX package's YOLOX builder gives them on
-    one device."""
-    return _dummy_train_stream(cfg, cfg.AUG.TRAIN_SETTING.INPUT_SIZE)
+    )
+    while True:
+        produced = False
+        for batch in loader:
+            produced = True
+            yield batch
+        if not produced:
+            raise RuntimeError("dataloader epoch produced no batches")
 
 
 @registers.dataloader.register()
 class YOLOXDataloaderBuilder:
+    """Mosaic and MixUp batches at ``AUG.TRAIN_SETTING.INPUT_SIZE``
+    (``coco_loader.build_yolox_train_loader``); ``dummy``: synthetic batches
+    at that size, as the JAX package gives them on one device."""
+
     @classmethod
-    def build(cls, cfg):
-        return build_train_dataloader(cfg)
+    def build(cls, cfg, device="cpu"):
+        if cfg.DATA.TRAIN.get("name", "dummy") == "dummy":
+            return _dummy_stream(cfg, cfg.AUG.TRAIN_SETTING.INPUT_SIZE)
+        from basedet_tpu_torch.data.coco_loader import build_yolox_train_loader
+
+        return build_yolox_train_loader(cfg, cfg.MODEL.BATCHSIZE * world_size(), _ring(device))
 
 
 @registers.dataloader.register()
 class DataloaderBuilder:
-    """The default detection loader. ``dummy``: an endless stream of
-    synthetic batches of ``BATCHSIZE`` images at ``DATA.DUMMY_IMAGE_SIZE``
-    (512x512 unless set), as the JAX package's ``DataloaderBuilder`` gives
-    them on one device. A real dataset is refused, naming the
-    ``AUG.TRAIN_VALUE`` transforms it would take."""
+    """``AUG.TRAIN_VALUE`` transforms, aspect-ratio grouped batches and the
+    pad collator (``coco_loader.build_coco_train_loader``); ``dummy``:
+    synthetic batches at ``DATA.DUMMY_IMAGE_SIZE`` (512x512 unless set)."""
 
     @classmethod
-    def build(cls, cfg):
-        return _dummy_train_stream(cfg, cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512)),
-                                   [t[0] for t in cfg.AUG.get("TRAIN_VALUE", ())])
+    def build(cls, cfg, device="cpu"):
+        if cfg.DATA.TRAIN.get("name", "dummy") == "dummy":
+            return _dummy_stream(cfg, cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512)))
+        from basedet_tpu_torch.data.coco_loader import build_coco_train_loader
+
+        return build_coco_train_loader(cfg, cfg.MODEL.BATCHSIZE * world_size(), _ring(device))
 
 
-def build_test_dataloader(cfg, dataset_name: Optional[str] = None):
-    """``dummy``: 8 synthetic batches of one image, as the JAX package gives
-    them."""
+def build_train_dataloader(cfg, device="cpu"):
+    return YOLOXDataloaderBuilder.build(cfg, device)
+
+
+def build_test_dataloader(cfg, dataset_name: Optional[str] = None, device="cpu"):
+    """The eval loader of ``DATA.TEST.name`` (or ``dataset_name``): each
+    image through ``ShortestEdgeResize(TEST.IMG_MIN_SIZE, IMG_MAX_SIZE)``,
+    batches of one, padded to the test buckets. ``dummy``: 8 synthetic
+    batches of one image, as the JAX package gives them."""
     name = dataset_name or cfg.DATA.TEST.get("name", "dummy")
-    if name != "dummy":
-        _refuse(name, "DATA.TEST.name")
-    return DummyLoader(
-        batch_size=1,
-        image_size=tuple(cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512))),
-        max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
-        num_classes=cfg.DATA.NUM_CLASSES,
-        length=8,
-    )
+    if name == "dummy":
+        return DummyLoader(
+            batch_size=1,
+            image_size=tuple(cfg.DATA.get("DUMMY_IMAGE_SIZE", (512, 512))),
+            max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
+            num_classes=cfg.DATA.NUM_CLASSES,
+            length=8,
+        )
+    from basedet_tpu_torch.data.coco_loader import build_coco_test_loader
+
+    return build_coco_test_loader(cfg, name, ring=_ring(device))

@@ -1,0 +1,67 @@
+"""Pad collator: records → one batch (counterpart of
+``basedet_tpu/data/collators/pad_collator.py``).
+
+Batch: ``data`` (B, H, W, 3) uint8 (float32 where a transform made floats),
+padded at the bottom and right to the smallest size bucket that fits (or to
+multiples of 32), ``gt_boxes`` (B, K, 5) [x1 y1 x2 y2 label] padded to
+``max_instances`` rows, ``im_info`` (B, 5) [cur_h, cur_w, orig_h, orig_w,
+num_instances], all CPU tensors, and ``image_id`` (B,) numpy.
+
+In the main process the canvases come from ``ring`` (pinned on the card's
+path); in a DataLoader worker they are fresh tensors, which the loader moves
+through shared memory and pins in the main process. A worker keeps no ring:
+its batch is still being sent when it packs the next.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from basedet_tpu_torch.data.collators.pack import CanvasRing, new_canvas, pack_images
+
+
+def _round32(x: int) -> int:
+    return (x + 31) // 32 * 32
+
+
+def pick_bucket(h: int, w: int, buckets: Optional[Sequence[Tuple[int, int]]]) -> Tuple[int, int]:
+    if buckets:
+        for bh, bw in buckets:
+            if h <= bh and w <= bw:
+                return bh, bw
+        return buckets[-1]
+    return _round32(h), _round32(w)
+
+
+class DetectionPadCollator:
+    def __init__(self, max_instances: int = 100, size_buckets: Optional[Sequence[Tuple[int, int]]] = None,
+                 pad_value: float = 0.0, ring: Optional[CanvasRing] = None):
+        self.max_instances = max_instances
+        self.size_buckets = [tuple(b) for b in size_buckets] if size_buckets else None
+        self.pad_value = pad_value
+        self.ring = ring
+
+    def __call__(self, records: List[dict]) -> dict:
+        ring = self.ring if torch.utils.data.get_worker_info() is None else None
+        B, K = len(records), self.max_instances
+        H, W = pick_bucket(max(r["image"].shape[0] for r in records),
+                           max(r["image"].shape[1] for r in records), self.size_buckets)
+        data = pack_images([np.asarray(r["image"]) for r in records], H, W, self.pad_value, ring)
+        gt_t, info_t = new_canvas((B, K, 5), torch.float32, ring), new_canvas((B, 5), torch.float32, ring)
+        gt, info = gt_t.numpy(), info_t.numpy()
+        gt[...] = 0
+        image_ids = []
+        for b, r in enumerate(records):
+            h, w = r["image"].shape[:2]
+            boxes = r.get("boxes", np.zeros((0, 4), np.float32))
+            labels = r.get("labels", np.zeros((0,), np.int32))
+            n = min(len(boxes), K)
+            if n:
+                gt[b, :n, :4] = boxes[:n]
+                gt[b, :n, 4] = labels[:n]
+            oh, ow = r.get("orig_size", (h, w))
+            info[b] = [h, w, oh, ow, n]
+            image_ids.append(r.get("image_id", b))
+        return {"data": data, "gt_boxes": gt_t, "im_info": info_t, "image_id": np.asarray(image_ids)}

@@ -1,5 +1,5 @@
 from .build import SimpleHookList, YOLOXHookList
-from .hooks import BaseHook, CheckpointHook, LoggerHook, LRSchedulerHook
+from .hooks import BaseHook, CheckpointHook, EvalHook, LoggerHook, LRSchedulerHook, ResumeHook
 from .progress import Progress
 from .tester import BaseTester
 from .train_state import TrainState, ema_momentum, make_train_step
@@ -10,9 +10,11 @@ __all__ = [
     "BaseTester",
     "CheckpointHook",
     "DetTrainer",
+    "EvalHook",
     "LRSchedulerHook",
     "LoggerHook",
     "Progress",
+    "ResumeHook",
     "SimpleHookList",
     "TrainState",
     "YOLOXHookList",

@@ -2,44 +2,53 @@
 from __future__ import annotations
 
 from basedet_tpu_torch.utils.logger import logger
-from basedet_tpu_torch.engine.hooks import BaseHook, CheckpointHook, LoggerHook, LRSchedulerHook
+from basedet_tpu_torch.engine.hooks import (BaseHook, CheckpointHook, EvalHook, LoggerHook, LRSchedulerHook,
+                                            ResumeHook)
 from basedet_tpu_torch.utils.registry import registers
 
 
 @registers.hooks.register()
 class SimpleHookList:
-    """LR → logger → checkpoint. Refuses what it cannot run yet: resume,
-    TensorBoard, orbax checkpoints and mid-train evaluation."""
+    """Resume → LR → logger → checkpoint → eval, as the JAX package orders
+    them. Refuses what it cannot run: TensorBoard and orbax checkpoints."""
 
     @classmethod
     def build(cls, cfg):
         refused = {
-            "TRAINER.RESUME": cfg.TRAINER.get("RESUME", False),
             "GLOBAL.TENSORBOARD.ENABLE": cfg.GLOBAL.TENSORBOARD.get("ENABLE", False),
             "GLOBAL.CKPT_BACKEND orbax": cfg.GLOBAL.get("CKPT_BACKEND", "pickle") == "orbax",
-            "TEST.EVAL_EPOCH_INTERVAL": cfg.TEST.get("EVAL_EPOCH_INTERVAL", None),
         }
         asked = [k for k, v in refused.items() if v]
         if asked:
             raise NotImplementedError(f"{', '.join(asked)}: not ported to basedet_tpu_torch yet")
+        ckpt_dir = cfg.GLOBAL.get("CKPT_SAVE_DIR", "logs/ckpt")
         return [
+            ResumeHook(ckpt_dir, enable=cfg.TRAINER.get("RESUME", False)),
             LRSchedulerHook(),
             LoggerHook(log_interval=cfg.GLOBAL.get("LOG_INTERVAL", 20)),
-            CheckpointHook(cfg.GLOBAL.get("CKPT_SAVE_DIR", "logs/ckpt")),
+            CheckpointHook(ckpt_dir),
+            EvalHook(cfg.TEST.get("EVAL_EPOCH_INTERVAL", None)),
         ]
 
 
 class YoloxNoAugHook(BaseHook):
-    """For the last NO_AUG_EPOCH epochs, turn YOLOX's L1 loss on (the dummy
-    loader has no mosaic or mixup to turn off). The port's step reads
-    ``use_l1`` at every call, so nothing is rebuilt."""
+    """For the last NO_AUG_EPOCH epochs: turn YOLOX's L1 loss on, turn the
+    loader's mosaic and mixup off and restart its workers, which were forked
+    with the flags on (the JAX package's ``request_pool_restart``). The
+    port's step reads ``use_l1`` at every call, so nothing is rebuilt."""
 
     def before_epoch(self):
         t = self.trainer
         no_aug = t.cfg.AUG.get("TRAIN_SETTING", {}).get("NO_AUG_EPOCH", 0)
         if no_aug and t.progress.epoch > t.progress.max_epoch - no_aug and not t.model.use_l1:
             t.model.use_l1 = True
-            logger.info(f"epoch {t.progress.epoch}: no-aug phase, L1 loss on")
+            mosaic = getattr(t.dataloader, "mosaic_dataset", None)
+            if mosaic is not None:
+                mosaic.enable_mosaic = False
+                mosaic.enable_mixup = False
+                t.dataloader.close()  # the next batch forks workers that see the flags
+            logger.info(f"epoch {t.progress.epoch}: no-aug phase, L1 loss on"
+                        f"{', mosaic and mixup off' if mosaic is not None else ''}")
 
 
 @registers.hooks.register()

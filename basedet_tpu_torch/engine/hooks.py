@@ -1,12 +1,13 @@
 """Training hooks (counterpart of ``basedet_tpu/engine/hooks.py``): host code
-run between steps. Ported: logging, the LR hook, checkpoints. Resume, eval
-and TensorBoard are not ported yet; ``engine/build.py`` refuses the configs
-that ask for them."""
+run between steps. Ported: logging, the LR hook, checkpoints, resume and
+evaluation. TensorBoard and orbax checkpoints are not ported;
+``engine/build.py`` refuses the configs that ask for them."""
 from __future__ import annotations
 
 import datetime
 import os
 import time
+from typing import Optional
 
 import torch
 
@@ -112,3 +113,84 @@ class CheckpointHook(BaseHook):
         path = os.path.join(self.save_dir, "dumped_model.pt")
         torch.save(t.state.variables(t.model.module, ema=t.ema_enabled), path)
         logger.info(f"dumped {'EMA ' if t.ema_enabled else ''}weights to {path}")
+
+
+@registers.hooks.register()
+class ResumeHook(BaseHook):
+    """Before training, restore ``save_dir/latest.pt`` as ``CheckpointHook``
+    wrote it: the module's parameters and buffers, the optimizer, the EMA
+    parameters, the step and the epoch; training goes on at the epoch after
+    it. The config's MAX_EPOCH and iterations per epoch stay in force."""
+
+    def __init__(self, save_dir: str, enable: bool = True):
+        self.save_dir = save_dir
+        self.enable = enable
+
+    def before_train(self):
+        if not self.enable:
+            return
+        path = os.path.join(self.save_dir, "latest.pt")
+        if not os.path.exists(path):
+            logger.info(f"no checkpoint at {path}; training from scratch")
+            return
+        t = self.trainer
+        ckpt = torch.load(path, map_location=t.model.device, weights_only=True)
+        t.model.module.load_state_dict(ckpt["model"], strict=True)
+        t.state.optimizer.load_state_dict(ckpt["optimizer"])
+        if t.state.ema_params is not None:
+            if ckpt["ema"] is None:
+                raise ValueError(f"{path} was trained without EMA; TRAINER.EMA.ENABLE asks for it")
+            with torch.no_grad():
+                for name, value in ckpt["ema"].items():
+                    t.state.ema_params[name].copy_(value)
+        t.state.step = ckpt["step"]
+        t.progress.epoch = ckpt["progress"]["epoch"]
+        t.progress.inner_iter = ckpt["progress"]["inner_iter"]
+        t.progress.epoch_done()
+        logger.info(f"resumed from {path}: step {t.state.step}, epoch {t.progress.epoch}")
+
+
+@registers.hooks.register()
+class EvalHook(BaseHook):
+    """Evaluate on the trainer's test loader every ``eval_interval`` epochs
+    (the last excepted) with the live weights, and after training with the
+    live weights, then the EMA weights where the trainer keeps them. Results
+    land in ``trainer.eval_results["model"]`` and ``["EMA"]``. Without an
+    evaluator (none was asked for) it does nothing."""
+
+    def __init__(self, eval_interval: Optional[int] = None):
+        self.eval_interval = eval_interval
+
+    def _run_eval(self, ema: bool):
+        t = self.trainer
+        if t.evaluator is None:
+            return
+        module = t.model.module
+        live = None
+        if ema:
+            live = {n: p.detach().clone() for n, p in module.named_parameters()}
+            with torch.no_grad():
+                for n, p in module.named_parameters():
+                    p.copy_(t.state.ema_params[n])
+        t.model.eval()
+        try:
+            results = t.evaluator.evaluate_model(t.model, t.test_dataloader)
+        finally:
+            if live is not None:
+                with torch.no_grad():
+                    for n, p in module.named_parameters():
+                        p.copy_(live[n])
+            t.model.train()
+        tag = "EMA" if ema else "model"
+        t.eval_results[tag] = results
+        logger.info(f"eval ({tag}, epoch {t.progress.epoch}): {results}")
+
+    def after_epoch(self):
+        p = self.trainer.progress
+        if self.eval_interval and p.epoch % self.eval_interval == 0 and not p.is_last_epoch():
+            self._run_eval(ema=False)
+
+    def after_train(self):
+        self._run_eval(ema=False)
+        if self.trainer.state.ema_params is not None:
+            self._run_eval(ema=True)

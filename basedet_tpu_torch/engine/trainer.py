@@ -1,16 +1,22 @@
 """DetTrainer: the training loop around the train step (counterpart of
-``basedet_tpu/engine/trainer.py``). One device, world size 1, no mesh."""
+``basedet_tpu/engine/trainer.py``). One device, world size 1, no mesh.
+
+Where ``TEST.EVAL_EPOCH_INTERVAL`` is set or ``DATA.TEST.name`` is not
+``dummy``, the trainer builds the evaluator and the test loader for
+``EvalHook``. The JAX package logs a failure to build them and trains on;
+the port raises."""
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+from basedet_tpu_torch.data.build import build_test_dataloader
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.meters import MeterBuffer
 from basedet_tpu_torch.engine.progress import Progress
 from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
 from basedet_tpu_torch.solver.build import iters_per_epoch
-from basedet_tpu_torch.utils.registry import registers
+from basedet_tpu_torch.utils.registry import build_evaluator, registers
 
 
 @registers.trainers.register()
@@ -31,6 +37,12 @@ class DetTrainer:
         self.batch_mapper = getattr(model, "train_batch_mapper", None)
         self.state: Optional[TrainState] = None
         self._last_fence = None
+        self.evaluator = None
+        self.test_dataloader = None
+        self.eval_results: Dict[str, Dict[str, float]] = {}  # EvalHook's latest, by weights
+        if cfg.TEST.get("EVAL_EPOCH_INTERVAL", None) or cfg.DATA.TEST.get("name", "dummy") != "dummy":
+            self.evaluator = build_evaluator(cfg)
+            self.test_dataloader = build_test_dataloader(cfg, device=model.device)
         self.hooks = list(hooks)
         for h in self.hooks:
             h.trainer = self
@@ -47,19 +59,24 @@ class DetTrainer:
             self.init_state()
         self.model.train()
         data_iter = iter(self.dataloader)
-        self._call_hooks("before_train")
-        for epoch in range(self.progress.epoch, self.progress.max_epoch + 1):
-            self.progress.epoch = epoch
-            self._call_hooks("before_epoch")
-            for it in range(1, self.progress.max_iter + 1):
-                self.progress.inner_iter = it
-                self._call_hooks("before_iter")
-                self.train_one_iter(data_iter)
-                self._call_hooks("after_iter")
-            self._call_hooks("after_epoch")
-            if epoch < self.progress.max_epoch:
-                self.progress.epoch_done()
-        self._call_hooks("after_train")
+        try:
+            self._call_hooks("before_train")
+            for epoch in range(self.progress.epoch, self.progress.max_epoch + 1):
+                self.progress.epoch = epoch
+                self._call_hooks("before_epoch")
+                for it in range(1, self.progress.max_iter + 1):
+                    self.progress.inner_iter = it
+                    self._call_hooks("before_iter")
+                    self.train_one_iter(data_iter)
+                    self._call_hooks("after_iter")
+                self._call_hooks("after_epoch")
+                if epoch < self.progress.max_epoch:
+                    self.progress.epoch_done()
+            self._call_hooks("after_train")
+        finally:  # the loader's worker processes end with the training
+            close = getattr(self.dataloader, "close", None)
+            if close is not None:
+                close()
         self.model.eval()
         logger.info("training finished")
 

@@ -8,6 +8,24 @@ import torch
 import torch.nn.functional as F
 
 
+def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` (cast to ``dtype`` where given,
+    on the device). A page-locked tensor crosses to the card with
+    ``non_blocking=True``; where it carries a ``copy_done`` event (a slot of
+    ``data.collators.CanvasRing``), the event is recorded after the copy, so
+    that the slot is not rewritten before the copy has run. Anything else
+    crosses as a plain copy."""
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu" and t.is_pinned():
+        out = t.to(device, non_blocking=True)
+        done = getattr(t, "copy_done", None)
+        if done is not None:
+            done.record()
+    else:
+        out = t.to(device)
+    return out if dtype is None else out.to(dtype)
+
+
 def get_multiple_size(input_size: int, multiple: int = 32) -> int:
     return (input_size + multiple - 1) // multiple * multiple
 

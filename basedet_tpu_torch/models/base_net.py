@@ -21,7 +21,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from basedet_tpu_torch.layers.common.pre_processing import data_to_input
+from basedet_tpu_torch.layers.common.pre_processing import data_to_input, to_device
 from basedet_tpu_torch.utils.weights import state_dict_from_jax
 
 
@@ -60,14 +60,14 @@ class BaseNet:
         raise NotImplementedError
 
     def pre_process(self, batch: Dict[str, Any], train: bool = False) -> Dict[str, torch.Tensor]:
-        """Pad to x32 and normalize in NHWC, then transpose to NCHW; with
-        ``train``, carry the gt boxes."""
-        image = torch.as_tensor(batch["data"]).to(self.device)
-        image = data_to_input(image, self.img_mean, self.img_std)
-        img_info = torch.as_tensor(batch["im_info"], dtype=torch.float32).to(self.device)
+        """Move the batch to the model's device (a pinned batch without
+        blocking the host, ``to_device``), pad to x32 and normalize in NHWC,
+        then transpose to NCHW; with ``train``, carry the gt boxes."""
+        image = data_to_input(to_device(batch["data"], self.device), self.img_mean, self.img_std)
+        img_info = to_device(batch["im_info"], self.device, torch.float32)
         out = {"image": image.permute(0, 3, 1, 2).contiguous(), "img_info": img_info}
         if train:
-            out["gt_boxes"] = torch.as_tensor(batch["gt_boxes"], dtype=torch.float32).to(self.device)
+            out["gt_boxes"] = to_device(batch["gt_boxes"], self.device, torch.float32)
         return out
 
     def load_weights(self, weight_path: str, ema: bool = False) -> None:

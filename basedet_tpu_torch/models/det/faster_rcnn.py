@@ -90,7 +90,7 @@ class FasterRCNNModule(nn.Module):
         """As the flax initialisers draw them (normal in place of truncated
         normal): backbone convs lecun-normal, FPN convs He-normal (fan in),
         RPN convs and the fc layers normal(0.01), ``pred_delta`` normal(0.001),
-        biases 0, frozen BN the identity."""
+        biases 0, frozen and trainable BN the identity."""
         def normal(w, std):
             w.normal_(0.0, std, generator=generator)
 
@@ -99,6 +99,8 @@ class FasterRCNNModule(nn.Module):
                 normal(m.weight, math.sqrt(1.0 / (m.weight[0].numel())))
             elif isinstance(m, FrozenBatchNorm):
                 m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
+            elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
+                m.reset_parameters()
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 normal(m.weight, math.sqrt(2.0 / (m.weight[0].numel())))

@@ -71,14 +71,16 @@ class RetinaNetModule(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """As the flax initialisers draw them (normal in place of truncated
-        normal): backbone convs lecun-normal, frozen BN the identity, FPN convs
-        He-normal (fan in) with zero biases, the head normal(0.01) with the
-        class bias at the prior."""
+        normal): backbone convs lecun-normal, frozen and trainable BN the
+        identity, FPN convs He-normal (fan in) with zero biases, the head
+        normal(0.01) with the class bias at the prior."""
         for m in self.bottom_up.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, math.sqrt(1.0 / m.weight[0].numel()), generator=generator)
             elif isinstance(m, FrozenBatchNorm):
                 m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
+            elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
+                m.reset_parameters()
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, math.sqrt(2.0 / m.weight[0].numel()), generator=generator)

@@ -21,6 +21,7 @@ from basedet_tpu_torch.layers.common.anchor_generator import FastPointGenerator
 from basedet_tpu_torch.layers.common.function import full_f32, topk_scores
 from basedet_tpu_torch.layers.common.matcher import topk_dynamic_k_matching
 from basedet_tpu_torch.layers.common.post_processing import post_processing
+from basedet_tpu_torch.layers.common.pre_processing import to_device
 from basedet_tpu_torch.layers.head.yolo_head import YOLOXHead
 from basedet_tpu_torch.layers.losses import binary_cross_entropy, iou_loss, smooth_l1_loss
 from basedet_tpu_torch.models.base_net import BaseNet
@@ -108,16 +109,16 @@ class YOLOX(BaseNet):
         boxes, to target_size. Downscaling antialiases, as
         ``jax.image.resize`` does; a batch already at that size comes back
         as it is."""
-        images = torch.as_tensor(batch["data"]).to(self.device, torch.float32)
-        h, w = images.shape[1:3]
+        h, w = batch["data"].shape[1:3]
         th, tw = target_size
         if (h, w) == (th, tw):
             return batch
+        images = to_device(batch["data"], self.device, torch.float32)
         resized = F.interpolate(images.permute(0, 3, 1, 2), size=(th, tw), mode="bilinear",
                                 align_corners=False, antialias=th < h or tw < w)
-        gt = torch.as_tensor(batch["gt_boxes"]).to(self.device, torch.float32).clone()
+        gt = to_device(batch["gt_boxes"], self.device, torch.float32).clone()
         gt[..., :4] *= torch.tensor([tw / w, th / h, tw / w, th / h], device=self.device)
-        info = torch.as_tensor(batch["im_info"]).to(self.device, torch.float32).clone()
+        info = to_device(batch["im_info"], self.device, torch.float32).clone()
         info[:, 0], info[:, 1] = th, tw
         return {**batch, "data": resized.permute(0, 2, 3, 1), "gt_boxes": gt, "im_info": info}
 

@@ -42,7 +42,7 @@ def main(args=None):
         with open(os.path.join(cfg.GLOBAL.CKPT_SAVE_DIR, "last_checkpoint")) as f:
             weights = os.path.join(cfg.GLOBAL.CKPT_SAVE_DIR, f.read().strip())
     model = build_model(cfg, device)
-    tester = BaseTester(model, build_test_dataloader(cfg), build_evaluator(cfg))
+    tester = BaseTester(model, build_test_dataloader(cfg, device=device), build_evaluator(cfg))
     model.load_weights(weights)
     results = tester.test()
     logger.info(f"eval results: {results}")

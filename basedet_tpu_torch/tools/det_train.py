@@ -4,11 +4,15 @@
         [KEY VALUE ...]
 
 Options go before the config overrides. The device defaults to ``cuda`` and
-is never swapped for another. Only the synthetic training set is ported
-(``DATA.TRAIN.name dummy``). ``--amp`` trains YOLOX under the bf16 policy
+is never swapped for another. ``DATA.TRAIN.name`` names a COCO-format
+dataset (``data/datasets/info.py``, under ``$BASEDET_DATA_DIR``) or ``dummy``
+for synthetic batches; a ``DATA.TEST.name`` other than ``dummy``, or
+``TEST.EVAL_EPOCH_INTERVAL``, evaluates on that split during and after
+training. ``--resume`` continues from ``GLOBAL.CKPT_SAVE_DIR/latest.pt`` at
+the epoch after it. ``--amp`` trains YOLOX under the bf16 policy
 (``TRAINER.AMP.FUSED_BN True`` adds the fused CSP chain) and is refused for
-the other models; ``--remat``, ``--resume``, ``--tb`` and ``--debug`` are
-refused: they are not ported yet.
+the other models; ``--remat``, ``--tb`` and ``--debug`` are refused: they
+are not ported yet.
 """
 from __future__ import annotations
 

@@ -20,18 +20,19 @@ class Registry:
         self._name = name
         self._map: Dict[str, Any] = {}
 
-    def register(self, obj: Optional[Any] = None, name: Optional[str] = None):
-        """Use as ``@reg.register()`` decorator or ``reg.register(obj)``."""
+    def register(self, obj: Optional[Any] = None, name: Optional[str] = None, overwrite: bool = False):
+        """Use as ``@reg.register()`` decorator or ``reg.register(obj)``.
+        ``overwrite=True`` replaces an entry of that name."""
         if obj is None:
             def deco(o, _name=name):
-                self._do_register(_name or o.__name__, o)
+                self._do_register(_name or o.__name__, o, overwrite)
                 return o
             return deco
-        self._do_register(name or obj.__name__, obj)
+        self._do_register(name or obj.__name__, obj, overwrite)
         return obj
 
-    def _do_register(self, name: str, obj: Any) -> None:
-        if name in self._map and self._map[name] is not obj:
+    def _do_register(self, name: str, obj: Any, overwrite: bool = False) -> None:
+        if not overwrite and name in self._map and self._map[name] is not obj:
             raise KeyError(f"{name!r} already registered in registry {self._name!r}")
         self._map[name] = obj
 
@@ -55,6 +56,8 @@ class _Registers:
         self.solvers = Registry("solvers")
         self.hooks = Registry("hooks")
         self.trainers = Registry("trainers")
+        self.transforms = Registry("transforms")
+        self.datasets_info = Registry("datasets_info")
 
 
 registers = _Registers()
@@ -85,10 +88,11 @@ def build_evaluator(cfg):
 
 def build_trainer(cfg, device):
     """The ``cfg.TRAINER.NAME`` trainer around the config's model (on
-    ``device``), train loader, solver and hook list."""
+    ``device``), train loader (pinned for a CUDA ``device``), solver and hook
+    list."""
     all_register()
     model = build_model(cfg, device)
-    dataloader = registers.dataloader.get(cfg.DATA.BUILDER_NAME).build(cfg)
+    dataloader = registers.dataloader.get(cfg.DATA.BUILDER_NAME).build(cfg, device)
     solver = registers.solvers.get(cfg.SOLVER.BUILDER_NAME).build(cfg)
     hooks = registers.hooks.get(cfg.HOOKS.BUILDER_NAME).build(cfg)
     return registers.trainers.get(cfg.TRAINER.NAME)(cfg, model, dataloader, solver, hooks)

@@ -178,8 +178,29 @@ Run from the root of the repository. Phases, each of which raises on failure:
      memory; after the other models' timing, its inference at batch 1 and
      8 (network, per-level top-1000 + decode, NMS + rescale); with
      --profile, a profiler pass over the train step;
- 24. print the kernel report (eight kernels in six sources; the IoU's
-     launches path by path), the card, and the result line.
+ 24. the data slice: the synthetic COCO set of tools/sanity_e2e.py, 200
+     train and 40 val PNGs of 640x640 written by the port; os.cpu_count()
+     and whether Pillow imports (only JPEG would need it);
+ 25. det_train on full-width YOLOX-S (3 classes, random init) over it:
+     mosaic and mixup in min(8, cores) DataLoader workers, batches of 8 with
+     the multiscale resize, 2 epochs of 10 steps with NO_AUG_EPOCH 1; the
+     matching and IoU kernels once per step, the no-aug switch turning
+     mosaic and mixup off and forking the workers anew, EvalHook on the 40
+     val requests with the live and EMA weights (NMS once per request),
+     plain versions never; the median data_time and step time;
+ 26. det_train --resume into the same directory with MAX_EPOCH 3: restored
+     at step 20, trained epoch 3 only, evaluated again;
+ 27. 2 steps each of Faster R-CNN and CenterNet over the set through
+     DataloaderBuilder and their AUG.TRAIN_VALUE, kernel counts per step as
+     in phases 11 and 14;
+ 28. tools/bench_pipeline at 0, 2, 4 and 8 workers, the serial split of a
+     batch (the pack's share) and one batch's copy to the card from pinned
+     and from pageable memory; YOLOX-S f32 train steps fed by the real
+     loader against DummyLoader (real, dummy, real), with the device's idle
+     share;
+ 29. print the kernel report (eight kernels in six sources; the IoU's
+     launches path by path, the data slice's per path), the card, and the
+     result line.
 """
 import argparse
 import concurrent.futures
@@ -698,7 +719,7 @@ def make_weights(out_dir):
 
 
 def _train_opts(out_dir, weights):
-    return ["DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", "8", "AUG.TRAIN_SETTING.INPUT_SIZE",
+    return ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "MODEL.BATCHSIZE", "8", "AUG.TRAIN_SETTING.INPUT_SIZE",
             "(640,640)", "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH", "32",
             "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR", out_dir,
             "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "ckpt")]
@@ -1893,7 +1914,7 @@ def _frcnn_opts(out_dir):
 
 
 def _frcnn_train_opts(out_dir, weights):
-    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+    return ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
             "MODEL.BATCHSIZE", str(FRCNN_TRAIN_B), "SOLVER.MAX_EPOCH", "1",
             "SOLVER.NUM_IMAGE_PER_EPOCH", str(4 * FRCNN_TRAIN_B), "GLOBAL.LOG_INTERVAL", "1",
             "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR", out_dir,
@@ -2423,7 +2444,7 @@ def _cnet_opts(out_dir):
 
 
 def _cnet_train_opts(out_dir, weights, batch=CNET_B):
-    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(CNET_IMAGE).replace(" ", ""),
+    return ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(CNET_IMAGE).replace(" ", ""),
             "MODEL.BATCHSIZE", str(batch), "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH",
             str(4 * batch), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights,
             "GLOBAL.OUTPUT_DIR", out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "cnet_ckpt")]
@@ -2834,7 +2855,7 @@ def _retina_opts(out_dir):
 
 
 def _retina_train_opts(out_dir, weights):
-    return ["DATA.TRAIN.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+    return ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
             "MODEL.BATCHSIZE", str(RETINA_B), "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH",
             str(4 * RETINA_B), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR",
             out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "retina_ckpt")]
@@ -3297,6 +3318,269 @@ def phase_retina_timing(model, card):
             f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), input already on the card | {card}")
 
 
+# -- the data slice: a COCO-format set on disk, the real loaders, eval and resume ---------------
+
+DATA_SIZE, DATA_TRAIN, DATA_VAL = 640, 200, 40  # the synthetic set of sanity_e2e at YOLOX-S's input size
+DATA_STEPS = 10  # iterations per epoch of phases 25-26
+DATA_COUNTS = {}  # data-slice path -> {kernel: (launches, plain calls)}
+
+
+@contextlib.contextmanager
+def kernel_counts(path):
+    """Zero every kernel's launch count and every plain version's call count just before the body
+    (one main path's run) and keep both, read just after, under ``path``: {kernel: (launches,
+    plain calls)}. The IoU's go to IOU_COUNTS too."""
+    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain
+    from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats, fused_gemm_stats_backward
+    from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching, dynamic_k_matching_plain
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, multilevel_roi_align_plain
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align, multilevel_roi_align_backward
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+
+    pairs = {"nms_keep": (nms_keep, nms_keep_plain), "dynamic_k_matching": (dynamic_k_matching, dynamic_k_matching_plain),
+             "multilevel_roi_align": (multilevel_roi_align, multilevel_roi_align_plain),
+             "multilevel_roi_align_backward": (multilevel_roi_align_backward, multilevel_roi_align_backward_plain),
+             "fused_gemm_stats": (fused_gemm_stats, fused_gemm_stats_plain),
+             "fused_gemm_stats_backward": (fused_gemm_stats_backward, fused_gemm_stats_backward_plain),
+             "scatter_rows": (scatter_rows, scatter_rows_plain)}
+    for kernel, plain in pairs.values():
+        kernel.launches, plain.calls = 0, 0
+    with iou_counted(path):
+        yield
+    DATA_COUNTS[path] = {name: (kernel.launches, plain.calls) for name, (kernel, plain) in pairs.items()}
+    DATA_COUNTS[path]["box_iou"] = IOU_COUNTS[path]
+
+
+def check_counts(path, expected):
+    """Each kernel launched as ``expected`` says (0 where it does not say) on ``path``, every plain
+    version never."""
+    counts = DATA_COUNTS[path]
+    for name, (launches, plain) in counts.items():
+        check(launches == expected.get(name, 0), f"{path}: {name} launched {launches} times, not "
+                                                 f"{expected.get(name, 0)}")
+        check(plain == 0, f"{path}: the plain {name} ran {plain} times on the main path")
+    return ", ".join(f"{name} {launches}" for name, (launches, _) in counts.items() if launches) + ", plain 0"
+
+
+def phase_data_set(out_dir):
+    """24. The synthetic COCO set of ``sanity_e2e`` at 640x640, 200 train and 40 val images written
+    as PNG by the port, registered for the phases below."""
+    from basedet_tpu_torch.data import register_dataset
+    from basedet_tpu_torch.tools.sanity_e2e import make_synthetic_coco
+
+    try:
+        import PIL  # noqa: F401  (only JPEG would need it)
+        pil = f"Pillow {PIL.__version__} importable"
+    except ImportError:
+        pil = "no Pillow"
+    t0 = time.perf_counter()
+    train, val = make_synthetic_coco(os.path.join(out_dir, "synth"), n_train=DATA_TRAIN, n_val=DATA_VAL,
+                                     size=DATA_SIZE)
+    register_dataset("smoke_synth_train", *train)
+    register_dataset("smoke_synth_val", *val)
+    log(f"[data] synthetic COCO set, {DATA_TRAIN} train + {DATA_VAL} val PNGs of {DATA_SIZE}x{DATA_SIZE} "
+        f"(3 classes, 1-3 boxes each) written in {time.perf_counter() - t0:.2f} s; os.cpu_count() "
+        f"{os.cpu_count()}; {pil}")
+
+
+def _data_opts(out_dir, epochs, workers):
+    return ["DATA.TRAIN.name", "smoke_synth_train", "DATA.TEST.name", "smoke_synth_val", "DATA.NUM_CLASSES", "3",
+            "DATA.NUM_WORKERS", str(workers), "MODEL.BATCHSIZE", "8", "SOLVER.MAX_EPOCH", str(epochs),
+            "SOLVER.NUM_IMAGE_PER_EPOCH", str(8 * DATA_STEPS), "AUG.TRAIN_SETTING.NO_AUG_EPOCH", "1",
+            "GLOBAL.LOG_INTERVAL", "1", "GLOBAL.OUTPUT_DIR", out_dir,
+            "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "data_ckpt")]
+
+
+@contextlib.contextmanager
+def step_records():
+    """Per call of DetTrainer.train_one_iter: (host seconds of the call, its data_time, its step,
+    the epoch); with GLOBAL.LOG_INTERVAL 1 each call ends by reading the losses, so a call is one
+    step's wall time."""
+    from basedet_tpu_torch.engine.trainer import DetTrainer
+
+    fn, records = DetTrainer.train_one_iter, []
+
+    def wrapper(self, data_iter):
+        t0 = time.perf_counter()
+        fn(self, data_iter)
+        records.append((time.perf_counter() - t0, self.meters["data_time"].latest, self.state.step,
+                        self.progress.epoch))
+
+    DetTrainer.train_one_iter = wrapper
+    try:
+        yield records
+    finally:
+        DetTrainer.train_one_iter = fn
+
+
+def _step_summary(records):
+    wall = sorted(r[0] for r in records)
+    data = sorted(r[1] for r in records)
+    return (f"median data_time {1000 * data[len(data) // 2]:.1f} ms (range {1000 * data[0]:.1f}-"
+            f"{1000 * data[-1]:.1f}), median step {1000 * wall[len(wall) // 2]:.1f} ms wall with the losses "
+            f"read each step (range {1000 * wall[0]:.1f}-{1000 * wall[-1]:.1f})")
+
+
+def phase_data_train(out_dir, card):
+    """25. det_train on full-width YOLOX-S (3 classes, random init) over the synthetic set: mosaic
+    and mixup live in min(8, cores) DataLoader workers, batches of 8 (640x640, then the multiscale
+    resize), 2 epochs of 10 steps, the second without augmentation; EvalHook on the 40 val images
+    with the live and the EMA weights. Per step the matching and IoU kernels once; NMS once per val
+    request; plain versions never. Returns the trainer."""
+    from basedet_tpu_torch.tools import det_train
+
+    workers = min(8, os.cpu_count() or 1)
+    with step_records() as records, kernel_counts("YOLOX-S det_train, synthetic set"):
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", CONFIG, "--device", "cuda", *_data_opts(out_dir, 2, workers)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    loader, mosaic = trainer.dataloader, trainer.dataloader.mosaic_dataset
+    check(steps == 2 * DATA_STEPS, f"det_train on the synthetic set took {steps} steps, not {2 * DATA_STEPS}")
+    counts = check_counts("YOLOX-S det_train, synthetic set", {
+        "dynamic_k_matching": steps, "box_iou": steps, "nms_keep": 2 * DATA_VAL})
+    check(trainer.model.use_l1 and not mosaic.enable_mosaic and not mosaic.enable_mixup,
+          "the no-aug switch did not turn L1 on and mosaic and mixup off")
+    check(loader.forks == (2 if workers else 0), f"the workers were forked {loader.forks} times, not twice")
+    results = trainer.eval_results
+    check(set(results) == {"model", "EMA"} and all("AP" in r and "AP50" in r for r in results.values()),
+          f"EvalHook gave {results}")
+    sizes = sorted({trainer.model.target_size_for_step(s)[0] for s in range(1, steps + 1)})
+    log(f"[data-train] det_train YOLOX-S on the synthetic set, {steps} steps of 8 (mosaic + mixup epoch 1, "
+        f"no-aug epoch 2; multiscale sizes {sizes}), {workers} DataLoader workers (forked {loader.forks} "
+        f"times: at the start and at the no-aug switch), in {seconds:.2f} s with the eval; kernel launches "
+        f"{counts}; {_step_summary(records)}; EvalHook on {DATA_VAL} val requests: live AP "
+        f"{results['model']['AP']:.4f}, EMA AP {results['EMA']['AP']:.4f} (random init) | {card}")
+    return trainer
+
+
+def phase_data_resume(out_dir, card):
+    """26. det_train --resume into the same directory with MAX_EPOCH 3: it restores latest.pt (step
+    20, epoch 2) and trains epoch 3 only, without augmentation; then EvalHook again."""
+    from basedet_tpu_torch.engine.hooks import ResumeHook
+    from basedet_tpu_torch.tools import det_train
+
+    keep = lambda args, out: (args[0].trainer.state.step, args[0].trainer.progress.epoch)
+    workers = min(8, os.cpu_count() or 1)
+    with recording(ResumeHook, "before_train", keep) as restored, \
+            kernel_counts("YOLOX-S det_train --resume, synthetic set"):
+        trainer = det_train.main(["-f", CONFIG, "--device", "cuda", "--resume", *_data_opts(out_dir, 3, workers)])
+    check(restored == [(2 * DATA_STEPS, 3)], f"the resume restored (step, epoch) {restored}, not "
+                                             f"[({2 * DATA_STEPS}, 3)]")
+    check(trainer.state.step == 3 * DATA_STEPS, f"the resumed run ended at step {trainer.state.step}")
+    counts = check_counts("YOLOX-S det_train --resume, synthetic set", {
+        "dynamic_k_matching": DATA_STEPS, "box_iou": DATA_STEPS, "nms_keep": 2 * DATA_VAL})
+    log(f"[data-resume] det_train --resume, MAX_EPOCH 3: restored step {restored[0][0]}, started at epoch "
+        f"{restored[0][1]}, ended at step {trainer.state.step}; kernel launches {counts}; EMA AP "
+        f"{trainer.eval_results['EMA']['AP']:.4f} | {card}")
+
+
+def phase_data_other_models(out_dir, frcnn_weights, cnet_weights, card):
+    """27. Two steps each of Faster R-CNN (ShortestEdgeResize 640-800 and flip, batch 2) and CenterNet
+    (CenterAffine to 512x512, flip and the colour jitters, batch 16) over the synthetic set through
+    DataloaderBuilder and its AUG.TRAIN_VALUE: kernel counts per step as in phases 11 and 14."""
+    from basedet_tpu_torch.tools import det_train
+
+    workers = str(min(8, os.cpu_count() or 1))
+    runs = (("Faster R-CNN", FRCNN_CONFIG, frcnn_weights, FRCNN_TRAIN_B,
+             {"multilevel_roi_align": 2, "multilevel_roi_align_backward": 2, "nms_keep": 2, "box_iou": 4}),
+            ("CenterNet", CNET_CONFIG, cnet_weights, CNET_B, {"scatter_rows": 6}))
+    for name, config, weights, batch, expected in runs:
+        path = f"{name} det_train, synthetic set"
+        opts = ["DATA.TRAIN.name", "smoke_synth_train", "DATA.TEST.name", "dummy", "DATA.NUM_WORKERS", workers,
+                "MODEL.BATCHSIZE", str(batch), "MODEL.WEIGHTS", weights, "SOLVER.MAX_EPOCH", "1",
+                "SOLVER.NUM_IMAGE_PER_EPOCH", str(2 * batch), "GLOBAL.LOG_INTERVAL", "1", "GLOBAL.OUTPUT_DIR",
+                out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, f"data_{name[:4].lower()}_ckpt")]
+        with step_records() as records, kernel_counts(path):
+            trainer = det_train.main(["-f", config, "--device", "cuda", *opts])
+        check(trainer.state.step == 2, f"{path} took {trainer.state.step} steps, not 2")
+        counts = check_counts(path, expected)
+        check(math.isfinite(trainer.meters["total_loss"].latest), f"{path}: non-finite loss")
+        log(f"[data-{name[:4].lower()}] {path}: 2 steps of {batch} through DataloaderBuilder "
+            f"({', '.join(t[0] for t in trainer.cfg.AUG.TRAIN_VALUE)}), {workers} workers; kernel launches "
+            f"{counts}; {_step_summary(records)} | {card}")
+
+
+def _loop_timing(out_dir, workers, dummy, steps=12, warmup=3):
+    """YOLOX-S f32 train steps at batch 8 through DetTrainer.train_one_iter with the losses read
+    every ``steps`` steps only (the host runs ahead), from the real loader over the synthetic set
+    or from DummyLoader: (ms per step, idle share of the device over the timed steps, the median
+    data_time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from basedet_tpu_torch import build_trainer
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(CONFIG)
+    cfg.merge(_data_opts(out_dir, 1, workers) + ["GLOBAL.LOG_INTERVAL", str(steps), "SOLVER.NUM_IMAGE_PER_EPOCH",
+                                                 str(8 * (steps + warmup)), "DATA.TEST.name", "dummy"])
+    if dummy:
+        cfg.merge(["DATA.TRAIN.name", "dummy"])
+    trainer = build_trainer(cfg, "cuda")
+    trainer.init_state()
+    trainer.model.train()
+    data_iter = iter(trainer.dataloader)
+    try:
+        for i in range(warmup):
+            trainer.progress.inner_iter = i + 1
+            trainer.train_one_iter(data_iter)
+        torch.cuda.synchronize()
+        times = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                trainer.progress.inner_iter = warmup + i + 1
+                trainer.train_one_iter(data_iter)
+                times.append(trainer.meters["data_time"].latest)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1000 / steps
+    finally:
+        getattr(trainer.dataloader, "close", lambda: None)()
+    averages = prof.key_averages()
+    key = "self_device_time_total" if len(averages) and hasattr(averages[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    busy = sum(getattr(e, key) for e in averages if e.device_type == torch.autograd.DeviceType.CUDA) / 1000 / steps
+    check(busy > 0, "the profiler saw no device time in the loop timing")
+    times.sort()
+    return wall, 1 - busy / wall, 1000 * times[len(times) // 2]
+
+
+def phase_data_bench(out_dir, card):
+    """28. tools/bench_pipeline at 0, 2, 4 and 8 workers (the real YOLOX loader at 640x640, batches
+    of 8), the serial split of one batch and one batch's copy to the card from pinned and from
+    pageable memory; then YOLOX-S f32 train steps fed by the real loader against DummyLoader's,
+    with the device's idle share (profiler, profiled wall)."""
+    from basedet_tpu_torch.tools import bench_pipeline
+
+    workers = [w for w in (0, 2, 4, 8) if w <= (os.cpu_count() or 1)]
+    t0 = time.perf_counter()
+    results = bench_pipeline.main(["--workers", *map(str, workers), "--size", str(DATA_SIZE), "--batch-size", "8",
+                                   "--batches", "8", "--images", str(DATA_TRAIN), "--device", "cuda",
+                                   "--out", os.path.join(out_dir, "pipe_bench")])
+    by = {r["bench"]: r for r in results}
+    rates = ", ".join(f"{r['workers']} workers {r['images_per_sec']:.1f} img/s ({r['ms_per_batch']:.1f} ms a batch)"
+                      for r in results if r["bench"] == "loader")
+    split, copy = by["split"], by["copy"]
+    log(f"[data-bench] bench_pipeline, YOLOX loader 640x640, batches of 8, {os.cpu_count()} cores, in "
+        f"{time.perf_counter() - t0:.1f} s: {rates}; serial batch: samples {split['ms_samples']:.1f} ms, pack "
+        f"{split['ms_pack']:.2f} ms ({100 * split['pack_share']:.2f}% of the batch's host time), pinning "
+        f"{split['ms_pin']:.2f} ms; one batch's images ({copy['bytes']} B) to the card: pinned non_blocking "
+        f"{copy['pinned_ms']:.3f} ms ({copy['pinned_gb_per_s']:.1f} GB/s), pageable {copy['pageable_ms']:.3f} ms "
+        f"(CUDA events, means of 20) | {card}")
+    n = min(8, os.cpu_count() or 1)
+    real = _loop_timing(out_dir, n, dummy=False)
+    dummy = _loop_timing(out_dir, n, dummy=True)
+    real2 = _loop_timing(out_dir, n, dummy=False)
+    log(f"[data-bench] YOLOX-S f32 train steps at batch 8 (multiscale), losses read once per 12 steps, "
+        + "; ".join(f"{label}: {ms:.1f} ms a step, device idle share {idle:.3f}, median data_time {dt:.1f} ms"
+                    for label, (ms, idle, dt) in (("real loader", real), ("DummyLoader", dummy),
+                                                   ("real loader again", real2)))
+        + f" (profiled wall, {n} workers) | {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -3348,6 +3632,11 @@ def main():
         retina_nms = phase_retina_slice(out_dir, retina_dumped)
         phase_retina_card_vs_cpu(retina_cfg, retina, retina_weights)
         retina_step = phase_retina_train_timing(retina_weights, card)
+        phase_data_set(out_dir)
+        phase_data_train(out_dir, card)
+        phase_data_resume(out_dir, card)
+        phase_data_other_models(out_dir, frcnn_weights, cnet_weights, card)
+        phase_data_bench(out_dir, card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -3365,6 +3654,11 @@ def main():
             ("step_retinanet", f"RetinaNet R50-FPN f32 train step, batch {RETINA_B} of {FRCNN_IMAGE[0]}x"
              f"{FRCNN_IMAGE[1]}", retina_step[1], 3, retina_step[0])])
     iou_by_path = {path: launches for path, (launches, _) in IOU_COUNTS.items()}
+    data = {name: sum(counts[name][0] for counts in DATA_COUNTS.values())
+            for name in next(iter(DATA_COUNTS.values()))}
+    log(f"[report] launches on the data slice's paths: " + "; ".join(
+        f"{path}: " + ", ".join(f"{k} {v[0]}" for k, v in counts.items() if v[0])
+        for path, counts in DATA_COUNTS.items()))
     log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
         f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
         f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
@@ -3375,21 +3669,22 @@ def main():
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
         "replaces": "basedet_tpu/ops/nms_pallas.py:26",
-        "launches": launches + amp_nms + train_nms + frcnn_nms_launches + retina_nms,
+        "launches": launches + amp_nms + train_nms + frcnn_nms_launches + retina_nms + data["nms_keep"],
         **{k: kernel[k] for k in keys},
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
-        "replaces": "basedet_tpu/ops/matching_pallas.py:31", "launches": match_launches + amp_match,
+        "replaces": "basedet_tpu/ops/matching_pallas.py:31",
+        "launches": match_launches + amp_match + data["dynamic_k_matching"],
         **{k: matching[k] for k in keys},
     }, {
         "name": "multilevel_roi_align", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:257 and basedet_tpu/ops/roi_align_pallas.py:54",
-        "launches": train_roi + roi_launches, **{k: roi[k] for k in keys},
+        "launches": train_roi + roi_launches + data["multilevel_roi_align"], **{k: roi[k] for k in keys},
     }, {
         "name": "multilevel_roi_align_backward", "route": "cuda",
         "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94",
-        "launches": train_roi_bwd, **{k: roi_bwd[k] for k in keys},
+        "launches": train_roi_bwd + data["multilevel_roi_align_backward"], **{k: roi_bwd[k] for k in keys},
     }, {
         "name": "fused_gemm_stats", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
         "replaces": "basedet_tpu/ops/fused_bn.py:152", "launches": amp_fused, **{k: fused_fwd[k] for k in keys},
@@ -3399,7 +3694,7 @@ def main():
         **{k: fused_bwd[k] for k in keys},
     }, {
         "name": "scatter_rows", "route": "cuda", "source": "basedet_tpu_torch/csrc/scatter_rows.cu",
-        "replaces": "basedet_tpu/ops/scatter_onehot.py:117", "launches": cnet_launches,
+        "replaces": "basedet_tpu/ops/scatter_onehot.py:117", "launches": cnet_launches + data["scatter_rows"],
         **{k: scatter[k] for k in keys},
     }, {
         "name": "box_iou", "route": "cuda", "source": "basedet_tpu_torch/csrc/iou.cu",

@@ -135,11 +135,14 @@ def test_centernet_det_train_then_det_test_on_cpu(tmp_path):
 
 
 def test_centernet_refuses_a_real_dataset_naming_its_transforms(tmp_path):
-    """Only the synthetic loader is ported: a real dataset is refused, with
-    the augmentations (CenterAffine and the colour jitters) that would come
-    with it."""
+    """A real dataset that is not on disk is refused before anything trains,
+    naming the annotation file it looked for under $BASEDET_DATA_DIR (the
+    loader of COCO-format data, with CenterAffine and the colour jitters, is
+    ported: tests/test_torch_data_train.py trains on a synthetic set)."""
     import pytest
 
     opts = [*centernet_opts(tmp_path), "DATA.TRAIN.name", "coco_2017_train"]
-    with pytest.raises(NotImplementedError, match="CenterAffine, RandomHorizontalFlip, RandomBrightness"):
-        det_train.main(["-f", CENTERNET_CONFIG, "--device", "cpu", *opts])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BASEDET_DATA_DIR", str(tmp_path / "no_data"))
+        with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
+            det_train.main(["-f", CENTERNET_CONFIG, "--device", "cpu", *opts])

@@ -2,8 +2,9 @@
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
 its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN, tiny CenterNet and
-tiny RetinaNet)
-run in a subprocess that cannot import any of them. ``"basedet_tpu_torch"``'s
+tiny RetinaNet, and YOLOX-S on a synthetic PNG set through the data slice)
+run in a subprocess that cannot import any of them, nor Pillow, which only
+JPEG needs. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
 blocked."""
 import json
@@ -17,7 +18,7 @@ import pytest
 
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2")
+BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2", "PIL")
 YOLOX = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
@@ -65,11 +66,33 @@ _TRAIN_SCRIPT = _BLOCK + r"""
 from basedet_tpu_torch.tools import det_train
 
 opts = {opts!r} + ["MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8", "DATA.TRAIN.name", "dummy",
+                   "DATA.TEST.name", "dummy",
                    "SOLVER.MAX_EPOCH", "1", "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
                    "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
 trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *{flags!r}, *opts])
 print(json.dumps({{"steps": trainer.state.step,
                    "loss": trainer.meters["total_loss"].latest,
+                   "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+_DATA_SCRIPT = _BLOCK + r"""
+from basedet_tpu_torch.data import register_dataset
+from basedet_tpu_torch.tools import det_train
+from basedet_tpu_torch.tools.sanity_e2e import make_synthetic_coco
+
+train, val = make_synthetic_coco({out!r}, n_train=8, n_val=4, size=64)
+register_dataset("blocked_train", *train)
+register_dataset("blocked_val", *val)
+opts = ["MODEL.WIDTH_FACTOR", "0.25", "MODEL.BATCHSIZE", "2", "DATA.NUM_CLASSES", "3", "DATA.MAX_INSTANCES", "8",
+        "DATA.TRAIN.name", "blocked_train", "DATA.TEST.name", "blocked_val", "DATA.NUM_WORKERS", "2",
+        "AUG.TRAIN_SETTING.INPUT_SIZE", "(64,64)", "AUG.TRAIN_SETTING.MULTISCALE_RANGE", "(2,2)",
+        "AUG.TRAIN_SETTING.NO_AUG_EPOCH", "1", "TEST.IMG_MIN_SIZE", "64", "TEST.IMG_MAX_SIZE", "64",
+        "SOLVER.MAX_EPOCH", "2", "SOLVER.NUM_IMAGE_PER_EPOCH", "4", "GLOBAL.LOG_INTERVAL", "1",
+        "GLOBAL.OUTPUT_DIR", {out!r}, "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
+trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *opts])
+print(json.dumps({{"steps": trainer.state.step, "forks": trainer.dataloader.forks,
+                   "eval": sorted(trainer.eval_results), "AP": trainer.eval_results["EMA"]["AP"],
                    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
 
@@ -157,6 +180,17 @@ def test_centernet_det_train_runs_without_jax(tmp_path):
 
 def test_retinanet_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "retinanet")
+
+
+def test_det_train_on_synthetic_pngs_runs_without_jax_cv2_or_pil(tmp_path):
+    """The data slice on the card's terms: the synthetic set written and read
+    as PNG by the port, mosaic, mixup and the other augmentations in two
+    DataLoader workers, the no-aug switch, and EvalHook on the val split, with
+    cv2 and Pillow blocked as well as JAX."""
+    out = _run_blocked(_DATA_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=YOLOX))
+    assert out["leaked"] == []
+    assert out["steps"] == 4 and out["forks"] == 2
+    assert out["eval"] == ["EMA", "model"] and -1 <= out["AP"] <= 1
 
 
 def test_det_train_amp_fused_runs_without_jax(tmp_path):
