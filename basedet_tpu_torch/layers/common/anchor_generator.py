@@ -1,5 +1,6 @@
-"""Anchor boxes and point grids (counterparts of ``DefaultAnchorGenerator`` and
-``FastPointGenerator`` in ``basedet_tpu/layers/common/anchor_generator.py``)."""
+"""Anchor boxes and point grids (counterparts of ``DefaultAnchorGenerator``,
+``AnchorPointGenerator`` and ``FastPointGenerator`` in
+``basedet_tpu/layers/common/anchor_generator.py``)."""
 from __future__ import annotations
 
 import math
@@ -60,6 +61,25 @@ class DefaultAnchorGenerator:
             grids = np.stack([gx, gy, gx, gy], axis=1)
             anchors = (grids[:, None, :] + base[None, :, :]).reshape(-1, 4)
             outs.append(torch.from_numpy(anchors).to(device))
+        return outs
+
+
+@dataclass(frozen=True)
+class AnchorPointGenerator:
+    """The FCOS family's anchor points: per level (H·W, 2) xy at (grid +
+    offset) · stride, row-major (y outer, x inner), built in numpy as the JAX
+    package builds them, then moved to the device."""
+
+    strides: Sequence[int] = (8, 16, 32, 64, 128)
+    offset: float = 0.5
+
+    def __call__(self, feat_sizes: Sequence[Tuple[int, int]], device) -> List[torch.Tensor]:
+        outs = []
+        for (h, w), stride in zip(feat_sizes, self.strides):
+            shift = self.offset * stride
+            gx, gy = np.meshgrid(shift + stride * np.arange(w, dtype=np.float32),
+                                 shift + stride * np.arange(h, dtype=np.float32))
+            outs.append(torch.from_numpy(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1)).to(device))
         return outs
 
 

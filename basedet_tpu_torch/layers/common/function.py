@@ -15,6 +15,19 @@ def topk_scores(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return values[..., :k], indices[..., :k]
 
 
+def extract_topk_mask(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k over the last axis: values (..., M) → (the k largest
+    (..., k), largest first; membership mask (..., M) bool), the lowest index
+    first among equal values, as the JAX package's iterative argmax
+    extraction picks them (rows must hold at least k finite values there). A
+    stable sort gives that order on every device; ``torch.topk`` promises
+    none among ties."""
+    k = min(k, values.shape[-1])
+    top, idx = topk_scores(values, k)
+    mask = torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    return top, mask.scatter_(-1, idx, True)
+
+
 def first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Index of the maximum along ``dim``, the lowest index among equal
     maxima, as ``jnp.argmax`` gives it. ``torch.argmax`` and ``torch.max``

@@ -17,12 +17,18 @@ from __future__ import annotations
 
 import pickle
 import zipfile
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from basedet_tpu_torch.layers.common.pre_processing import data_to_input, to_device
+from basedet_tpu_torch.utils.checkpoint import load_matched_weights
+from basedet_tpu_torch.utils.convert_weights import convert_reference_detector_state
+from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.weights import state_dict_from_jax
+
+
+_JAX_COLLECTIONS = {"params", "batch_stats", "frozen"}  # the top keys of a flax variable tree
 
 
 class BaseNet:
@@ -70,20 +76,35 @@ class BaseNet:
             out["gt_boxes"] = to_device(batch["gt_boxes"], self.device, torch.float32)
         return out
 
-    def load_weights(self, weight_path: str, ema: bool = False) -> None:
-        """Load a ``torch.save``d state_dict, a training checkpoint of the
-        port's ``CheckpointHook`` (its live weights, or with ``ema`` its EMA
-        parameters beside the live BN statistics), or a pickle of the JAX
-        variable tree with numpy leaves. Keys and shapes must match exactly."""
+    def load_weights(self, weight_path: str, ema: bool = False) -> Optional[Dict[str, Any]]:
+        """Load a training checkpoint of the port's ``CheckpointHook`` exactly
+        (its live weights, or with ``ema`` its EMA parameters beside the live
+        BN statistics), or load by matching (``utils/checkpoint.py``, as the
+        JAX package loads ``MODEL.WEIGHTS`` and ``det_test``'s payloads): a
+        ``torch.save``d state_dict, a pickle of the JAX variable tree with
+        numpy leaves, or a pickled flat state dict in the reference's
+        (torch/MegEngine) layout, e.g. a backbone-only ImageNet checkpoint.
+        Flat states go through the reference detector renames first
+        (``utils/convert_weights.py``), which leave the port's own names as
+        they are. Returns the matcher's stats, or None for a training
+        checkpoint."""
         if zipfile.is_zipfile(weight_path):
             sd = torch.load(weight_path, map_location="cpu", weights_only=True)
         else:
             with open(weight_path, "rb") as f:
-                sd = state_dict_from_jax(pickle.load(f), self.module.state_dict())
-        if "model" in sd:  # a training checkpoint
+                sd = pickle.load(f)
+        if sd and set(sd) <= _JAX_COLLECTIONS:
+            sd = state_dict_from_jax(sd)
+        if "model" in sd and "ema" in sd:  # a training checkpoint
             if ema and sd.get("ema") is None:
                 raise ValueError(f"{weight_path} was trained without EMA")
             sd = {**sd["model"], **sd["ema"]} if ema else sd["model"]
-        elif ema:
+            self.module.load_state_dict(sd, strict=True)
+            return None
+        if ema:
             raise ValueError(f"{weight_path} is not a training checkpoint: it holds no EMA weights")
-        self.module.load_state_dict(sd, strict=True)
+        matched, stats = load_matched_weights(self.module.state_dict(), convert_reference_detector_state(sd))
+        self.module.load_state_dict(matched, strict=True)
+        logger.info(f"loaded {weight_path} by matching: {stats['matched']} matched, "
+                    f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
+        return stats

@@ -64,9 +64,13 @@ class RetinaNetModule(nn.Module):
                        m.FPN.OUT_CHANNELS, m.FPN.NORM, top_block="p6p7",
                        top_block_in_feature=m.FPN.TOP_BLOCK_IN_FEATURE, device=device)
         self.level_names = [f"p{int(math.log2(s))}" for s in m.FPN.STRIDES]
-        self.head = RetinaNetHead(m.FPN.OUT_CHANNELS, num_anchors, cfg.DATA.NUM_CLASSES,
-                                  len(self.level_names), m.HEAD.NUM_CONVS, m.HEAD.CLS_PRIOR_PROB,
-                                  m.HEAD.get("SHARE_PARAM", True), device=device)
+        self.head = self.make_head(cfg, num_anchors, device)
+
+    def make_head(self, cfg, num_anchors: int, device) -> nn.Module:
+        m = cfg.MODEL
+        return RetinaNetHead(m.FPN.OUT_CHANNELS, num_anchors, cfg.DATA.NUM_CLASSES, len(self.level_names),
+                             m.HEAD.NUM_CONVS, m.HEAD.CLS_PRIOR_PROB, m.HEAD.get("SHARE_PARAM", True),
+                             device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

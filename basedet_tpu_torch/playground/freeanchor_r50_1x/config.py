@@ -1,0 +1,9 @@
+"""FreeAnchor R50-FPN 800px 1x, the port's config (user config protocol — subclass and override)."""
+from basedet_tpu_torch.configs import FreeAnchorConfig
+
+
+class Cfg(FreeAnchorConfig):
+    def __init__(self):
+        super().__init__()
+        self.GLOBAL.OUTPUT_DIR = "logs/freeanchor_r50_1x"
+        self.GLOBAL.CKPT_SAVE_DIR = "logs/freeanchor_r50_1x/ckpt"

@@ -24,6 +24,12 @@ A ``Dense`` kernel's rows keep their order: the port's box head flattens
 RoIAlign's channels-last (ph, pw, C) output in the same (h, w, c) order as
 the flax ``fc1``.
 
+The FCOS family's point head adds flax ``GroupNorm`` modules
+(``cls_gn_<i>``, ``bbox_gn_<i>``, and ``cls_gn_l<lv>_<i>``,
+``bbox_gn_l<lv>_<i>`` per level): ``scale``/``bias`` → ``weight``/``bias`` of
+``nn.GroupNorm``, no transpose; and its top-level ``scales`` parameter (one
+per level) keeps its name and shape.
+
 RetinaNet's FPN top-block convs (``fpn_p6``, ``fpn_p7``) and its head, in
 either ``share_param`` form (``cls_subnet_<i>``, ``cls_score``, ... or
 ``cls_subnet_l<lv>_<i>``, ``cls_score_l<lv>``, ...), are plain convs under
@@ -41,6 +47,8 @@ _BN = "BatchNorm_0"
 _BN_NAME = re.compile(r"BatchNorm_\d+")
 _TRANSPOSED = "up_sample"
 _FROZEN_BN = "FrozenBatchNorm_"
+_GN_NAME = re.compile(r"(cls|bbox)_gn(_l\d+)?_\d+")
+_PASSED = ("scales",)  # params leaves that keep their name and layout
 _TO_TORCH = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -57,6 +65,8 @@ _TO_JAX = {
     ("weight", None): ("params", "kernel"),
     ("bias", None): ("params", "bias"),
     ("weight", "bn"): ("params", "scale"),
+    ("weight", "gn"): ("params", "scale"),
+    ("bias", "gn"): ("params", "bias"),
     ("bias", "bn"): ("params", "bias"),
     ("running_mean", "bn"): ("batch_stats", "mean"),
     ("running_var", "bn"): ("batch_stats", "var"),
@@ -99,12 +109,13 @@ def state_dict_from_jax(
     several = {tuple(path[1:-2]) for path, _ in leaves
                if len(path) > 2 and _BN_NAME.fullmatch(path[-2]) and path[-2] != _BN}
     for (collection, *mods, leaf), value in leaves:
-        name = _TO_TORCH.get((collection, leaf))
-        if name is None or not mods:
+        passed = collection == "params" and leaf in _PASSED
+        name = leaf if passed else _TO_TORCH.get((collection, leaf))
+        if name is None or not (mods or passed):
             raise KeyError(f"no torch counterpart for {'/'.join([collection, *mods, leaf])}")
         if leaf == "kernel":
             value = _kernel_to_torch("/".join(mods), value, mods[-1] == _TRANSPOSED)
-        is_bn = bool(_BN_NAME.fullmatch(mods[-1]))
+        is_bn = bool(mods) and bool(_BN_NAME.fullmatch(mods[-1]))
         names = ["bn" if m == _BN and tuple(mods[:i]) not in several else m
                  for i, m in enumerate(mods)]
         key = ".".join(names + [name])
@@ -135,10 +146,13 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
             kind = "bn"
         elif mods and mods[-1].startswith(_FROZEN_BN):
             kind = "frozen"
+        elif mods and _GN_NAME.fullmatch(mods[-1]):
+            kind = "gn"
         if name == "num_batches_tracked" and kind == "bn":
             continue
-        target = _TO_JAX.get((name, kind))
-        if target is None or not mods:
+        passed = name in _PASSED and kind is None
+        target = ("params", name) if passed else _TO_JAX.get((name, kind))
+        if target is None or not (mods or passed):
             raise KeyError(f"no JAX counterpart for {key}")
         collection, leaf = target
         value = tensor.detach().cpu().numpy()

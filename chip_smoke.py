@@ -7,7 +7,7 @@ Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
      (TF32 off) by themselves, or under the bf16 policy where a phase's
-     config asks for it, and phases 7, 8, 9c, 12, 12b, 17 and 22 hold them
+     config asks for it, and phases 7, 8, 9c, 12, 12b, 17, 22 and 29 hold them
      to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
      csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
@@ -198,14 +198,51 @@ Run from the root of the repository. Phases, each of which raises on failure:
      and from pageable memory; YOLOX-S f32 train steps fed by the real
      loader against DummyLoader (real, dummy, real), with the device's idle
      share;
- 29. print the kernel report (eight kernels in six sources; the IoU's
-     launches path by path, the data slice's per path), the card, and the
+ 29. FCOS R50-FPN (full width, random weights from a seed: frozen BN and
+     GroupNorm affine and every bias spread, class biases by 2, box biases
+     raised so that boxes overlap): det_train, 2 steps of 2 images of
+     800x1333, with MODEL.WEIGHTS a backbone-only R50 pickle in the
+     reference's ImageNet layout (``utils/reference_layout.py``, values from
+     a seed): loaded by matching, 265 trunk leaves matched, the FPN and head
+     missing (left at their init), fc unused, the stem and frozen BN buffers
+     equal to the file's after the run; no kernel on its train path;
+     det_test on the spread weights over DummyLoader's 8 requests (the
+     weights load by matching with nothing missing or unused; NMS once a
+     request at K = 5000, suppressing; everything else 0); card against CPU, f32: the
+     head outputs per level, the detections, then one train forward and
+     backward at batch 2: point labels, losses, gradient norm;
+ 30. ATSS R50-FPN: det_train 2 steps (#10 once a step: the gts against the
+     22,400 shared pseudo-anchors), #10 held bit for bit to its plain
+     version on the first step's own arguments, two runs bit-equal, and
+     timed; det_test over 8 requests as in 29;
+ 31. OTA R50-FPN (MATCHING "topk"): det_train 2 steps (#2 once a step over
+     (2, 100, 22,400): rows past the staged 16,384, so streamed; costs with
+     the 1e6 and 1e9 penalties), #2 held exactly to its plain version on the
+     first step's own cost, ious and valid, two runs equal, and timed
+     (events and profiler device time); det_test over 8 requests; one train
+     step with MATCHING "sinkhorn" on the card (no kernel, finite losses);
+ 32. FreeAnchor R50-FPN: det_train 2 steps (#10 twice a step: the gts
+     against each image's 201,600 predicted boxes, then against the shared
+     anchors), both calls held bit for bit and timed; det_test over 8
+     requests;
+ 33. each of the four: one f32 train step at batch 2 of 800x1333 split into
+     backbone+FPN, head, assignment, losses, backward and SGD, with peak
+     memory above what the script held before the model was built; the
+     head's layers' device times and allocations, and the head with TF32
+     allowed (FreeAnchor: its two stable sorts of (2, 100, 201,600) timed
+     beside torch.topk);
+ 34. each of the four: inference at batch 1 of 800x1333, split into the
+     network, the per-level top-1000 + decode and NMS, with the request's
+     peak memory above what was held before it, plus the weights;
+ 35. print the kernel report (eight kernels in six sources; every kernel's
+     launches path by path, the new paths included), the card, and the
      result line.
 """
 import argparse
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -3581,6 +3618,548 @@ def phase_data_bench(out_dir, card):
         + f" (profiled wall, {n} workers) | {card}")
 
 
+# -- the FCOS family (FCOS, ATSS, OTA) and FreeAnchor: det_train and det_test at full width ------
+
+NEW_MODELS = {  # model: (the port's config, {kernel: launches per det_train step})
+    "FCOS": ("basedet_tpu_torch/playground/fcos_r50_1x/config.py", {}),
+    "ATSS": ("basedet_tpu_torch/playground/atss_r50_1x/config.py", {"box_iou": 1}),
+    "OTA": ("basedet_tpu_torch/playground/ota_r50_1x/config.py", {"dynamic_k_matching": 1}),
+    "FreeAnchor": ("basedet_tpu_torch/playground/freeanchor_r50_1x/config.py", {"box_iou": 2}),
+}
+NEW_B, NEW_STEPS, NEW_REQUESTS, NEW_REPS = 2, 2, 8, 5  # batch, det_train steps, DummyLoader's det_test requests, reps
+POINTS = sum(h * w for h, w in RETINA_LEVELS)  # 22,400 points at 800x1344, OTA's matching M
+
+
+@torch.no_grad()
+def randomise_new(name, module, generator):
+    """FreeAnchor: as ``randomise_retina``. The point head's models: the frozen BN statistics and
+    affine, the GroupNorm affine and every bias drawn from generator as ``randomise_retina`` draws
+    them, the class biases spread by 2 around the prior, and the box biases raised by 2, so that an
+    offset spans about 2 strides (relu(raw · scale) · stride) and same-class neighbours overlap:
+    NMS then suppresses, and the scores clear the 0.05 threshold."""
+    from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
+
+    if name == "FreeAnchor":
+        return randomise_retina(module, generator)
+    for m in module.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+        if isinstance(m, (FrozenBatchNorm, torch.nn.GroupNorm)):
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if getattr(m, "bias", None) is not None:
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+    head = module.head
+    head.cls_score.bias.add_(torch.empty_like(head.cls_score.bias).normal_(0.0, 2.0, generator=generator))
+    head.bbox_pred.bias.add_(2.0)
+
+
+def _new_counts(path, expected):
+    """``check_counts``, its text beginning with "none" where no kernel launched."""
+    counts = check_counts(path, expected)
+    return "none" + counts if counts.startswith(",") else counts
+
+
+def _new_opts(out_dir):
+    return ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "GLOBAL.OUTPUT_DIR", out_dir]
+
+
+def _new_train_opts(out_dir, name, weights):
+    return ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE",
+            str(FRCNN_IMAGE).replace(" ", ""), "MODEL.BATCHSIZE", str(NEW_B), "SOLVER.MAX_EPOCH", "1",
+            "SOLVER.NUM_IMAGE_PER_EPOCH", str(NEW_STEPS * NEW_B), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS",
+            weights, "GLOBAL.OUTPUT_DIR", out_dir, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, f"{name}_ckpt")]
+
+
+def make_new_weights(out_dir, name):
+    """Full-width ``name`` on the card with random weights from SEED, spread by ``randomise_new``,
+    saved as a state_dict. Returns (cfg for det_test, model, path)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(NEW_MODELS[name][0])
+    cfg.merge(_new_opts(out_dir))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise_new(name, model.module, generator)
+    weights = os.path.join(out_dir, f"{name.lower()}_r50_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    m = cfg.MODEL
+    log(f"[{name.lower()}] {NEW_MODELS[name][0]}: {m.BACKBONE.NAME} (FrozenBN, freeze_at {m.BACKBONE.FREEZE_AT}), "
+        f"FPN P3-P7 {m.FPN.OUT_CHANNELS}, {m.HEAD.NUM_CONVS}-conv head"
+        f"{' with GroupNorm(32)' if m.HEAD.get('WITH_NORM', name != 'FreeAnchor') else ''}, "
+        f"{cfg.DATA.NUM_CLASSES} classes, {sum(p.numel() for p in model.module.parameters())} parameters, "
+        f"random from seed {SEED}")
+    return cfg, model, weights
+
+
+def make_backbone_pickle(out_dir):
+    """``utils/reference_layout.py``'s backbone-only R50 in the ImageNet naming (MegEngine BN
+    shapes, the ``fc`` classifier), pickled, its values drawn from a seed at sensible scales:
+    convolutions lecun-normal, BN statistics and affine as ``randomise_retina`` draws them."""
+    import pickle
+
+    from basedet_tpu_torch.utils.reference_layout import reference_r50_backbone_state
+
+    rng = np.random.RandomState(SEED + 20)
+
+    def fill(name, shape):
+        if name.endswith("running_mean"):
+            return rng.normal(0.0, 0.2, shape)
+        if name.endswith("running_var"):
+            return rng.uniform(0.5, 2.0, shape)
+        if shape[0] == 1:  # a BN's (1, C, 1, 1) weight or bias
+            return rng.uniform(0.5, 1.5, shape) if name.endswith("weight") else rng.normal(0.0, 0.3, shape)
+        return rng.normal(0.0, math.sqrt(1.0 / int(np.prod(shape[1:]))), shape)
+
+    state = reference_r50_backbone_state(fill)
+    path = os.path.join(out_dir, "r50_backbone_reference_layout.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    return state, path
+
+
+def phase_new_train(out_dir, name, weights, backbone=None):
+    """det_train on full-width ``name``, NEW_STEPS steps of NEW_B images of 800x1333, every kernel's
+    and plain version's count zeroed just before and read just after. ATSS and FreeAnchor keep their
+    IoU calls' arguments, OTA its matching calls'. With ``backbone`` (the pickle of
+    ``make_backbone_pickle`` and its state), MODEL.WEIGHTS is that file: the matcher must load the
+    trunk (its frozen BN buffers and stem are checked after the run) and leave the FPN and head at
+    their init. Returns (the kernels' calls, the dumped weights)."""
+    from basedet_tpu_torch.layers.common import matcher
+    from basedet_tpu_torch.models import det
+    from basedet_tpu_torch.models.base_net import BaseNet
+    from basedet_tpu_torch.models.det import atss, free_anchor
+    from basedet_tpu_torch.tools import det_train
+
+    config, per_step = NEW_MODELS[name]
+    path = f"{name} det_train"
+    owner, attr = {"ATSS": (atss, "box_iou"), "FreeAnchor": (free_anchor, "box_iou"),
+                   "OTA": (matcher, "dynamic_k_matching")}.get(name, (None, None))
+    keep_args = lambda args, out: tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    with (recording(owner, attr, keep_args) if owner else contextlib.nullcontext([])) as calls, \
+            recording(getattr(det, name), "get_losses", keep_losses) as losses, \
+            recording(BaseNet, "load_weights", lambda args, out: out) as loads, kernel_counts(path):
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", config, "--device", "cuda",
+                                  *_new_train_opts(out_dir, name, backbone[1] if backbone else weights)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    check(steps == NEW_STEPS and len(losses) == NEW_STEPS, f"{name} det_train took {steps} steps, not {NEW_STEPS}")
+    counts = _new_counts(path, {k: n * steps for k, n in per_step.items()})
+    check(len(calls) == sum(per_step.values()) * steps, f"{name}: {len(calls)} recorded kernel calls")
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite {name} losses {losses}")
+    check(all(step["total_loss"] > 0 for step in losses), f"{name} losses {losses}")
+    ckpt = os.path.join(out_dir, f"{name}_ckpt")
+    for f in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, f)), f"{name} det_train wrote no {f}")
+    loaded = ""
+    if backbone:
+        state, _ = backbone
+        (stats,) = loads
+        module = trainer.model.module
+        keys = list(module.state_dict())
+        trunk = sum(k.startswith("bottom_up.") for k in keys)
+        check(stats["matched"] == trunk and stats["unused"] == ["fc.weight", "fc.bias"]
+              and sorted(stats["missing"]) == sorted(k for k in keys if not k.startswith("bottom_up.")),
+              f"the backbone-only checkpoint loaded as {stats['matched']} matched, {len(stats['missing'])} missing, "
+              f"unused {stats['unused']}")
+        frozen = {"bottom_up.conv1.weight": "conv1.weight",  # frozen (FREEZE_AT 2): SGD leaves it
+                  **{f"bottom_up.FrozenBatchNorm_0.{f}": f"bn1.{f}" for f in ("weight", "bias", "running_mean",
+                                                                               "running_var")},
+                  **{f"bottom_up.layer4_2.FrozenBatchNorm_2.{f}": f"layer4.2.bn3.{f}" for f in ("weight",
+                                                                                            "running_var")}}
+        sd = module.state_dict()
+        for k, ref in frozen.items():
+            check(torch.equal(sd[k].cpu(), torch.from_numpy(state[ref]).reshape(sd[k].shape)),
+                  f"{k} is not the checkpoint's {ref}")
+        loaded = (f"; MODEL.WEIGHTS the backbone-only reference-layout R50 pickle: {stats['matched']} matched (the "
+                  f"trunk), {len(stats['missing'])} missing (FPN and head, left at their init), unused "
+                  f"{stats['unused']}; the stem and frozen BN buffers equal the file's after the run")
+    per = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items()) for step in losses)
+    shapes = ", ".join(" x ".join(str(tuple(a.shape)) for a in c[:2]) for c in calls[:sum(per_step.values())])
+    log(f"[{name.lower()}-train] det_train {name} R50-FPN, {steps} steps of {NEW_B} images {FRCNN_IMAGE[0]}x"
+        f"{FRCNN_IMAGE[1]} (padded 800x1344), f32, in {seconds:.2f} s; kernel launches {counts}"
+        f"{f' (first step at {shapes})' if shapes else ''}; losses per step: {per}{loaded}")
+    return calls, os.path.join(ckpt, "dumped_model.pt")
+
+
+def _iou_timing(name, b1, b2, card):
+    """Kernel #10 on one case, logged: device time (profiler), events, the plain version's events,
+    the bound."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou, box_iou_plain
+
+    call = lambda: box_iou(b1, b2)
+    ms, device = cuda_ms(call, reps=20, warmup=3), _iou_device_ms(call)
+    plain_ms = cuda_ms(lambda: box_iou_plain(b1, b2), reps=5, warmup=1)
+    bound_ms, bound_by = iou_bound(b1, b2)
+    log(f"[iou] {name} {tuple(b1.shape)} x {tuple(b2.shape)}: kernel device {device:.4f} ms (profiler), events "
+        f"{ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), device time at "
+        f"{bound_ms / device:.2f} of it | {card}")
+
+
+def phase_new_kernels(name, calls, card):
+    """The kernel of ``name``'s det_train against its plain version on the first step's own
+    arguments, two runs equal, and timed: OTA's matching (exactly; M = 22,400, past the staged
+    row, so streamed), ATSS's and FreeAnchor's IoUs (bit for bit)."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou
+    from basedet_tpu_torch.ops.matching_kernel import MAX_STAGED, MAX_TOPK, dynamic_k_matching
+
+    if name == "OTA":
+        cost, ious, valid, k = calls[0]
+        check(tuple(cost.shape) == (NEW_B, 100, POINTS) and POINTS > MAX_STAGED and k == MAX_TOPK,
+              f"OTA's matching took {tuple(cost.shape)}, k {k}: not the streamed full-width call")
+        check(bool(((cost > 5e8) == ~valid[..., None]).all()) and bool((cost[valid] > 5e5).any()),
+              "the step's cost carries no 1e6/1e9 penalties")
+        _check_matching("OTA step 1", cost, ious, valid)
+        again = [dynamic_k_matching(cost, ious, valid, k) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*again)), "two runs of the matching kernel differ on OTA's step")
+        case = f"OTA det_train step 1 ({NEW_B}, 100, {POINTS}), streamed"
+        matching_timing([(case, *(a.cpu().numpy() for a in (cost, ious, valid)))], card)
+        log(f"[match] OTA step 1: the kernel equal to the plain version and two runs equal, "
+            f"{int(valid.sum())} valid gts, {int(again[0][1].sum())} foreground points")
+        return
+    per_step = NEW_MODELS[name][1]["box_iou"]
+    for i, (b1, b2) in enumerate(calls[:per_step]):
+        err, bits = check_iou_case(b1, b2)
+        repeat = torch.equal(box_iou(b1, b2).view(torch.int32), box_iou(b1, b2).view(torch.int32))
+        form = "per image" if b2.dim() == 3 else "shared"
+        log(f"[iou] {name} step 1 call {i + 1} ({form}): {tuple(b1.shape)} x {tuple(b2.shape)}: max |kernel - plain| "
+            f"{err:.3e}, bit-equal {bits}, two runs bit-equal {repeat}")
+        check(bits and repeat, f"the IoU kernel on {name}'s call {i + 1}: bit-equal {bits}, repeat {repeat}")
+        _iou_timing(f"{name} call {i + 1} ({form})", b1, b2, card)
+
+
+def phase_new_slice(out_dir, name, weights):
+    """det_test on full-width ``name`` over NEW_REQUESTS requests of one 800x1333 image, the counts
+    zeroed just before and read just after: the port's own weights load by matching with nothing
+    missing or unused, NMS once a request at K = 5000, suppressing, every other kernel and every
+    plain version 0 times."""
+    from basedet_tpu_torch.models.base_net import BaseNet
+    from basedet_tpu_torch.ops import nms as nms_ops
+    from basedet_tpu_torch.tools import det_test
+
+    path = f"{name} det_test"
+    seen = lambda args, keep: (args[0].shape[1], list(zip(args[1].sum(1).tolist(), keep.sum(1).tolist())))
+    t0 = time.perf_counter()
+    with recording(nms_ops, "nms_keep", seen) as calls, recording(BaseNet, "load_weights", lambda a, out: out) \
+            as loads, kernel_counts(path):
+        results = det_test.main(["-f", NEW_MODELS[name][0], "-w", weights, "--device", "cuda", *_new_opts(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(loads) == 1 and loads[0]["matched"] > 0 and loads[0]["missing"] == [] == loads[0]["unused"],
+          f"{name} det_test loaded {os.path.basename(weights)} as {loads}")
+    counts = _new_counts(path, {"nms_keep": NEW_REQUESTS})
+    with open(os.path.join(out_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), f"non-finite {name} detections")
+    check({r["image_id"] for r in records} == set(range(NEW_REQUESTS)), f"not every {name} request was answered")
+    check(all(k == RETINA_FINAL_K for k, _ in calls), f"{name}'s NMS took {[k for k, _ in calls]} candidates")
+    check(any(k < v for _, call in calls for v, k in call), f"{name}'s NMS suppressed nothing on the main path")
+    log(f"[{name.lower()}] det_test {name} R50-FPN with {os.path.basename(weights)} on {NEW_REQUESTS} requests of "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} (weights by matching: {loads[0]['matched']} matched, 0 missing, 0 "
+        f"unused): {results}, {len(records)} finite detections in {seconds:.2f} s; "
+        f"kernel launches {counts}, NMS at K = {RETINA_FINAL_K}; NMS kept per image {_kept_range([c for _, c in calls])}")
+
+
+def _new_train_setup(name, weights, device, extra=()):
+    """Full-width ``name`` in train mode with ``weights``, its train state and step, and the first
+    synthetic batch of NEW_B images of 800x1333."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.solver import DetSolver
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(NEW_MODELS[name][0])
+    cfg.merge([*_new_train_opts(".", name, weights), *extra])
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    solver = DetSolver.build(cfg)
+    state = TrainState(model.train(), solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def phase_ota_sinkhorn(weights):
+    """One OTA train step on the card with MATCHING "sinkhorn" (plain PyTorch, no kernel): finite
+    losses, every kernel's count 0."""
+    path = "OTA sinkhorn train step"
+    model, state, step, batch = _new_train_setup("OTA", weights, "cuda", ["MODEL.MATCHING", "sinkhorn"])
+    check(model.matching == "sinkhorn", "MODEL.MATCHING did not reach the model")
+    with kernel_counts(path):
+        losses = {k: float(v) for k, v in step(state, batch).items()}
+        torch.cuda.synchronize()
+    counts = _new_counts(path, {})
+    check(all(math.isfinite(v) for v in losses.values()) and losses["total_loss"] > 0, f"Sinkhorn losses {losses}")
+    log(f"[ota] one train step with MATCHING sinkhorn on the card, batch {NEW_B} of {FRCNN_IMAGE[0]}x"
+        f"{FRCNN_IMAGE[1]}: {', '.join(f'{k} {v:.4f}' for k, v in losses.items())}; kernel launches {counts}")
+
+
+def _fcos_train_pass(model, batch):
+    """One FCOS train forward and backward at full width: point labels, losses, gradient norm, on
+    the CPU."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    model.train()
+    with full_f32():
+        x = model.pre_process(batch, train=True)
+        head_out = model.module(x["image"])
+        labels, gt_offsets, gt_ctr = model.ground_truth(model.points(head_out[0]), x["gt_boxes"],
+                                                        x["img_info"][:, 4].long())
+        losses = model.losses(*(torch.cat(v, dim=1) for v in model.flatten(*head_out)), labels, gt_offsets, gt_ctr)
+        model.module.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+    norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.module.parameters()
+                                if p.grad is not None)))
+    return labels.cpu(), {k: float(v.detach()) for k, v in losses.items()}, norm
+
+
+def phase_fcos_card_vs_cpu(cfg, model, weights):
+    """FCOS card against CPU, f32, TF32 off, on the same weights: det_test's first request, the head
+    outputs per level (max |diff| over max |value| within HEAD_ATOL) and the detections (at least
+    FRCNN_AGREE matched); then one train forward and backward at batch NEW_B on the same batch: the
+    points' labels (LABEL_AGREE), losses (LOSS_RTOL) and gradient norm (GRAD_NORM_RTOL)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import build_test_dataloader
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.utils.compare import match_detections
+
+    cpu = build_model(cfg, "cpu")
+    cpu.load_weights(weights)
+    request = next(iter(build_test_dataloader(cfg)))
+    request = {k: request[k] for k in ("data", "im_info")}
+    t0 = time.perf_counter()
+    heads, dets = [], []
+    for m in (cpu, model):
+        with torch.inference_mode(), full_f32():
+            out = m.module.eval()(m.pre_process(request)["image"])
+        heads.append({f"{kind} p{lv + 3}": x.cpu() for kind, xs in zip(("logits", "offsets", "ctrness"), out)
+                      for lv, x in enumerate(xs)})
+        dets.append({k: v.cpu().numpy() for k, v in m.inference(request).items()})
+    head_err = {k: float((heads[1][k] - v).abs().max() / v.abs().max()) for k, v in heads[0].items()}
+    frac = match_detections(dets[0], dets[1])
+    cpu_model, _, _, batch = _new_train_setup("FCOS", weights, "cpu")
+    c_labels, c_losses, c_norm = _fcos_train_pass(cpu_model, batch)
+    cpu_s = time.perf_counter() - t0
+    g_labels, g_losses, g_norm = _fcos_train_pass(_new_train_setup("FCOS", weights, "cuda")[0], batch)
+    agree = float((g_labels == c_labels).float().mean())
+    rel = {k: abs(g_losses[k] - v) / max(abs(v), 1e-12) for k, v in c_losses.items()}
+    norm_rel = abs(g_norm - c_norm) / c_norm
+    log(f"[parity] FCOS card vs CPU, f32 (CPU runs {cpu_s:.1f} s): one {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} image, max "
+        f"|diff| over max |value| per head output: worst {max(head_err.values()):.3e} "
+        f"({max(head_err, key=head_err.get)}; tol {HEAD_ATOL}); {int(dets[0]['valid'].sum())} CPU / "
+        f"{int(dets[1]['valid'].sum())} card detections, {frac:.4f} matched (label, IoU >= 0.999, |dscore| <= "
+        f"1e-4); train pass at batch {NEW_B}: point labels agree on {agree:.6f} of {c_labels.numel()} (min "
+        f"{LABEL_AGREE}; CPU {int((c_labels > 0).sum())} foreground); losses card "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in g_losses.items())} / CPU "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in c_losses.items())}, worst rel diff {max(rel.values()):.3e} (tol "
+        f"{LOSS_RTOL}); gradient norm {g_norm:.6f} card / {c_norm:.6f} CPU, rel diff {norm_rel:.3e} (tol "
+        f"{GRAD_NORM_RTOL})")
+    check(max(head_err.values()) <= HEAD_ATOL, f"FCOS head outputs differ between card and CPU: {head_err}")
+    check(np.isfinite(dets[1]["boxes"]).all() and dets[1]["valid"].any(), "card detections empty or non-finite")
+    check(frac >= FRCNN_AGREE, f"only {frac:.3f} of the CPU's FCOS detections matched on the card")
+    check(agree >= LABEL_AGREE and int((c_labels > 0).sum()) > 0, f"FCOS point labels agree on {agree:.6f}")
+    check(max(rel.values()) <= LOSS_RTOL, f"FCOS train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"FCOS gradient norms differ by {norm_rel:.3e}")
+
+
+def _layer_profile(module, *args):
+    """One forward of ``module`` with gradients, in IEEE f32 as the step runs it, after one
+    unrecorded forward: {child: (the most one call of that child allocated above what was allocated
+    when it began (its output, what autograd saves, its workspaces), GiB; the device time of all
+    its calls, ms, CUDA events around each)}."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    seen, hooks = {}, []
+
+    def pre(_, __):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pre.base = torch.cuda.memory_allocated()
+        pre.start = torch.cuda.Event(enable_timing=True)
+        pre.start.record()
+
+    def post(name):
+        def hook(_, __, ___):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            gib, ms = seen.get(name, (0.0, 0.0))
+            seen[name] = (max(gib, (torch.cuda.max_memory_allocated() - pre.base) / 2**30),
+                          ms + pre.start.elapsed_time(end))
+        return hook
+
+    with torch.enable_grad(), full_f32():
+        module(*args)
+        for name, child in module.named_children():
+            hooks += [child.register_forward_pre_hook(pre), child.register_forward_hook(post(name))]
+        try:
+            module(*args)
+        finally:
+            for h in hooks:
+                h.remove()
+    return seen
+
+
+def _new_stage_times(name, model, batch, timed):
+    """The stages of ``name``'s train step, each timed alone on the previous one's outputs; the
+    most the head's forward (its outputs and saved activations, workspaces) allocates above the
+    features; its layers' device times summed over the levels and over the layers of one kind
+    (the four ``cls_subnet_<i>``, ...), and the three layers whose one call allocates the most; and the head's forward with TF32 allowed
+    (torch's default for cuDNN): ({stage: ms}, a note). Every stage's tensors are gone when it
+    returns, so the step timed after it starts from the model, its state and the batch alone."""
+    from basedet_tpu_torch.layers.common.function import topk_scores
+    from basedet_tpu_torch.ops.iou_kernel import box_iou
+
+    m = model.module
+    x = model.pre_process(batch, train=True)
+    gt, nv = x["gt_boxes"], x["img_info"][:, 4].long()
+    t = {}
+    t["backbone+FPN"], feats = timed(lambda: m.features(x["image"]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t["head"], head_out = timed(lambda: m.head(feats))
+    head_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        head_tf32 = cuda_ms(lambda: m.head(feats), reps=NEW_REPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    layers = _layer_profile(m.head, feats)
+    by_mem = sorted(layers.items(), key=lambda kv: -kv[1][0])[:3]
+    by_kind = {}  # cls_subnet_0 .. cls_subnet_3 → cls_subnet
+    for k, (_, ms) in layers.items():
+        kind = k.rstrip("0123456789").rstrip("_")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    head_note = (f"; the head's forward allocates up to {head_peak:.2f} GiB above the features, the most in one "
+                 f"call of {', '.join(f'{k} {v[0]:.2f}' for k, v in by_mem)} GiB; its layers' device time "
+                 f"{sum(v[1] for v in layers.values()):.3f} ms over the 5 levels (CUDA events around each call), "
+                 f"by kind {', '.join(f'{k} {v:.3f}' for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]))} "
+                 f"ms (each call synchronised); the head's forward with TF32 allowed {head_tf32:.3f} ms")
+    if name == "FreeAnchor":
+        anchors = torch.cat(model.anchors(head_out[0]), dim=0)
+        logits, offsets = (torch.cat(v, dim=1) for v in model.flatten(*head_out))
+        t["assignment"], a = timed(lambda: model.assign(anchors, offsets.detach(), gt, nv))
+        t["losses"], _ = timed(lambda: model.bag_losses(anchors, torch.sigmoid(logits), offsets, gt, nv, a))
+        quality = torch.where(a["gt_valid"][..., None], box_iou(gt[..., :4].contiguous(), anchors), -1.0)
+        sorts = {k: cuda_ms(lambda: topk_scores(quality, k), reps=NEW_REPS) for k in (128, 50)}
+        library = cuda_ms(lambda: torch.topk(quality, 128, dim=-1), reps=NEW_REPS)
+        return t, (f"{head_note}; its stable sorts of {tuple(quality.shape)} (topk_scores, lowest index first among ties) "
+                   f"{sorts[128]:.3f} ms for the top 128 and {sorts[50]:.3f} ms for the top 50, torch.topk(128) "
+                   f"{library:.3f} ms (no tie order)")
+    points_l = model.points(head_out[0])
+    flat = [torch.cat(v, dim=1) for v in model.flatten(*head_out)]
+    args = (flat[1].detach(), flat[0].detach()) if name == "OTA" else ()
+    t["assignment"], targets = timed(lambda: model.ground_truth(points_l, gt, nv, *args))
+    t["losses"], _ = timed(lambda: model.losses(*flat, *targets))
+    return t, head_note
+
+
+def phase_new_train_timing(name, weights, card):
+    """One f32 train step of ``name`` at batch NEW_B of 800x1333 (input on the card): backbone + FPN,
+    head, the assignment and the losses, each timed alone on the previous stage's outputs with
+    gradients enabled (FreeAnchor: the box probability and the bags, then the bag losses; and its
+    two stable sorts of (B, 100, 201,600) alone beside torch.topk); get_losses, get_losses with
+    backward and the whole step as nested prefixes; peak memory. Returns the step's ms."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model, state, step, batch = _new_train_setup(name, weights, "cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    m = model.module
+
+    def timed(fn):
+        def run():
+            with full_f32():
+                return fn()
+        return cuda_ms(run, reps=NEW_REPS, warmup=2), run()
+
+    stages, extra = _new_stage_times(name, model, batch, timed)
+
+    def losses_backward():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch)[0].backward()
+
+    t_loss, _ = timed(lambda: model.get_losses(batch)[0])
+    t_fb, _ = timed(losses_backward)
+    torch.cuda.reset_peak_memory_stats()
+    t_step = cuda_ms(lambda: step(state, batch), reps=NEW_REPS, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"[timing] {name} R50-FPN f32 train step, batch {NEW_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: {t_step:.3f} ms "
+        f"per step ({1000 * NEW_B / t_step:.2f} img/s); each alone, gradients enabled: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in stages.items())} ms; get_losses {t_loss:.3f} ms, "
+        f"backward {t_fb - t_loss:.3f} ms, SGD {t_step - t_fb:.3f} ms (differences of means of {NEW_REPS} runs of "
+        f"nested prefixes); peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated above what the "
+        f"script held before this model was built: its weights, gradients and SGD state, the batch, the "
+        f"step's activations and workspaces){extra}, input already on the card | {card}")
+    return t_step
+
+
+def phase_new_inference_timing(name, model, card):
+    """``name``'s f32 inference at batch 1 of 800x1333, input on the card: the whole request, the
+    network, the per-level top-1000 + decode and NMS with the rescale, each alone, means of 10."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.common.post_processing import post_processing
+
+    test_cfg = model.cfg.TEST
+    batch = _timing_batch(1, FRCNN_IMAGE)
+    total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.inference(batch)
+    weights = sum(t.numel() * t.element_size() for t in model.module.state_dict().values())
+    peak = torch.cuda.max_memory_allocated() - base + weights
+    with torch.inference_mode(), full_f32():
+        x = model.pre_process(batch)
+        image, info = x["image"], x["img_info"]
+        t_net = cuda_ms(lambda: model.module(image), reps=10, warmup=2)
+        head_out = model.module(image)
+        places = model.anchors(head_out[0]) if name == "FreeAnchor" else model.points(head_out[0])
+        flat = model.flatten(*head_out)
+        t_topk = cuda_ms(lambda: model.candidates(*flat, places), reps=10, warmup=2)
+        cands = model.candidates(*flat, places)
+        t_nms = cuda_ms(lambda: post_processing(*cands, info, test_cfg.IOU_THRESHOLD, test_cfg.MAX_BOXES_PER_IMAGE),
+                        reps=10, warmup=2)
+    log(f"[timing] {name} R50-FPN f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch 1: {total:.3f} ms per request; "
+        f"network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, NMS at K = {cands[1].shape[1]} + rescale "
+        f"{t_nms:.3f} ms (each alone, means of 10); peak memory {peak / 2**30:.2f} GiB (the model's weights and "
+        f"the request's torch.cuda.max_memory_allocated above what was held before it), input already on the card "
+        f"| {card}")
+    return total
+
+
+def phase_new_models(out_dir, card):
+    """29-34: FCOS (trained from the backbone-only reference-layout pickle), ATSS, OTA and
+    FreeAnchor through det_train and det_test, their kernels held on their own steps' arguments and
+    timed, OTA's Sinkhorn step, FCOS card against CPU, every step and request timed."""
+    models = {}
+    backbone = make_backbone_pickle(out_dir)
+    for name in NEW_MODELS:
+        cfg, model, weights = make_new_weights(out_dir, name)
+        calls, dumped = phase_new_train(out_dir, name, weights, backbone if name == "FCOS" else None)
+        if calls:
+            phase_new_kernels(name, calls, card)
+        del calls
+        phase_new_slice(out_dir, name, weights if name == "FCOS" else dumped)
+        if name == "FCOS":
+            phase_fcos_card_vs_cpu(cfg, model, weights)
+        if name == "OTA":
+            phase_ota_sinkhorn(weights)
+        phase_new_train_timing(name, weights, card)
+        models[name] = model
+    for name, model in models.items():
+        phase_new_inference_timing(name, model, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -3637,6 +4216,7 @@ def main():
         phase_data_resume(out_dir, card)
         phase_data_other_models(out_dir, frcnn_weights, cnet_weights, card)
         phase_data_bench(out_dir, card)
+        phase_new_models(out_dir, card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -3653,53 +4233,58 @@ def main():
              f"{CNET_IMAGE[1]}", cnet_step[1], 3, cnet_step[0]),
             ("step_retinanet", f"RetinaNet R50-FPN f32 train step, batch {RETINA_B} of {FRCNN_IMAGE[0]}x"
              f"{FRCNN_IMAGE[1]}", retina_step[1], 3, retina_step[0])])
+
+    def by_path(kernel, named):
+        """{main path: launches} of one kernel: the paths counted by name here, then those that
+        ``kernel_counts`` counted."""
+        return {**named, **{path: counts[kernel][0] for path, counts in DATA_COUNTS.items() if counts[kernel][0]}}
+
     iou_by_path = {path: launches for path, (launches, _) in IOU_COUNTS.items()}
-    data = {name: sum(counts[name][0] for counts in DATA_COUNTS.values())
-            for name in next(iter(DATA_COUNTS.values()))}
-    log(f"[report] launches on the data slice's paths: " + "; ".join(
-        f"{path}: " + ", ".join(f"{k} {v[0]}" for k, v in counts.items() if v[0])
+    nms_by_path = by_path("nms_keep", {
+        "YOLOX-S det_test": launches, "YOLOX-S det_test of the --amp run": amp_nms,
+        "Faster R-CNN det_train": train_nms, "Faster R-CNN det_test": frcnn_nms_launches,
+        "RetinaNet det_test": retina_nms})
+    match_by_path = by_path("dynamic_k_matching", {"YOLOX-S det_train": match_launches,
+                                                   "YOLOX-S det_train --amp": amp_match})
+    roi_by_path = by_path("multilevel_roi_align", {"Faster R-CNN det_train": train_roi,
+                                                   "Faster R-CNN det_test": roi_launches})
+    roi_bwd_by_path = by_path("multilevel_roi_align_backward", {"Faster R-CNN det_train": train_roi_bwd})
+    fused_by_path = by_path("fused_gemm_stats", {"YOLOX-S det_train --amp": amp_fused})
+    fused_bwd_by_path = by_path("fused_gemm_stats_backward", {"YOLOX-S det_train --amp": amp_fused_bwd})
+    scatter_by_path = by_path("scatter_rows", {"CenterNet det_train": cnet_launches})
+    log(f"[report] launches on the paths kernel_counts counted: " + "; ".join(
+        f"{path}: " + (", ".join(f"{k} {v[0]}" for k, v in counts.items() if v[0]) or "none")
         for path, counts in DATA_COUNTS.items()))
-    log(f"[report] launches on the main paths: nms_keep {launches} on YOLOX-S det_test + {amp_nms} on "
-        f"det_test of the --amp run + {train_nms} on Faster R-CNN det_train + {frcnn_nms_launches} on its "
-        f"det_test; dynamic_k_matching {match_launches} on det_train + {amp_match} on det_train --amp; "
-        f"multilevel_roi_align {train_roi} on det_train + {roi_launches} on det_test; fused_gemm_stats and "
-        f"its backward {amp_fused} and {amp_fused_bwd} on det_train --amp; scatter_rows {cnet_launches} on "
-        f"CenterNet det_train; box_iou {iou_by_path}; nms_keep {retina_nms} on RetinaNet det_test")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entry = lambda paths, numbers: {"launches": sum(paths.values()), "launches_by_path": paths,
+                                    **{k: numbers[k] for k in keys}}
     report = {"kernels": [{
         "name": "nms_keep", "route": "cuda", "source": "basedet_tpu_torch/csrc/nms.cu",
-        "replaces": "basedet_tpu/ops/nms_pallas.py:26",
-        "launches": launches + amp_nms + train_nms + frcnn_nms_launches + retina_nms + data["nms_keep"],
-        **{k: kernel[k] for k in keys},
+        "replaces": "basedet_tpu/ops/nms_pallas.py:26", **entry(nms_by_path, kernel),
     }, {
         "name": "dynamic_k_matching", "route": "cuda", "source": "basedet_tpu_torch/csrc/matching.cu",
-        "replaces": "basedet_tpu/ops/matching_pallas.py:31",
-        "launches": match_launches + amp_match + data["dynamic_k_matching"],
-        **{k: matching[k] for k in keys},
+        "replaces": "basedet_tpu/ops/matching_pallas.py:31", **entry(match_by_path, matching),
     }, {
         "name": "multilevel_roi_align", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:257 and basedet_tpu/ops/roi_align_pallas.py:54",
-        "launches": train_roi + roi_launches + data["multilevel_roi_align"], **{k: roi[k] for k in keys},
+        **entry(roi_by_path, roi),
     }, {
         "name": "multilevel_roi_align_backward", "route": "cuda",
         "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94",
-        "launches": train_roi_bwd + data["multilevel_roi_align_backward"], **{k: roi_bwd[k] for k in keys},
+        **entry(roi_bwd_by_path, roi_bwd),
     }, {
         "name": "fused_gemm_stats", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
-        "replaces": "basedet_tpu/ops/fused_bn.py:152", "launches": amp_fused, **{k: fused_fwd[k] for k in keys},
+        "replaces": "basedet_tpu/ops/fused_bn.py:152", **entry(fused_by_path, fused_fwd),
     }, {
         "name": "fused_gemm_stats_backward", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
-        "replaces": "basedet_tpu/ops/fused_bn.py:257", "launches": amp_fused_bwd,
-        **{k: fused_bwd[k] for k in keys},
+        "replaces": "basedet_tpu/ops/fused_bn.py:257", **entry(fused_bwd_by_path, fused_bwd),
     }, {
         "name": "scatter_rows", "route": "cuda", "source": "basedet_tpu_torch/csrc/scatter_rows.cu",
-        "replaces": "basedet_tpu/ops/scatter_onehot.py:117", "launches": cnet_launches + data["scatter_rows"],
-        **{k: scatter[k] for k in keys},
+        "replaces": "basedet_tpu/ops/scatter_onehot.py:117", **entry(scatter_by_path, scatter),
     }, {
         "name": "box_iou", "route": "cuda", "source": "basedet_tpu_torch/csrc/iou.cu",
-        "replaces": "basedet_tpu/ops/iou_pallas.py:37", "launches": sum(iou_by_path.values()),
-        "launches_by_path": iou_by_path, **{k: iou[k] for k in keys},
+        "replaces": "basedet_tpu/ops/iou_pallas.py:37", **entry(iou_by_path, iou),
     }]}
     log(json.dumps(report))
     log(card)

@@ -250,13 +250,15 @@ CALLER_SHAPES = {  # name: (B, M, N, boxes2 per image)
     "RPN targets (2, 100) x (268569,)": (2, 100, 268569, False),
     "R-CNN sampling (2, 1100) x (2, 100)": (2, 1100, 100, True),
     "SimOTA (8, 100) x (8, 8400)": (8, 100, 8400, True),
+    "ATSS (2, 100) x (22400,)": (2, 100, 22400, False),
+    "FreeAnchor (2, 100) x (2, 201600)": (2, 100, 201600, True),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CALLER_SHAPES))
 def test_kernel_bit_equal_at_the_callers_shapes_on_gpu(name):
-    """The four callers' shapes, with gts padded as the detectors pad them:
+    """The callers' shapes, with gts padded as the detectors pad them:
     bit-equal to the plain version, and two runs bit-equal."""
     _needs_gpu()
     B, M, N, per_image = CALLER_SHAPES[name]

@@ -2,7 +2,9 @@
 (``basedet_tpu_torch/ops/iou_kernel.py::box_iou``), which a CUDA tensor takes
 to the kernel and a CPU tensor to the plain version: Faster R-CNN's RPN
 targets and R-CNN sampling, YOLOX's SimOTA (in f32 and under the bf16
-policy) and RetinaNet's anchor assignment.
+policy), RetinaNet's anchor assignment, ATSS's assignment (once a step) and
+FreeAnchor's bag loss (twice a step); and OTA's dynamic-k matching goes
+through ``ops/matching_kernel.py::dynamic_k_matching`` once a step.
 
 On the CPU the wrapper returns the plain version's result, so the callers'
 outputs are unchanged bit for bit: the RPN targets with the anchors shared by
@@ -17,11 +19,12 @@ import pytest
 import torch
 
 from basedet_tpu_torch import build_model
-from basedet_tpu_torch.configs import FasterRCNNConfig, YOLOXSConfig
+from basedet_tpu_torch.configs import ATSSConfig, FasterRCNNConfig, FreeAnchorConfig, OTAConfig, YOLOXSConfig
 from basedet_tpu_torch.layers.common.matcher import Matcher
 from basedet_tpu_torch.layers.head import rcnn
 from basedet_tpu_torch.layers.precision import precision_policy
-from basedet_tpu_torch.models.det import retinanet, rpn, yolox
+from basedet_tpu_torch.layers.common import matcher
+from basedet_tpu_torch.models.det import atss, free_anchor, retinanet, rpn, yolox
 from basedet_tpu_torch.ops import iou_kernel
 from basedet_tpu_torch.ops.iou_kernel import box_iou_plain
 from basedet_tpu_torch.structures import BoxCoder
@@ -30,7 +33,8 @@ from chip_smoke import _iou_boxes
 from tests.tiny import shrink
 
 
-@pytest.mark.parametrize("caller", [rpn, rcnn, yolox, retinanet], ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+@pytest.mark.parametrize("caller", [rpn, rcnn, yolox, retinanet, atss, free_anchor],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_callers_take_the_wrapper(caller):
     assert caller.box_iou is iou_kernel.box_iou
 
@@ -102,3 +106,37 @@ def test_yolox_get_losses_takes_the_wrapper_once(monkeypatch, amp):
         model.get_losses(batch)
     num_anchors = sum((128 // s) ** 2 for s in (8, 16, 32))
     assert seen == [((2, 8, 4), (2, num_anchors, 4), torch.float32, torch.float32)]
+
+
+def test_atss_get_losses_takes_the_wrapper_once(monkeypatch):
+    """The gts against the pseudo-anchors shared by every image, (B, K, 4) x
+    (R, 4), once a step."""
+    model, batch = _tiny(ATSSConfig(), (128, 192), 6)
+    seen = _counting(monkeypatch)
+    model.get_losses(batch)
+    num_points = sum((128 // s) * (192 // s) for s in (8, 16, 32)) + 2 * 3 + 1 * 2
+    assert seen == [((2, 6, 4), (num_points, 4), torch.float32, torch.float32)]
+
+
+def test_free_anchor_get_losses_takes_the_wrapper_twice(monkeypatch):
+    """The gts against each image's predicted boxes, (B, K, 4) x (B, R, 4),
+    then against the shared anchors, (R, 4)."""
+    model, batch = _tiny(FreeAnchorConfig(), (128, 192), 6)
+    seen = _counting(monkeypatch)
+    model.get_losses(batch)
+    R = 2 * (sum((128 // s) * (192 // s) for s in (8, 16, 32)) + 2 * 3 + 1 * 2)
+    assert seen == [((2, 6, 4), (2, R, 4), torch.float32, torch.float32),
+                    ((2, 6, 4), (R, 4), torch.float32, torch.float32)]
+
+
+def test_ota_get_losses_takes_the_matching_wrapper_once(monkeypatch):
+    """OTA's dynamic-k matching: one call over the batch, (B, K, R) cost and
+    ious, through the wrapper that sends a CUDA tensor to kernel #2."""
+    model, batch = _tiny(OTAConfig(), (128, 192), 6)
+    seen = []
+    fn = matcher.dynamic_k_matching
+    monkeypatch.setattr(matcher, "dynamic_k_matching",
+                        lambda *args: seen.append(tuple(a.shape for a in args[:3]) + args[3:]) or fn(*args))
+    model.get_losses(batch)
+    R = sum((128 // s) * (192 // s) for s in (8, 16, 32)) + 2 * 3 + 1 * 2
+    assert seen == [((2, 6, R), (2, 6, R), (2, 6), 10)]

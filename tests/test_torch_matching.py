@@ -328,6 +328,29 @@ def test_matching_kernel_streams_rows_past_shared_memory_on_gpu():
 
 
 @pytest.mark.cuda
+def test_matching_kernel_at_otas_shape_on_gpu():
+    """OTA at 800x1344: B = 2, K = 100, M = 22,400 (streamed rows), k = 10,
+    costs of ~1-20 on each gt's candidates, +1e6 off them and +1e9 on padded
+    gts, ious 0 off the candidates: equal to the plain version, two runs
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the matching kernel has no CPU mode")
+    rng = np.random.RandomState(8)
+    B, K, M = 2, 100, 22400
+    both = rng.uniform(size=(B, K, M)) < 0.003
+    valid = np.arange(K)[None] < np.array([[7], [31]])
+    cost = (rng.uniform(1.0, 20.0, (B, K, M)) + 1e6 * ~both + 1e9 * ~valid[..., None]).astype(np.float32)
+    ious = np.where(both, rng.uniform(size=(B, K, M)), 0.0).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (cost, ious, valid)]
+    best, fg = dynamic_k_matching(*args)
+    again = dynamic_k_matching(*args)
+    torch.cuda.synchronize()
+    ref_best, ref_fg = dynamic_k_matching_plain(*args)
+    assert torch.equal(fg, ref_fg) and torch.equal(best, ref_best)
+    assert torch.equal(again[0], best) and torch.equal(again[1], fg)
+
+
+@pytest.mark.cuda
 def test_matching_kernel_leaves_its_scratch_reset_on_gpu():
     """The kernel's cached claim keys and done-counters must be back at kNone
     and 0 after every call: 200 calls in a row, over shapes that share and

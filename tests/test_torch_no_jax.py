@@ -2,7 +2,8 @@
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
 its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN, tiny CenterNet and
-tiny RetinaNet, and YOLOX-S on a synthetic PNG set through the data slice)
+tiny RetinaNet, tiny ATSS, and YOLOX-S on a synthetic PNG set through the
+data slice)
 run in a subprocess that cannot import any of them, nor Pillow, which only
 JPEG needs. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
@@ -23,9 +24,13 @@ YOLOX = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
 RETINANET = "basedet_tpu_torch/playground/retinanet_r50_1x/config.py"
+ATSS = "basedet_tpu_torch/playground/atss_r50_1x/config.py"
 # tiny RetinaNet as tests/tiny.py shrinks it (one conv per subnet), on 128x192 images
 _TINY_RETINANET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64", "MODEL.HEAD.NUM_CONVS", "1",
                    "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
+# tiny ATSS as tests/tiny.py shrinks it, on 128x192 images
+_TINY_ATSS = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64", "MODEL.HEAD.NUM_CONVS", "1",
+              "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
 # tiny CenterNet as tests/tiny.py shrinks it, on 128x128 images
 _TINY_CENTERNET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.HEAD.DECONV_CHANNEL", "[512,64,32,16]",
                    "MODEL.HEAD.IN_CHANNELS", "16", "DATA.DUMMY_IMAGE_SIZE", "(128,128)"]
@@ -94,6 +99,15 @@ trainer = det_train.main(["-f", {config!r}, "--device", "cpu", *opts])
 print(json.dumps({{"steps": trainer.state.step, "forks": trainer.dataloader.forks,
                    "eval": sorted(trainer.eval_results), "AP": trainer.eval_results["EMA"]["AP"],
                    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+_TRAIN_TEST_SCRIPT = _TRAIN_SCRIPT + r"""
+from basedet_tpu_torch.tools import det_test
+
+results = det_test.main(["-f", {config!r}, "-w", {out!r} + "/ckpt/dumped_model.pt", "--device", "cpu", *opts,
+                         "TEST.CLS_THRESHOLD", "0.0"])
+print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
 
 
@@ -180,6 +194,22 @@ def test_centernet_det_train_runs_without_jax(tmp_path):
 
 def test_retinanet_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "retinanet")
+
+
+def test_atss_det_train_and_det_test_run_without_jax(tmp_path):
+    """Tiny ATSS trains 2 steps, then det_test serves its dumped weights, in
+    one blocked process (its IoU through kernel #10's wrapper, the plain
+    version here)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    script = _TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=ATSS, opts=_TINY_ATSS, flags=[])
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    train, test = (json.loads(line) for line in proc.stdout.strip().splitlines()[-2:])
+    assert train["leaked"] == [] == test["leaked"]
+    assert train["steps"] == 2 and train["loss"] > 0
+    assert test["results"]["num_detections"] > 0
+    assert {r["image_id"] for r in json.loads((tmp_path / "predict_coco.json").read_text())} == set(range(8))
 
 
 def test_det_train_on_synthetic_pngs_runs_without_jax_cv2_or_pil(tmp_path):
