@@ -75,6 +75,22 @@ class DataloaderBuilder:
         return build_coco_train_loader(cfg, cfg.MODEL.BATCHSIZE * world_size(), _ring(device))
 
 
+@registers.dataloader.register()
+class DETRDataloaderBuilder:
+    """``DataloaderBuilder``'s pipeline with DETR's valid-pixel ``mask`` in
+    each batch (pinned and copied without blocking, like the image);
+    ``dummy``: ``DataloaderBuilder``'s synthetic batches, which carry no mask
+    (the model makes it from ``im_info``)."""
+
+    @classmethod
+    def build(cls, cfg, device="cpu"):
+        if cfg.DATA.TRAIN.get("name", "dummy") == "dummy":
+            return DataloaderBuilder.build(cfg, device)
+        from basedet_tpu_torch.data.coco_loader import build_coco_train_loader
+
+        return build_coco_train_loader(cfg, cfg.MODEL.BATCHSIZE * world_size(), _ring(device), with_mask=True)
+
+
 def build_train_dataloader(cfg, device="cpu"):
     return YOLOXDataloaderBuilder.build(cfg, device)
 

@@ -144,15 +144,18 @@ def _seed(cfg) -> int:
     return cfg.get("SEED", 42)
 
 
-def build_coco_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] = None) -> TrainLoader:
+def build_coco_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] = None,
+                            with_mask: bool = False) -> TrainLoader:
     """COCO-format ``DATA.TRAIN.name`` → ``AUG.TRAIN_VALUE`` transforms →
-    aspect-ratio grouped batches → pad collator (``DATA.SIZE_BUCKETS``)."""
+    aspect-ratio grouped batches → pad collator (``DATA.SIZE_BUCKETS``; with
+    ``with_mask``, DETR's valid-pixel mask too)."""
     images_dir, anno = resolve_dataset(cfg.DATA.TRAIN.name)
     dataset = COCODataset(images_dir, anno, remove_images_without_annotations=cfg.DATA.TRAIN.get(
         "remove_images_without_annotations", True))
     sampler = AspectRatioGroupSampler(dataset.aspect_ratios(), batch_size=global_batch, seed=_seed(cfg))
     collator = DetectionPadCollator(max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
-                                    size_buckets=cfg.DATA.get("SIZE_BUCKETS", None), ring=ring)
+                                    size_buckets=cfg.DATA.get("SIZE_BUCKETS", None), ring=ring,
+                                    with_mask=with_mask)
     return TrainLoader(TransformedDataset(dataset, build_transforms(cfg.AUG.TRAIN_VALUE)), sampler, collator,
                        num_workers=cfg.DATA.get("NUM_WORKERS", 0), seed=_seed(cfg), ring=ring)
 

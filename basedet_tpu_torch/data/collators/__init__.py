@@ -1,4 +1,4 @@
 from .pack import CanvasRing, pack_images, pin_batch
-from .pad_collator import DetectionPadCollator, pick_bucket
+from .pad_collator import DETRPadCollator, DetectionPadCollator, pick_bucket
 
-__all__ = ["CanvasRing", "DetectionPadCollator", "pack_images", "pick_bucket", "pin_batch"]
+__all__ = ["CanvasRing", "DETRPadCollator", "DetectionPadCollator", "pack_images", "pick_bucket", "pin_batch"]

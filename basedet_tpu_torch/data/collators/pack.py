@@ -82,11 +82,14 @@ def pack_images(images: List[np.ndarray], H: int, W: int, pad: float = 0.0,
     return out
 
 
-def pin_batch(batch: dict, ring: CanvasRing, keys: Sequence[str] = ("data", "gt_boxes", "im_info")) -> dict:
-    """The batch with each tensor of ``keys`` that is not page-locked copied
-    into a slot of ``ring`` (a pinned ring, in the main process)."""
+def pin_batch(batch: dict, ring: CanvasRing,
+              keys: Sequence[str] = ("data", "gt_boxes", "im_info", "mask")) -> dict:
+    """The batch with each tensor of ``keys`` it holds that is not page-locked
+    copied into a slot of ``ring`` (a pinned ring, in the main process)."""
     out = dict(batch)
     for k in keys:
+        if k not in out:
+            continue
         t = out[k]
         if not t.is_pinned():
             slot = ring.get(t.shape, t.dtype)

@@ -5,7 +5,9 @@ Batch: ``data`` (B, H, W, 3) uint8 (float32 where a transform made floats),
 padded at the bottom and right to the smallest size bucket that fits (or to
 multiples of 32), ``gt_boxes`` (B, K, 5) [x1 y1 x2 y2 label] padded to
 ``max_instances`` rows, ``im_info`` (B, 5) [cur_h, cur_w, orig_h, orig_w,
-num_instances], all CPU tensors, and ``image_id`` (B,) numpy.
+num_instances], all CPU tensors, and ``image_id`` (B,) numpy; with
+``with_mask`` (``DETRPadCollator``) also ``mask`` (B, H, W) uint8, 1 on each
+image's pixels and 0 on the padding.
 
 In the main process the canvases come from ``ring`` (pinned on the card's
 path); in a DataLoader worker they are fresh tensors, which the loader moves
@@ -37,8 +39,9 @@ def pick_bucket(h: int, w: int, buckets: Optional[Sequence[Tuple[int, int]]]) ->
 
 class DetectionPadCollator:
     def __init__(self, max_instances: int = 100, size_buckets: Optional[Sequence[Tuple[int, int]]] = None,
-                 pad_value: float = 0.0, ring: Optional[CanvasRing] = None):
+                 pad_value: float = 0.0, ring: Optional[CanvasRing] = None, with_mask: bool = False):
         self.max_instances = max_instances
+        self.with_mask = with_mask
         self.size_buckets = [tuple(b) for b in size_buckets] if size_buckets else None
         self.pad_value = pad_value
         self.ring = ring
@@ -64,4 +67,20 @@ class DetectionPadCollator:
             oh, ow = r.get("orig_size", (h, w))
             info[b] = [h, w, oh, ow, n]
             image_ids.append(r.get("image_id", b))
-        return {"data": data, "gt_boxes": gt_t, "im_info": info_t, "image_id": np.asarray(image_ids)}
+        batch = {"data": data, "gt_boxes": gt_t, "im_info": info_t, "image_id": np.asarray(image_ids)}
+        if self.with_mask:
+            mask_t = new_canvas((B, H, W), torch.uint8, ring)
+            mask = mask_t.numpy()
+            mask[...] = 0
+            for b, r in enumerate(records):
+                h, w = r["image"].shape[:2]
+                mask[b, :h, :w] = 1
+            batch["mask"] = mask_t
+        return batch
+
+
+class DETRPadCollator(DetectionPadCollator):
+    """The pad collator with DETR's valid-pixel ``mask``."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**{**kwargs, "with_mask": True})

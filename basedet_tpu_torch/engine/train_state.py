@@ -49,7 +49,8 @@ class TrainState:
 
 def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str, torch.Tensor]]:
     """The (state, batch) → metrics step: forward and losses, backward,
-    gradient clipping, SGD at ``lr = schedule(state.step)``, then the EMA of
+    gradient clipping, the solver's optimizer at ``lr = schedule(state.step)``
+    (times each parameter group's ``lr_ratio``), then the EMA of
     the parameters. The step runs in IEEE f32 (TF32 off), backward included,
     unless ``TRAINER.AMP.ENABLE``: then the forward and the losses run under
     the bf16 policy (``layers/precision.py``), as the JAX package's step
@@ -58,7 +59,7 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     the device; ``lr`` is a float.
 
     A model that samples (``draws_per_step``: Faster R-CNN's anchors and
-    RoIs) is handed ``cfg.SEED`` (42 unless set) and the step, from which it
+    RoIs, DETR's dropout) is handed ``cfg.SEED`` (42 unless set) and the step, from which it
     seeds its draw, as the JAX package folds the step into its key: a step's
     draw does not depend on what ran before it."""
     if cfg.TRAINER.get("REMAT", False):
@@ -86,7 +87,7 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
         solver.clip_grads(params)
         lr = solver.lr_schedule(state.step)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_ratio", 1.0)
         state.optimizer.step()
 
         if use_ema and state.ema_params is not None:

@@ -22,20 +22,26 @@ from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d, get_activati
 
 
 class ConvBNAct(nn.Module):
-    """Conv (no bias) + BatchNorm + activation: ``_ConvBNAct``. BN eps is
-    YOLOX's 1e-3 (not ``cfg.MODEL.BN_EPS``, as in the JAX package), and its
-    momentum the flax decay 0.97, which torch writes as 0.03."""
+    """Conv (no bias) + BatchNorm + activation: ``_ConvBNAct``. BN eps and
+    momentum default to YOLOX's: eps 1e-3 (not ``cfg.MODEL.BN_EPS``, as in the
+    JAX package) and the flax decay 0.97, which torch writes as momentum 0.03.
+    ``bn_momentum`` is torch's (1 - the flax decay): Darknet and YOLOFPN pass
+    eps 1e-5 and 0.1 (flax 0.9)."""
 
     def __init__(self, in_channels, out_channels, ksize=1, stride=1, groups=1,
-                 act="silu", device=None):
+                 act="silu", bn_eps=1e-3, bn_momentum=0.03, device=None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride, (ksize - 1) // 2,
                               groups=groups, bias=False, device=device)
-        self.bn = FlaxBatchNorm2d(out_channels, eps=1e-3, momentum=0.03, device=device)
+        self.bn = FlaxBatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum, device=device)
         self.act = get_activation(act)
 
     def forward(self, x):
         return self.act(self.bn(precision.conv2d(self.conv, x)))
+
+
+# Darknet's and YOLOFPN's ConvBNAct: LeakyReLU 0.1, BN eps 1e-5 and flax decay 0.9
+DARKNET_KW = dict(act="lrelu", bn_eps=1e-5, bn_momentum=0.1)
 
 
 class DepthwiseConvBlock(nn.Module):

@@ -1,8 +1,8 @@
 """Label assignment (counterpart of ``basedet_tpu/layers/common/matcher.py``).
 Ported: the IoU-threshold ``Matcher`` of the anchor-based detectors, the
-dynamic-k matching of SimOTA and OTA (kernel #2 on the card) and OTA's
-Sinkhorn matcher; the batch dimension is written out where the JAX package
-vmaps over images. DETR's auction matching is not ported."""
+dynamic-k matching of SimOTA and OTA (kernel #2 on the card), OTA's
+Sinkhorn matcher and DETR's auction (``hungarian_match_owner``); the batch
+dimension is written out where the JAX package vmaps over images."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -105,3 +105,107 @@ class SinkhornMatcher:
         matched = assigned.clamp(max=K - 1)
         fg_mask = (assigned < K) & torch.gather(gt_valid, 1, matched)
         return matched, fg_mask
+
+
+# the auction's host reads of its convergence test: after this many rounds, then after chunks
+# doubling up to the last
+AUCTION_FIRST_CHECK, AUCTION_MAX_CHUNK = 4, 16
+
+
+class AuctionStats:
+    """What the last :func:`hungarian_match_owner` call did: ``rounds`` run on
+    the device, ``syncs`` (host reads of the convergence test), whether the
+    greedy completion ran (``completed``), and ``needed``, a (P,) device
+    tensor of the rounds each problem took before it converged (at most the
+    cap)."""
+
+    rounds = 0
+    syncs = 0
+    completed = False
+    needed: torch.Tensor = torch.zeros(0)
+
+
+def hungarian_match_owner(cost: torch.Tensor, valid: torch.Tensor, n_iters: int = 1500,
+                          eps_scale: float = 2e-3) -> torch.Tensor:
+    """DETR's asymmetric auction (``basedet_tpu/layers/common/matcher.py::
+    hungarian_match_owner``), batched over P independent problems as the
+    JAX package vmaps it: cost (P, Q, K), valid (P, K) bool → (P, K) int64,
+    the query owned by each valid target, -2 for an invalid one.
+
+    Targets bid: each unassigned valid target bids for its best query net of
+    prices, ``best - second + eps``, with eps ``eps_scale`` times the range
+    of the problem's valid costs; the highest bid wins a query (the lowest
+    target among equal bids) and evicts its owner. Best and second follow
+    ``lax.top_k``: the best is the first maximum, the second the maximum of
+    the rest. After at most ``n_iters`` rounds, a greedy completion gives any
+    target still unassigned its best free query, target by target.
+
+    The JAX ``while_loop`` ends when no valid target of the problem is
+    unassigned; a problem in that state is a fixed point of a round (no bid,
+    no win, no price change), so the rounds run for every problem together
+    and the host reads the test after ``AUCTION_FIRST_CHECK`` rounds, then
+    after chunks that double up to ``AUCTION_MAX_CHUNK`` rounds: the owners
+    are the same as long as the cap holds. The completion runs only when a target is
+    still unassigned at the cap. Plain PyTorch: no TPU kernel computes it.
+    ``AuctionStats`` keeps the call's counts."""
+    P, Q, K = cost.shape
+    device = cost.device
+    valid = valid.to(torch.bool)
+    inf = torch.tensor(torch.inf, dtype=cost.dtype, device=device)
+    vmax = torch.where(valid[:, None, :], cost, -inf).amax(dim=(1, 2))
+    vmin = torch.where(valid[:, None, :], cost, inf).amin(dim=(1, 2))
+    vmax = torch.where(torch.isfinite(vmax), vmax, 0.0)
+    vmin = torch.where(torch.isfinite(vmin), vmin, 0.0)
+    eps = eps_scale * torch.clamp(vmax - vmin, min=1e-6)  # (P,)
+    value = torch.where(valid[:, None, :], -cost, 0.0).transpose(1, 2)  # (P, K, Q) benefits
+
+    q_idx = torch.arange(Q, device=device).expand(P, Q)
+    q_of_k = torch.where(valid, -1, -2).long()
+    k_of_q = torch.full((P, Q), -1, dtype=torch.long, device=device)
+    prices = torch.zeros((P, Q), dtype=cost.dtype, device=device)
+    needed = torch.zeros(P, dtype=torch.long, device=device)
+    dump = torch.full((P, 1), -3, dtype=torch.long, device=device)  # column K: dropped writes
+
+    def round_():
+        nonlocal q_of_k, k_of_q, prices, needed
+        unassigned = q_of_k == -1
+        needed = needed + unassigned.any(dim=1)
+        net = value - prices[:, None, :]
+        best_q = first_argmax(net, dim=2)  # (P, K)
+        best = net.gather(2, best_q[..., None])[..., 0]
+        second = net.scatter(2, best_q[..., None], -torch.inf).amax(dim=2)
+        bid = torch.where(unassigned, best - second + eps[:, None], 0.0)
+        bids = torch.zeros_like(net).scatter_(2, best_q[..., None], bid[..., None])  # (P, K, Q)
+        win_bid = bids.amax(dim=1)
+        winner = first_argmax(bids, dim=1)  # (P, Q)
+        won = win_bid > 0
+        prev = torch.where(won, k_of_q, -1)
+        q_of_k = torch.cat([q_of_k, dump], 1).scatter(1, torch.where(prev >= 0, prev, K), -1)[:, :K]
+        q_of_k = torch.cat([q_of_k, dump], 1).scatter(1, torch.where(won, winner, K), q_idx)[:, :K]
+        k_of_q = torch.where(won, winner, k_of_q)
+        stale = (k_of_q >= 0) & (q_of_k.gather(1, k_of_q.clamp(0, K - 1)) != q_idx)
+        k_of_q = torch.where(stale, -1, k_of_q)
+        prices = torch.where(won, prices + win_bid, prices)
+
+    rounds = syncs = 0
+    chunk, left = AUCTION_FIRST_CHECK, True
+    while left and rounds < n_iters:
+        for _ in range(min(chunk, n_iters - rounds)):
+            round_()
+            rounds += 1
+        syncs += 1
+        left = bool((q_of_k == -1).any())
+        chunk = min(2 * chunk, AUCTION_MAX_CHUNK)
+    completed = left
+    if completed:
+        owned = torch.zeros((P, Q + 1), dtype=torch.bool, device=device)
+        owned = owned.scatter(1, torch.where(q_of_k >= 0, q_of_k, Q), True)[:, :Q]
+        rows = torch.arange(P, device=device)
+        for k in range(K):
+            need = q_of_k[:, k] == -1
+            q = first_argmax(torch.where(owned, -torch.inf, value[:, k]), dim=1)
+            q_of_k[:, k] = torch.where(need, q, q_of_k[:, k])
+            owned[rows, q] |= need
+    AuctionStats.rounds, AuctionStats.syncs, AuctionStats.completed = rounds, syncs, completed
+    AuctionStats.needed = needed
+    return q_of_k

@@ -39,18 +39,22 @@ def sample_mask(noise: torch.Tensor, candidates: torch.Tensor,
     return candidates & (scores >= thr[:, None])
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded by (seed, step) alone."""
+    # the CPU generator keeps the low 32 bits of its seed only: mix the seed
+    # into those too (a multiplicative hash), and add the step
+    mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step)) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
 def draw_sampling_noise(seed: int, step: int, batch: int, num_anchors: int, num_candidates: int,
                         device) -> Dict[str, torch.Tensor]:
     """One train step's sampling noise for a two-stage detector, uniform in
     [0, 1): ``rpn_pos`` and ``rpn_neg`` (batch, num_anchors) for the RPN's
     positives and negatives, ``rcnn_fg``, ``rcnn_bg`` and ``rcnn_tie``
     (batch, num_candidates) for the R-CNN's foreground, background and the
-    order within a tier. The generator lives on ``device`` and is seeded by
-    (seed, step) alone."""
-    # the CPU generator keeps the low 32 bits of its seed only: mix the seed
-    # into those too (a multiplicative hash), and add the step
-    mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step)) % (1 << 63)
-    generator = torch.Generator(device=device).manual_seed(mixed)
+    order within a tier, from ``step_generator(seed, step, device)``."""
+    generator = step_generator(seed, step, device)
 
     def uniform(n):
         return torch.rand((batch, n), generator=generator, device=device)

@@ -1,8 +1,11 @@
-"""YOLOX decoupled head in NCHW (counterpart of ``YOLOXHead`` in
-``basedet_tpu/layers/head/yolo_head.py``): per level a 1x1 stem, two cls and
-two reg convs, and cls/reg/obj 1x1 predictions with the prior-prob bias on
-cls and obj. The predictions follow the compute-dtype policy, as the JAX
-package's ``PConv`` does: bf16 out under bf16."""
+"""YOLO heads in NCHW (counterparts of ``YOLOXHead`` and ``YOLOHead`` in
+``basedet_tpu/layers/head/yolo_head.py``). YOLOX's decoupled head: per level
+a 1x1 stem, two cls and two reg convs, and cls/reg/obj 1x1 predictions with
+the prior-prob bias on cls and obj. YOLOv3's head: per level a 3x3
+ConvBNAct doubling the channels (YOLOX's BN eps and momentum, as in the JAX
+package) and a 1x1 prediction to A·(5 + C) channels; no model of either
+package calls it. The predictions follow the compute-dtype policy, as the
+JAX package's ``PConv`` does: bf16 out under bf16."""
 from __future__ import annotations
 
 import math
@@ -51,3 +54,15 @@ class YOLOXHead(nn.Module):
             offsets.append(precision.conv2d(getattr(self, f"reg_pred_{lv}"), r))
             objs.append(precision.conv2d(getattr(self, f"obj_pred_{lv}"), r))
         return logits, offsets, objs
+
+
+class YOLOHead(nn.Module):
+    def __init__(self, num_classes, in_channels: Sequence[int], num_anchors=3, act="lrelu", device=None):
+        super().__init__()
+        for lv, c in enumerate(in_channels):
+            self.add_module(f"conv_{lv}", ConvBNAct(c, 2 * c, 3, 1, act=act, device=device))
+            self.add_module(f"pred_{lv}", nn.Conv2d(2 * c, num_anchors * (5 + num_classes), 1, device=device))
+
+    def forward(self, features: List[torch.Tensor]) -> List[torch.Tensor]:
+        return [precision.conv2d(getattr(self, f"pred_{lv}"), getattr(self, f"conv_{lv}")(x))
+                for lv, x in enumerate(features)]

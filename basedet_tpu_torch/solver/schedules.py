@@ -1,7 +1,7 @@
 """Learning-rate schedules as step → lr functions (counterpart of
 ``basedet_tpu/solver/schedules.py``). The step is the 0-based count of steps
-taken before the one the LR is for; the LR is a Python float. Ported:
-``multistep_lr`` and YOLOX's schedule."""
+taken before the one the LR is for; the LR is a Python float: ``multistep_lr``,
+``cosine_lr`` and YOLOX's schedule."""
 from __future__ import annotations
 
 import math
@@ -25,6 +25,28 @@ def multistep_lr(
             alpha = min(max(step / warmup_iters, 0.0), 1.0)
             lr *= warmup_factor * (1 - alpha) + alpha
         return lr
+
+    return schedule
+
+
+def cosine_lr(
+    base_lr: float,
+    total_iters: int,
+    warmup_iters: int = 0,
+    warmup_factor: float = 0.0,
+    min_lr_ratio: float = 0.0,
+) -> Callable[[int], float]:
+    """Linear warm-up from ``warmup_factor`` of the LR over ``warmup_iters``
+    steps, then a cosine from the LR down to ``min_lr_ratio`` of it at
+    ``total_iters``."""
+    min_lr = base_lr * min_lr_ratio
+
+    def schedule(step: int) -> float:
+        if step < warmup_iters:
+            alpha = min(max(step / max(warmup_iters, 1), 0.0), 1.0)
+            return base_lr * (warmup_factor * (1 - alpha) + alpha)
+        progress = min(max((step - warmup_iters) / max(total_iters - warmup_iters, 1), 0.0), 1.0)
+        return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * progress))
 
     return schedule
 

@@ -4,11 +4,16 @@ disk, train a small detector on it through ``DetTrainer`` and its hooks, and
 evaluate box mAP on its val split through ``EvalHook``:
 
     python -m basedet_tpu_torch.tools.sanity_e2e --model yolox --steps 3000 [--out DIR] [--device cuda]
+    python -m basedet_tpu_torch.tools.sanity_e2e --model detr --train-images 8 --eval-on-train --steps 2000
 
-``--model`` takes retinanet, faster_rcnn, yolox or all (DETR is not ported).
-The recipes are the JAX package's, key for key: YOLOX-Nano at 320 with
-mosaic and mixup and a no-aug tail of a third of the steps, or ResNet-18
-with trainable BN for the R-CNN family. Prints one JSON line per model.
+``--model`` takes retinanet, faster_rcnn, yolox, detr or all. The recipes are
+the JAX package's, key for key: YOLOX-Nano at 320 with mosaic and mixup and
+a no-aug tail of a third of the steps; ResNet-18 with trainable BN for the
+R-CNN family and DETR, whose recipe is 2 + 2 layers, 16 queries, dropout 0
+(``--detr-dropout``), BASIC_LR 5e-5, the gradient clipped at norm 1.0, the
+backbone at the full LR and the LR decay at two thirds of the run.
+``--eval-on-train`` evaluates on the train images (the overfit protocol).
+Prints one JSON line per model.
 """
 from __future__ import annotations
 
@@ -75,6 +80,15 @@ def _make_cfg(model: str, args):
         cfg.MODEL.RPN.TRAIN_PREV_NMS_TOPK = 1000
         cfg.MODEL.RPN.TRAIN_POST_NMS_TOPK = 500
         cfg.MODEL.RCNN.NUM_ROIS = 128
+    elif model == "detr":
+        cfg = C.DETRConfig()
+        t = cfg.MODEL.TRANSFORMER
+        t.NUM_ENCODERS = t.NUM_DECODERS = 2
+        cfg.MODEL.NUM_QUERIES = 16
+        t.DROPOUT = args.detr_dropout if args.detr_dropout is not None else 0.0
+        cfg.SOLVER.BASIC_LR = 5e-5
+        cfg.TRAINER.GRAD_CLIP = dict(ENABLE=True, TYPE="norm", ARGS=dict(max_norm=1.0))
+        cfg.SOLVER.BACKBONE_LR_RATIO = 1.0  # from scratch: the backbone trains at the full LR
     elif model == "yolox":
         cfg = C.YOLOXNanoConfig()
         s = cfg.AUG.TRAIN_SETTING
@@ -88,13 +102,13 @@ def _make_cfg(model: str, args):
             s.MOSAIC_PROB = 0.0
             s.ENABLE_MIXUP = False
     else:
-        raise ValueError(f"--model {model}: DETR is not ported to basedet_tpu_torch yet (ROADMAP Queue 1 "
-                         f"item 5)" if model == "detr" else f"--model {model}: unknown")
+        raise ValueError(f"--model {model}: unknown")
     if model != "yolox":
         cfg.MODEL.BACKBONE.NAME = "resnet18"
         # from scratch: trainable BN (FrozenBN at its init statistics is the identity)
         cfg.MODEL.BACKBONE.NORM = "BN"
         cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    if model in ("retinanet", "faster_rcnn"):
         cfg.SOLVER.BASIC_LR = 0.01 / 16
         cfg.TRAINER.GRAD_CLIP = dict(ENABLE=True, TYPE="norm", ARGS=dict(max_norm=10.0))
     cfg.MODEL.BATCHSIZE = args.batch
@@ -103,6 +117,8 @@ def _make_cfg(model: str, args):
     cfg.SOLVER.WARM_ITERS = 100
     cfg.SOLVER.NUM_IMAGE_PER_EPOCH = 200
     cfg.SOLVER.MAX_EPOCH = max(1, args.steps * args.batch // 200)
+    if model == "detr":  # the 150-epoch schedule's decay at epoch 100, scaled to the run
+        cfg.SOLVER.LR_DECAY_STAGES = [max(1, int(cfg.SOLVER.MAX_EPOCH * 2 / 3))]
     cfg.TEST.CLS_THRESHOLD = 0.05
     cfg.GLOBAL.OUTPUT_DIR = args.out
 
@@ -150,7 +166,10 @@ def main(args=None):
     parser.add_argument("--out", type=str, default="logs/sanity_e2e")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--size", type=int, default=320)
-    parser.add_argument("--model", type=str, default="retinanet", help="retinanet | faster_rcnn | yolox | all")
+    parser.add_argument("--model", type=str, default="retinanet", help="retinanet | faster_rcnn | yolox | detr | all")
+    parser.add_argument("--detr-dropout", type=float, default=None,
+                        help="DETR: the transformer's dropout (the recipe's default 0)")
+    parser.add_argument("--eval-on-train", action="store_true", help="evaluate on the train images (overfit protocol)")
     parser.add_argument("--no-aug", action="store_true", help="YOLOX: mosaic and mixup off throughout")
     parser.add_argument("--no-aug-tail", type=int, default=None,
                         help="YOLOX with mosaic: final steps with mosaic and mixup off and L1 on "
@@ -168,7 +187,9 @@ def main(args=None):
 
     setup_logger(args.out)
     train, val = make_synthetic_coco(args.out, n_train=args.train_images, size=args.size)
-    models = ("retinanet", "faster_rcnn", "yolox") if args.model == "all" else (args.model,)
+    if args.eval_on_train:
+        val = train
+    models = ("retinanet", "faster_rcnn", "detr", "yolox") if args.model == "all" else (args.model,)
     return [_run_one(m, args, train, val) for m in models]
 
 

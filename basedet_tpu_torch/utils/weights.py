@@ -33,7 +33,21 @@ per level) keeps its name and shape.
 RetinaNet's FPN top-block convs (``fpn_p6``, ``fpn_p7``) and its head, in
 either ``share_param`` form (``cls_subnet_<i>``, ``cls_score``, ... or
 ``cls_subnet_l<lv>_<i>``, ``cls_score_l<lv>``, ...), are plain convs under
-their flax names and take the conv rule.
+their flax names and take the conv rule. So are YOLOv3's Darknet
+(``stem``, ``dark<i>_down``, ``dark<i>_block<b>/layer1|layer2``, each a
+``ConvBNAct`` with ``conv`` and ``BatchNorm_0``) and YOLOFPN
+(``output_conv<i>_conv<j>``, ``output_conv<i>_pred``, ``lateral_conv<i>``).
+
+DETR's transformer adds flax ``LayerNorm`` (``norm<i>``, ``encoder_norm``,
+``decoder_norm``): ``scale``/``bias`` → ``weight``/``bias``, no transpose;
+and the ``DenseGeneral`` projections of each ``self_attn``/``cross_attn``
+(``MultiHeadDotProductAttention``): the ``query``, ``key`` and ``value``
+kernels (D, H, D/H) and biases (H, D/H) become ``nn.Linear`` weights (H·D/H,
+D) and biases by a reshape to (D, H·D/H) and a transpose, the ``out`` kernel
+(H, D/H, D) by a reshape to (H·D/H, D) and a transpose. The way back needs
+the head count: :func:`jax_from_state_dict` takes ``num_heads``. The
+top-level ``query_embed`` and the learned embedding's ``row_embed`` and
+``col_embed`` keep their names and layout.
 """
 from __future__ import annotations
 
@@ -48,7 +62,10 @@ _BN_NAME = re.compile(r"BatchNorm_\d+")
 _TRANSPOSED = "up_sample"
 _FROZEN_BN = "FrozenBatchNorm_"
 _GN_NAME = re.compile(r"(cls|bbox)_gn(_l\d+)?_\d+")
-_PASSED = ("scales",)  # params leaves that keep their name and layout
+_LN_NAME = re.compile(r"norm\d+|encoder_norm|decoder_norm")
+_ATTENTION = ("self_attn", "cross_attn")
+_PROJ_IN = ("query", "key", "value")
+_PASSED = ("scales", "query_embed", "row_embed", "col_embed")  # params leaves that keep their name and layout
 _TO_TORCH = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
@@ -67,6 +84,10 @@ _TO_JAX = {
     ("weight", "bn"): ("params", "scale"),
     ("weight", "gn"): ("params", "scale"),
     ("bias", "gn"): ("params", "bias"),
+    ("weight", "ln"): ("params", "scale"),
+    ("bias", "ln"): ("params", "bias"),
+    ("weight", "attn"): ("params", "kernel"),
+    ("bias", "attn"): ("params", "bias"),
     ("bias", "bn"): ("params", "bias"),
     ("running_mean", "bn"): ("batch_stats", "mean"),
     ("running_var", "bn"): ("batch_stats", "var"),
@@ -81,6 +102,27 @@ def _kernel_to_torch(path: str, value: np.ndarray, transposed: bool) -> np.ndarr
     if value.ndim == 2:  # Dense (in, out) → Linear (out, in)
         return value.T
     raise ValueError(f"{path}: expected an HWIO conv or (in, out) Dense kernel, got {value.shape}")
+
+
+def _attention_to_torch(proj: str, leaf: str, value: np.ndarray) -> np.ndarray:
+    """A ``DenseGeneral`` leaf of flax's attention → its ``nn.Linear`` tensor."""
+    if leaf == "bias":
+        return value.reshape(-1)
+    if proj == "out":  # (H, D/H, D) → (D, H·D/H)
+        return value.reshape(-1, value.shape[-1]).T
+    return value.reshape(value.shape[0], -1).T  # (D, H, D/H) → (H·D/H, D)
+
+
+def _attention_to_jax(proj: str, leaf: str, value: np.ndarray, num_heads: int) -> np.ndarray:
+    if proj == "out":
+        return value if leaf == "bias" else value.T.reshape(num_heads, -1, value.shape[0])
+    if leaf == "bias":
+        return value.reshape(num_heads, -1)
+    return value.T.reshape(value.shape[1], num_heads, -1)
+
+
+def _is_attention(mods) -> bool:
+    return len(mods) >= 2 and mods[-2] in _ATTENTION and mods[-1] in (*_PROJ_IN, "out")
 
 
 def _kernel_to_jax(value: np.ndarray, transposed: bool) -> np.ndarray:
@@ -113,7 +155,9 @@ def state_dict_from_jax(
         name = leaf if passed else _TO_TORCH.get((collection, leaf))
         if name is None or not (mods or passed):
             raise KeyError(f"no torch counterpart for {'/'.join([collection, *mods, leaf])}")
-        if leaf == "kernel":
+        if _is_attention(mods):
+            value = _attention_to_torch(mods[-1], leaf, value)
+        elif leaf == "kernel":
             value = _kernel_to_torch("/".join(mods), value, mods[-1] == _TRANSPOSED)
         is_bn = bool(mods) and bool(_BN_NAME.fullmatch(mods[-1]))
         names = ["bn" if m == _BN and tuple(mods[:i]) not in several else m
@@ -135,9 +179,10 @@ def state_dict_from_jax(
     return sd
 
 
-def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+def jax_from_state_dict(sd: Mapping[str, torch.Tensor], num_heads: Optional[int] = None) -> Dict[str, dict]:
     """Inverse of :func:`state_dict_from_jax`: a flax variable tree with
-    numpy leaves."""
+    numpy leaves. ``num_heads`` is the attention's head count, needed where
+    ``sd`` holds an attention projection."""
     tree: Dict[str, dict] = {}
     for key, tensor in sd.items():
         *mods, name = key.split(".")
@@ -148,6 +193,10 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
             kind = "frozen"
         elif mods and _GN_NAME.fullmatch(mods[-1]):
             kind = "gn"
+        elif mods and _LN_NAME.fullmatch(mods[-1]):
+            kind = "ln"
+        elif _is_attention(mods):
+            kind = "attn"
         if name == "num_batches_tracked" and kind == "bn":
             continue
         passed = name in _PASSED and kind is None
@@ -156,7 +205,11 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
             raise KeyError(f"no JAX counterpart for {key}")
         collection, leaf = target
         value = tensor.detach().cpu().numpy()
-        if leaf == "kernel":
+        if kind == "attn":
+            if num_heads is None:
+                raise ValueError(f"{key}: an attention projection needs num_heads")
+            value = _attention_to_jax(mods[-1], leaf, value, num_heads)
+        elif leaf == "kernel":
             value = _kernel_to_jax(value, mods[-1] == _TRANSPOSED)
         node = tree.setdefault(collection, {})
         for m in mods:

@@ -7,8 +7,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
      (TF32 off) by themselves, or under the bf16 policy where a phase's
-     config asks for it, and phases 7, 8, 9c, 12, 12b, 17, 22 and 29 hold them
-     to the CPU;
+     config asks for it, and phases 7, 8, 9c, 12, 12b, 17, 22, 29 and 37 hold
+     them to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
      csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
      in one library), csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
@@ -234,7 +234,32 @@ Run from the root of the repository. Phases, each of which raises on failure:
  34. each of the four: inference at batch 1 of 800x1333, split into the
      network, the per-level top-1000 + decode and NMS, with the request's
      peak memory above what was held before it, plus the weights;
- 35. print the kernel report (eight kernels in six sources; every kernel's
+ 35. YOLOv3 Darknet-53 (full width, train-mode BN; random weights from a
+     seed with BN statistics and affine and every bias spread, the objectness
+     and class biases by 2 around -2) through det_train: 2 steps of 8 images
+     of 800x1333 (the config's batch); #10 twice a step (the gts' centred
+     boxes against the 9 anchors, (8, 100) x (9,); every level's decoded
+     boxes against each image's gts in one call, (8, 66,150) x (8, 100)),
+     plain 0, the ignore mask neither empty nor full; #10 held bit for bit to
+     its plain version on the first step's two calls, two runs bit-equal, and
+     timed; DETR R50 (FrozenBN, freeze_at 2, 6 + 6 layers of width 256, 8
+     heads, FFN 2048, dropout 0.1 from the step's generator, 100 queries;
+     frozen BN and biases spread, class biases by 2) through det_train with
+     DetrSolver's AdamW and its 0.1 gradient clip: 2 steps of 2 images of
+     800x1333, no kernel and no plain version, the auction's rounds and host
+     syncs per step;
+ 36. det_test on each one's dumped weights over 8 requests of one 800x1333
+     image: YOLOv3's NMS once a request at K = 3000, suppressing, plain 0;
+     DETR no kernel, 100 detections a request;
+ 37. card against CPU, f32: YOLOv3 at batch 2 (the three eval maps, the
+     detections, one train pass's losses, gradient norm and new BN
+     statistics); DETR at batch 2 with dropout 0 (every decoder layer's
+     logits and boxes, the owners, losses and gradient norm);
+ 38. each one's f32 train step split into its stages (YOLOv3: backbone, FPN,
+     targets + ignore mask, losses; DETR: backbone, encoder, decoder, heads,
+     matching, losses), backward and the optimizer, with its own peak
+     memory; then inference at batch 1 (network and post-process);
+ 39. print the kernel report (eight kernels in six sources; every kernel's
      launches path by path, the new paths included), the card, and the
      result line.
 """
@@ -4160,6 +4185,526 @@ def phase_new_models(out_dir, card):
         phase_new_inference_timing(name, model, card)
 
 
+# -- YOLOv3 and DETR: det_train and det_test at full width ------------------------------------------
+
+YOLOV3_CONFIG = "basedet_tpu_torch/playground/yolov3_darknet53/config.py"
+DETR_CONFIG = "basedet_tpu_torch/playground/detr_r50_150e/config.py"
+YOLOV3_B, DETR_B, LAST_STEPS, LAST_REQUESTS = 8, 2, 2, 8  # the configs' batches; DummyLoader's 8 requests
+YOLOV3_ROWS = 3 * sum((800 // s) * (1344 // s) for s in (32, 16, 8))  # 66,150 at 800x1344
+YOLOV3_K = 3 * 1000  # top-1000 per level, class-aware NMS
+YOLOV3_IOU_CALLS = 2  # a step: the anchor match, the ignore mask over the three levels in one call
+
+
+@torch.no_grad()
+def randomise_yolov3(module, generator):
+    """BN statistics and affine and every bias drawn from generator as ``randomise`` draws them; the
+    prediction convs' objectness and class biases spread by 2 around -2, so that conf·cls spreads
+    (a few classes dominate: same-class neighbours overlap and NMS suppresses) and the decoded
+    boxes' sizes stay near their anchors' (some pass IoU 0.7 with a gt: the ignore mask is neither
+    empty nor full)."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if getattr(m, "bias", None) is not None:
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+    for name, m in module.fpn.named_children():
+        if name.endswith("_pred"):
+            per_anchor = m.bias.view(3, -1)
+            per_anchor[:, 4:].normal_(-2.0, 2.0, generator=generator)
+
+
+@torch.no_grad()
+def randomise_detr(module, generator):
+    """The frozen BN statistics and affine and every bias drawn from generator, as
+    ``randomise_retina`` draws them, the class biases spread by 2."""
+    from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
+
+    for m in module.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.running_mean.normal_(0.0, 0.2, generator=generator)
+            m.running_var.uniform_(0.5, 2.0, generator=generator)
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+        if getattr(m, "bias", None) is not None:
+            m.bias.add_(torch.empty_like(m.bias).normal_(0.0, 0.3, generator=generator))
+    module.class_embed.bias.add_(torch.empty_like(module.class_embed.bias).normal_(0.0, 2.0, generator=generator))
+
+
+LAST = {  # model: (config, batch, randomise)
+    "YOLOv3": (YOLOV3_CONFIG, YOLOV3_B, randomise_yolov3),
+    "DETR": (DETR_CONFIG, DETR_B, randomise_detr),
+}
+
+
+def _last_opts(out_dir):
+    return ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(FRCNN_IMAGE).replace(" ", ""),
+            "GLOBAL.OUTPUT_DIR", out_dir]
+
+
+def _last_train_opts(out_dir, name, weights, batch):
+    return [*_last_opts(out_dir), "DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(batch), "SOLVER.MAX_EPOCH",
+            "1", "SOLVER.NUM_IMAGE_PER_EPOCH", str(LAST_STEPS * batch), "GLOBAL.LOG_INTERVAL", "1",
+            "MODEL.WEIGHTS", weights, "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, f"{name}_ckpt")]
+
+
+def make_last_weights(out_dir, name):
+    """Full-width ``name`` on the card with random weights from SEED, spread, saved as a state_dict.
+    Returns (cfg for det_test, model, path)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    config, _, spread = LAST[name]
+    cfg = import_config(config)
+    cfg.merge(_last_opts(out_dir))
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    spread(model.module, generator)
+    weights = os.path.join(out_dir, f"{name.lower()}_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    m = cfg.MODEL
+    what = (f"Darknet-53 (train-mode BN) + YOLOFPN, anchors {[len(a) for a in m.ANCHOR.SCALES]} a level, ignore "
+            f"threshold {m.IGNORE_THRESHOLD}" if name == "YOLOv3" else
+            f"{m.BACKBONE.NAME} (FrozenBN, freeze_at {m.BACKBONE.FREEZE_AT}), {m.TRANSFORMER.NUM_ENCODERS} + "
+            f"{m.TRANSFORMER.NUM_DECODERS} layers of width {m.TRANSFORMER.DIM}, {m.TRANSFORMER.NUM_HEADS} heads, FFN "
+            f"{m.TRANSFORMER.DIM_FFN}, dropout {m.TRANSFORMER.DROPOUT}, {m.NUM_QUERIES} queries")
+    log(f"[{name.lower()}] {config}: {what}, {cfg.DATA.NUM_CLASSES} classes, "
+        f"{sum(p.numel() for p in model.module.parameters())} parameters, random from seed {SEED}")
+    return cfg, model, weights
+
+
+def phase_last_train(out_dir, name, weights):
+    """det_train on full-width ``name``, LAST_STEPS steps of its config's batch of 800x1333, every
+    kernel's and plain version's count zeroed just before and read just after. YOLOv3: #10 twice a
+    step (its calls' arguments kept), the ignore mask neither empty nor full; DETR: no kernel, the
+    auction's rounds and host syncs per call, dropout drawn from the step's generator. Returns (the
+    kernels' calls, the dumped weights)."""
+    from basedet_tpu_torch.layers.common.matcher import AuctionStats
+    from basedet_tpu_torch.models import det
+    from basedet_tpu_torch.models.det import detr, yolov3
+    from basedet_tpu_torch.tools import det_train
+
+    config, batch, _ = LAST[name]
+    path = f"{name} det_train"
+    keep_args = lambda args, out: tuple(a.clone() for a in args)
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    auction = lambda args, out: (AuctionStats.rounds, AuctionStats.syncs, int(AuctionStats.needed.max()),
+                                 AuctionStats.completed, tuple(args[0].shape))
+    with contextlib.ExitStack() as stack:
+        losses = stack.enter_context(recording(getattr(det, name), "get_losses", keep_losses))
+        if name == "YOLOv3":
+            calls = stack.enter_context(recording(yolov3, "box_iou", keep_args))
+            ignored = stack.enter_context(recording(det.YOLOv3, "ignore_mask",
+                                                    lambda args, out: float(out.float().mean())))
+        else:
+            calls = stack.enter_context(recording(detr, "hungarian_match_owner", auction))
+            drawn = stack.enter_context(recording(det.DETR, "dropout_generator", lambda args, out: out is not None))
+        stack.enter_context(kernel_counts(path))
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", config, "--device", "cuda", *_last_train_opts(out_dir, name, weights, batch)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    check(steps == LAST_STEPS and len(losses) == LAST_STEPS, f"{name} det_train took {steps} steps")
+    per_step = {"box_iou": YOLOV3_IOU_CALLS} if name == "YOLOv3" else {}
+    counts = _new_counts(path, {k: n * steps for k, n in per_step.items()})
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite {name} losses {losses}")
+    check(all(step["total_loss"] > 0 for step in losses), f"{name} losses {losses}")
+    ckpt = os.path.join(out_dir, f"{name}_ckpt")
+    for f in ("latest.pt", "epoch_1.pt", "dumped_model.pt"):
+        check(os.path.exists(os.path.join(ckpt, f)), f"{name} det_train wrote no {f}")
+    per = "; ".join(", ".join(f"{k} {v:.4f}" for k, v in step.items()) for step in losses)
+    if name == "YOLOv3":
+        check(len(calls) == YOLOV3_IOU_CALLS * steps, f"YOLOv3: {len(calls)} recorded IoU calls")
+        (a1, a2), (i1, i2) = calls[0], calls[1]
+        check(tuple(a1.shape) == (batch, 100, 4) and tuple(a2.shape) == (9, 4)
+              and tuple(i1.shape) == (batch, YOLOV3_ROWS, 4) and tuple(i2.shape) == (batch, 100, 4),
+              f"YOLOv3's IoU calls took {[(tuple(a.shape), tuple(b.shape)) for a, b in calls[:2]]}")
+        check(all(0.0 < f < 1.0 for f in ignored), f"the ignore mask is empty or full: {ignored}")
+        extra = (f"; #10 per step at (B, K, 4) x (9, 4) then (B, R, 4) x (B, K, 4) = {tuple(i1.shape)} x "
+                 f"{tuple(i2.shape)}; ignored share of rows per step {', '.join(f'{f:.5f}' for f in ignored)}")
+    else:
+        check(len(calls) == steps and all(d for d in drawn) and len(drawn) == steps,
+              f"DETR: {len(calls)} auction calls, dropout generators {drawn}")
+        extra = "; auction per step (problems x Q x K, rounds run, rounds needed, host syncs, greedy completion): " + \
+            "; ".join(f"{shape} {r} run, {n} needed, {s} syncs, completion {c}" for r, s, n, c, shape in calls) + \
+            "; dropout 0.1 from the step's generator"
+    log(f"[{name.lower()}-train] det_train {name}, {steps} steps of {batch} images {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} "
+        f"(padded 800x1344), f32, in {seconds:.2f} s; kernel launches {counts}; losses per step: {per}{extra}")
+    return calls, os.path.join(ckpt, "dumped_model.pt")
+
+
+def phase_yolov3_kernels(calls, card):
+    """#10 against its plain version on YOLOv3's first step's own two calls, bit for bit, two runs
+    bit-equal, and timed. Returns {call: (err, device ms)} for the report."""
+    from basedet_tpu_torch.ops.iou_kernel import box_iou
+
+    for i, (b1, b2) in enumerate(calls[:YOLOV3_IOU_CALLS]):
+        err, bits = check_iou_case(b1, b2)
+        repeat = torch.equal(box_iou(b1, b2).view(torch.int32), box_iou(b1, b2).view(torch.int32))
+        what = ("anchor match" if i == 0 else "ignore mask")
+        log(f"[iou] YOLOv3 step 1 {what}: {tuple(b1.shape)} x {tuple(b2.shape)}: max |kernel - plain| {err:.3e}, "
+            f"bit-equal {bits}, two runs bit-equal {repeat}")
+        check(bits and repeat, f"the IoU kernel on YOLOv3's {what}: bit-equal {bits}, repeat {repeat}")
+        _iou_timing(f"YOLOv3 {what}", b1, b2, card)
+
+
+def phase_last_slice(out_dir, name, weights):
+    """det_test on ``name`` over LAST_REQUESTS requests of one 800x1333 image, counts zeroed just
+    before and read just after: YOLOv3's NMS once a request at K = 3000, suppressing; DETR no kernel
+    (one detection per query). Every plain version 0 times."""
+    from basedet_tpu_torch.ops import nms as nms_ops
+    from basedet_tpu_torch.tools import det_test
+
+    from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    path = f"{name} det_test"
+    seen = lambda args, keep: (args[0].shape[1], list(zip(args[1].sum(1).tolist(), keep.sum(1).tolist())),
+                               args if not calls else None)
+    t0 = time.perf_counter()
+    with recording(nms_ops, "nms_keep", seen) as calls, kernel_counts(path):
+        results = det_test.main(["-f", LAST[name][0], "-w", weights, "--device", "cuda", *_last_opts(out_dir)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _new_counts(path, {"nms_keep": LAST_REQUESTS} if name == "YOLOv3" else {})
+    with open(os.path.join(out_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), f"non-finite {name} detections")
+    check({r["image_id"] for r in records} == set(range(LAST_REQUESTS)), f"not every {name} request was answered")
+    if name == "YOLOv3":
+        check(all(k == YOLOV3_K for k, _, _ in calls), f"YOLOv3's NMS took {[k for k, _, _ in calls]} candidates")
+        check(any(k < v for _, call, _ in calls for v, k in call), "YOLOv3's NMS suppressed nothing on the main path")
+        boxes, valid, t = calls[0][2]
+        keep = nms_keep(boxes, valid, t)
+        check(torch.equal(keep, nms_keep_plain(boxes, valid, t)), "the NMS kernel differs from its plain version on "
+                                                                    "YOLOv3's first request")
+        ms = cuda_ms(lambda: nms_keep(boxes, valid, t), reps=50, warmup=5)
+        plain_ms = cuda_ms(lambda: nms_keep_plain(boxes, valid, t), reps=3, warmup=1)
+        bound_ms, bound_by = nms_bound(valid, keep)
+        extra = (f", NMS at K = {YOLOV3_K}; NMS kept per image {_kept_range([c for _, c, _ in calls])}; on the first "
+                 f"request's own arguments the kernel equals its plain version, kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+                 f" ms a call, bound {bound_ms:.6f} ms ({bound_by}); {_nms_split(boxes, valid, t)}")
+    else:
+        check(len(records) == LAST_REQUESTS * 100, f"DETR answered {len(records)} detections, not 100 a request")
+        extra = ", one detection per query, no NMS"
+    log(f"[{name.lower()}] det_test {name} with {os.path.basename(weights)} on {LAST_REQUESTS} requests of "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: {results}, {len(records)} finite detections in {seconds:.2f} s; kernel "
+        f"launches {counts}{extra}")
+
+
+def _last_train_setup(name, weights, device, extra=()):
+    """Full-width ``name`` in train mode with ``weights``, its solver's train state and step, and
+    the first synthetic batch of the config's size of 800x1333."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.tools import import_config
+    from basedet_tpu_torch.utils.registry import registers
+
+    config, batch, _ = LAST[name]
+    cfg = import_config(config)
+    cfg.merge([*_last_train_opts(".", name, weights, batch), *extra])
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    solver = registers.solvers.get(cfg.SOLVER.BUILDER_NAME).build(cfg)
+    state = TrainState(model.train(), solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def _grad_norm(module):
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in module.parameters() if p.grad is not None)))
+
+
+def _rel_to_max(got, want):
+    return float((got.cpu() - want.cpu()).abs().max() / want.abs().max())
+
+
+def _yolov3_pass(model, batch):
+    """YOLOv3 at batch 2 on one device, f32: the eval-mode maps and detections, then one train-mode
+    get_losses and backward: losses, gradient norm, the new BN running statistics."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    with torch.inference_mode(), full_f32():
+        maps = [x.cpu() for x in model.module.eval()(model.pre_process(batch)["image"])]
+    dets = {k: v.cpu().numpy() for k, v in model.inference(batch).items()}
+    model.train()
+    with full_f32():
+        model.module.zero_grad(set_to_none=True)
+        total, losses = model.get_losses(batch)
+        total.backward()
+    stats = {k: v.detach().cpu() for k, v in model.module.state_dict().items() if "running" in k}
+    return maps, dets, {k: float(v.detach()) for k, v in losses.items()}, _grad_norm(model.module), stats
+
+
+def phase_yolov3_card_vs_cpu(weights):
+    """YOLOv3 card against CPU, f32, TF32 off, the same weights and batch of 2 of 800x1333: the
+    three eval maps (HEAD_ATOL of each map's largest value), the detections (FRCNN_AGREE matched),
+    one train pass's losses (LOSS_RTOL), gradient norm (GRAD_NORM_RTOL) and new BN running
+    statistics (STATS_RTOL of max(|value|, 1))."""
+    from basedet_tpu_torch.utils.compare import match_detections
+
+    t0 = time.perf_counter()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model, _, _, batch = _last_train_setup("YOLOv3", weights, device, ["MODEL.BATCHSIZE", "2"])
+        runs[device] = _yolov3_pass(model, batch)
+        del model
+        if device == "cpu":
+            cpu_s = time.perf_counter() - t0
+    (c_maps, c_dets, c_loss, c_norm, c_stats), (g_maps, g_dets, g_loss, g_norm, g_stats) = runs["cpu"], runs["cuda"]
+    map_err = [_rel_to_max(g, c) for g, c in zip(g_maps, c_maps)]
+    frac = match_detections(c_dets, g_dets)
+    rel = {k: abs(g_loss[k] - v) / max(abs(v), 1e-12) for k, v in c_loss.items()}
+    norm_rel = abs(g_norm - c_norm) / c_norm
+    stats_rel = max(float((g_stats[k] - v).abs().max()) / max(1.0, float(v.abs().max())) for k, v in c_stats.items())
+    log(f"[parity] YOLOv3 card vs CPU, f32 (CPU runs {cpu_s:.1f} s), batch 2 of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: "
+        f"eval maps max |diff| over max |value| {', '.join(f'{e:.3e}' for e in map_err)} (strides 32, 16, 8; tol "
+        f"{HEAD_ATOL}); {int(c_dets['valid'].sum())} CPU / {int(g_dets['valid'].sum())} card detections, {frac:.4f} "
+        f"matched; train pass losses card {', '.join(f'{k} {v:.6f}' for k, v in g_loss.items())} / CPU "
+        f"{', '.join(f'{k} {v:.6f}' for k, v in c_loss.items())}, worst rel diff {max(rel.values()):.3e} (tol "
+        f"{LOSS_RTOL}); gradient norm {g_norm:.6f} / {c_norm:.6f}, rel diff {norm_rel:.3e} (tol {GRAD_NORM_RTOL}); "
+        f"new BN running statistics worst {stats_rel:.3e} of max(|value|, 1) (tol {STATS_RTOL})")
+    check(max(map_err) <= HEAD_ATOL, f"YOLOv3 maps differ between card and CPU: {map_err}")
+    check(np.isfinite(g_dets["boxes"]).all() and g_dets["valid"].any(), "card detections empty or non-finite")
+    check(frac >= FRCNN_AGREE, f"only {frac:.3f} of the CPU's YOLOv3 detections matched on the card")
+    check(max(rel.values()) <= LOSS_RTOL, f"YOLOv3 train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"YOLOv3 gradient norms differ by {norm_rel:.3e}")
+    check(stats_rel <= STATS_RTOL, f"YOLOv3 BN running statistics differ by {stats_rel:.3e}")
+
+
+def _detr_pass(model, batch):
+    """DETR at batch 2 on one device, f32, dropout 0: every decoder layer's logits and boxes, the
+    owners, then get_losses and backward: losses and gradient norm."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    model.train()
+    with torch.no_grad(), full_f32():
+        x = model.prepare(batch, train=True)
+        logits, coords = model.module(x["image"], x["mask"])
+        targets = model.targets(x["gt_boxes"], x["img_info"])
+        owner = model.match(logits, coords, *targets[:3])
+        cost = model.matching_cost(logits.flatten(0, 1), coords.flatten(0, 1),
+                                   *(t.expand(logits.shape[0], *t.shape).flatten(0, 1) for t in targets[:2]))
+    with full_f32():
+        model.module.zero_grad(set_to_none=True)
+        total, losses = model.get_losses(batch)
+        total.backward()
+    return (logits.cpu(), coords.cpu(), owner.cpu(), cost.cpu(), targets[2].cpu(),
+            {k: float(v.detach()) for k, v in losses.items()}, _grad_norm(model.module))
+
+
+def phase_detr_card_vs_cpu(weights):
+    """DETR card against CPU, f32, TF32 off, dropout 0, the same weights and batch of 2: every
+    decoder layer's logits and boxes (HEAD_ATOL of each one's largest value), the owners (equal, or
+    each differing problem's total cost on the CPU's cost within the auction's eps bound), losses
+    (LOSS_RTOL) and gradient norm (GRAD_NORM_RTOL)."""
+    t0 = time.perf_counter()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model, _, _, batch = _last_train_setup("DETR", weights, device, ["MODEL.TRANSFORMER.DROPOUT", "0.0"])
+        runs[device] = _detr_pass(model, batch)
+        del model
+        if device == "cpu":
+            cpu_s = time.perf_counter() - t0
+    c_logits, c_coords, c_owner, c_cost, valid, c_loss, c_norm = runs["cpu"]
+    g_logits, g_coords, g_owner, _, _, g_loss, g_norm = runs["cuda"]
+    L = c_logits.shape[0]
+    logit_err = [_rel_to_max(g_logits[i], c_logits[i]) for i in range(L)]
+    box_err = [_rel_to_max(g_coords[i], c_coords[i]) for i in range(L)]
+    differ = (c_owner != g_owner).any(dim=-1).flatten()  # (layers x images) problems
+    cost, v = c_cost, valid.expand(L, *valid.shape).flatten(0, 1)  # (P, Q, K), (P, K)
+
+    def total_cost(owner):
+        o = owner.flatten(0, 1)
+        return torch.where(v, cost.gather(1, o.clamp(min=0)[:, None, :])[:, 0], 0.0).sum(-1)
+
+    gap = (total_cost(g_owner) - total_cost(c_owner)).abs()
+    vmax = torch.where(v[:, None], cost, -torch.inf).amax((1, 2))
+    vmin = torch.where(v[:, None], cost, torch.inf).amin((1, 2))
+    bound = v.sum(-1) * 2e-3 * (vmax - vmin)  # eps-optimality: V x eps
+    rel = {k: abs(g_loss[k] - x) / max(abs(x), 1e-12) for k, x in c_loss.items()}
+    norm_rel = abs(g_norm - c_norm) / c_norm
+    log(f"[parity] DETR card vs CPU, f32, dropout 0 (CPU runs {cpu_s:.1f} s), batch 2 of {FRCNN_IMAGE[0]}x"
+        f"{FRCNN_IMAGE[1]}: per decoder layer, max |diff| over max |value|, logits "
+        f"{', '.join(f'{e:.3e}' for e in logit_err)}, boxes {', '.join(f'{e:.3e}' for e in box_err)} (tol {HEAD_ATOL}); "
+        f"owners equal in {int((~differ).sum())} of {differ.numel()} (layer, image) problems"
+        f"{f'; the others assign a total cost on the CPU cost {float(gap[differ].max()):.3e} from the CPU owners (a near-tie; the auction eps bound V x eps {float(bound[differ].min()):.3e})' if differ.any() else ''}"
+        f"; losses card {', '.join(f'{k} {x:.6f}' for k, x in g_loss.items())} / CPU "
+        f"{', '.join(f'{k} {x:.6f}' for k, x in c_loss.items())}, worst rel diff {max(rel.values()):.3e} (tol "
+        f"{LOSS_RTOL}); gradient norm {g_norm:.6f} / {c_norm:.6f}, rel diff {norm_rel:.3e} (tol {GRAD_NORM_RTOL})")
+    check(max(logit_err + box_err) <= HEAD_ATOL, f"DETR decoder outputs differ: {logit_err}, {box_err}")
+    check(bool((gap[differ] <= bound[differ]).all()), f"DETR owners differ beyond a near-tie: {gap[differ]}")
+    check(max(rel.values()) <= LOSS_RTOL, f"DETR train losses differ between card and CPU: {rel}")
+    check(norm_rel <= GRAD_NORM_RTOL, f"DETR gradient norms differ by {norm_rel:.3e}")
+
+
+def _step_timing(name, model, state, step, batch, before, stages, card, notes=""):
+    """Log ``name``'s step: each stage alone ({stage: ms}), get_losses, get_losses + backward and the
+    whole step as nested prefixes, and the peak above ``before`` (bytes held before the model was
+    built)."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    m = model.module
+
+    def run(fn):
+        with full_f32():
+            return fn()
+
+    def losses_backward():
+        m.zero_grad(set_to_none=True)
+        model.get_losses(batch)[0].backward()
+
+    t_loss = cuda_ms(lambda: run(lambda: model.get_losses(batch)[0]), reps=NEW_REPS, warmup=2)
+    t_fb = cuda_ms(lambda: run(losses_backward), reps=NEW_REPS, warmup=2)
+    t_opt = cuda_ms(state.optimizer.step, reps=NEW_REPS, warmup=1)  # on the last backward's gradients
+    torch.cuda.reset_peak_memory_stats()
+    t_step = cuda_ms(lambda: step(state, batch), reps=NEW_REPS, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - before
+    optimizer = type(state.optimizer).__name__
+    log(f"[timing] {name} f32 train step, batch {LAST[name][1]} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}: {t_step:.3f} ms "
+        f"per step ({1000 * LAST[name][1] / t_step:.2f} img/s); each alone, gradients enabled: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in stages.items())} ms; get_losses {t_loss:.3f} ms, get_losses with "
+        f"backward {t_fb:.3f} ms (backward {t_fb - t_loss:.3f} by difference), {optimizer}'s step alone "
+        f"{t_opt:.3f} ms (means of {NEW_REPS} runs); peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated above what the script held before this model was built){notes}, input "
+        f"already on the card | {card}")
+    return t_step
+
+
+def _timed(fn):
+    from basedet_tpu_torch.layers.common.function import full_f32
+
+    def run():
+        with full_f32():
+            return fn()
+    return cuda_ms(run, reps=NEW_REPS, warmup=2), run()
+
+
+def phase_yolov3_train_timing(weights, card):
+    """One f32 YOLOv3 train step at batch 8 of 800x1333, input on the card: backbone, FPN, targets +
+    ignore mask (#10 twice), losses, each alone on the previous stage's outputs with gradients
+    enabled; then get_losses, backward and SGD; the step's own peak memory."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model, state, step, batch = _last_train_setup("YOLOv3", weights, "cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    m = model.module
+    x = model.pre_process(batch, train=True)
+    gt, nv = x["gt_boxes"], x["img_info"][:, 4].to(torch.int32)
+    t = {}
+    t["backbone"], feats = _timed(lambda: m.bottom_up(x["image"]))
+    t["FPN"], preds = _timed(lambda: m.fpn([feats["dark3"], feats["dark4"], feats["dark5"]]))
+    pred, grid, hw = model.flatten(preds), model.grids(preds), [tuple(p.shape[-2:]) for p in preds]
+
+    def targets():
+        return (model.targets(gt, nv, hw, float(x["image"].shape[2])),
+                model.ignore_mask(model.decode(pred.detach(), grid), gt, nv))
+
+    t["targets + ignore mask"], (tg, ignore) = _timed(targets)
+    t["losses"], _ = _timed(lambda: model.losses(pred, tg, ignore))
+    del feats, preds, pred, tg, ignore
+    return _step_timing("YOLOv3", model, state, step, batch, before, t, card)
+
+
+def phase_detr_train_timing(weights, card):
+    """One f32 DETR train step at batch 2 of 800x1333, dropout 0.1 from the step's generator, input
+    on the card: backbone (+ input_proj, mask, position embedding), encoder, decoder, heads,
+    matching (its cost and its auction apart, the rounds and host syncs), losses, each alone; then
+    get_losses, backward and AdamW; the step's own peak memory."""
+    from basedet_tpu_torch.layers.common.matcher import AuctionStats, hungarian_match_owner
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model, state, step, batch = _last_train_setup("DETR", weights, "cuda")
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    m = model.module
+    x = model.prepare(batch, train=True)
+    g = model.dropout_generator(42, 0)
+    t = {}
+    t["backbone"], (src, pad, pos) = _timed(lambda: m.features(x["image"], x["mask"]))
+    t["encoder"], memory = _timed(lambda: m.transformer.encode(src, pad, pos, g))
+    t["decoder"], hs = _timed(lambda: m.transformer.decode(memory, pad, m.query_embed, pos, g))
+    t["heads"], (logits, coords) = _timed(lambda: m.heads(hs))
+    targets = model.targets(x["gt_boxes"], x["img_info"])
+    t["matching"], owner = _timed(lambda: model.match(logits.detach(), coords.detach(), *targets[:3]))
+    L = logits.shape[0]
+    with torch.no_grad():
+        flat = lambda v: v.expand(L, *v.shape).flatten(0, 1)
+        t_cost, cost = _timed(lambda: model.matching_cost(logits.flatten(0, 1), coords.flatten(0, 1),
+                                                          flat(targets[0]), flat(targets[1])))
+        t_auction, _ = _timed(lambda: hungarian_match_owner(cost, flat(targets[2])))
+    notes = (f"; of the matching, the cost {t_cost:.3f} ms and the auction {t_auction:.3f} ms alone: "
+             f"{owner.shape[0] * owner.shape[1]} (layer, image) problems of {logits.shape[2]} queries x "
+             f"{owner.shape[2]} targets, {AuctionStats.rounds} rounds run, {int(AuctionStats.needed.max())} needed, "
+             f"{AuctionStats.syncs} host syncs a call")
+    t["losses"], _ = _timed(lambda: model.layer_losses(logits, coords, owner, *targets))
+    del src, pad, pos, memory, hs, logits, coords
+    return _step_timing("DETR", model, state, step, batch, before, t, card, notes)
+
+
+def phase_last_inference_timing(name, model, card):
+    """``name``'s f32 inference at batch 1 of 800x1333, input on the card: the whole request, the
+    network and the post-process (YOLOv3: the per-level top-1000 + decode, then NMS at K = 3000 with
+    the rescale), each alone, means of 10; the request's peak with the weights."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.common.post_processing import post_processing
+
+    batch = _timing_batch(1, FRCNN_IMAGE)
+    model.eval()
+    total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.inference(batch)
+    weights = sum(t.numel() * t.element_size() for t in model.module.state_dict().values())
+    peak = torch.cuda.max_memory_allocated() - base + weights
+    with torch.inference_mode(), full_f32():
+        if name == "YOLOv3":
+            x = model.pre_process(batch)
+            t_net = cuda_ms(lambda: model.module(x["image"]), reps=10, warmup=2)
+            preds = model.module(x["image"])
+            t_topk = cuda_ms(lambda: model.candidates(preds), reps=10, warmup=2)
+            cands = model.candidates(preds)
+            test_cfg = model.cfg.TEST
+            t_nms = cuda_ms(lambda: post_processing(*cands, x["img_info"], test_cfg.IOU_THRESHOLD,
+                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=10, warmup=2)
+            split = (f"network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, NMS at K = {cands[1].shape[1]} "
+                     f"+ rescale {t_nms:.3f} ms")
+        else:
+            x = model.prepare(batch)
+            t_net = cuda_ms(lambda: model.module(x["image"], x["mask"]), reps=10, warmup=2)
+            logits, coords = model.module(x["image"], x["mask"])
+            t_post = cuda_ms(lambda: model.post_process(logits[-1], coords[-1], x["img_info"]), reps=10, warmup=2)
+            split = f"network {t_net:.3f}, softmax + boxes {t_post:.3f} ms"
+    log(f"[timing] {name} f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch 1: {total:.3f} ms per request; {split} (each "
+        f"alone, means of 10); peak memory {peak / 2**30:.2f} GiB (the model's weights and the request's "
+        f"torch.cuda.max_memory_allocated above what was held before it), input already on the card | {card}")
+    return total
+
+
+def phase_last_families(out_dir, card):
+    """35-38: YOLOv3 and DETR through det_train and det_test, YOLOv3's #10 calls held on its own
+    step's arguments and timed, card against CPU, every step and request timed."""
+    models = {}
+    for name in LAST:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model, weights = make_last_weights(out_dir, name)
+        calls, dumped = phase_last_train(out_dir, name, weights)
+        if name == "YOLOv3":
+            phase_yolov3_kernels(calls, card)
+        del calls
+        phase_last_slice(out_dir, name, dumped)
+        (phase_yolov3_card_vs_cpu if name == "YOLOv3" else phase_detr_card_vs_cpu)(weights)
+        (phase_yolov3_train_timing if name == "YOLOv3" else phase_detr_train_timing)(weights, card)
+        models[name] = model
+    for name, model in models.items():
+        phase_last_inference_timing(name, model, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -4217,6 +4762,7 @@ def main():
         phase_data_other_models(out_dir, frcnn_weights, cnet_weights, card)
         phase_data_bench(out_dir, card)
         phase_new_models(out_dir, card)
+        phase_last_families(out_dir, card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}

@@ -213,8 +213,9 @@ def test_multistep_lr_matches_jax(warm):
 
 def test_det_solver_matches_jax():
     """One SGD step with zero gradients moves a parameter by -lr · wd · p:
-    every trainable tensor, biases too, and none of the frozen ones. And what
-    the port refuses."""
+    every trainable tensor, biases too, and none of the frozen ones. And the
+    names: AdamW and CosineLR build (tests/test_torch_detr_solver.py holds
+    them to optax); an unknown optimizer or schedule is refused."""
     cfg = tiny_cfg()
     cfg.SOLVER.merge(dict(WARM_ITERS=0, BASIC_LR=2.0))  # updates far above the params' ulp
     jmodel, variables, port = make_pair(cfg)
@@ -247,9 +248,14 @@ def test_det_solver_matches_jax():
 
     assert DefaultSolver.build(cfg).lr_schedule(0) == 4.0
     for key, value in (("OPTIMIZER_NAME", "AdamW"), ("LR_SCHEDULER_NAME", "CosineLR")):
+        other = tiny_cfg()
+        other.SOLVER[key] = value
+        built = DetSolver.build(other)
+        assert built.optimizer == "AdamW" if key == "OPTIMIZER_NAME" else built.lr_schedule(built.max_iters) == 0.0
+    for key, value, error in (("OPTIMIZER_NAME", "LAMB", ValueError), ("LR_SCHEDULER_NAME", "PolyLR", NotImplementedError)):
         bad = tiny_cfg()
         bad.SOLVER[key] = value
-        with pytest.raises(NotImplementedError, match=value):
+        with pytest.raises(error, match=value):
             DetSolver.build(bad)
 
 

@@ -28,7 +28,8 @@ OVERRIDES = ["SOLVER.BASIC_LR", "0.02", "MODEL.BACKBONE.NAME", "resnet18",
 
 
 @pytest.mark.parametrize("name", ["YOLOXSConfig", "YOLOXTinyConfig", "YOLOXNanoConfig",
-                                  "FasterRCNNConfig", "CenterNetConfig", "RetinaNetConfig"])
+                                  "FasterRCNNConfig", "CenterNetConfig", "RetinaNetConfig", "YOLOv3Config",
+                                  "DETRConfig"])
 def test_config_trees_equal_the_jax_package(name):
     port, ref = getattr(port_configs, name)(), getattr(jax_configs, name)()
     assert port.to_dict() == ref.to_dict()
@@ -37,7 +38,8 @@ def test_config_trees_equal_the_jax_package(name):
     assert port.DATA.DUMMY_IMAGE_SIZE == (800, 1333)
 
 
-@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x", "centernet_r50", "retinanet_r50_1x"])
+@pytest.mark.parametrize("model", ["yolox_s", "faster_rcnn_r50_1x", "centernet_r50", "retinanet_r50_1x",
+                                   "yolov3_darknet53", "detr_r50_150e"])
 def test_playground_configs_equal_the_jax_package(model):
     port = import_config(f"basedet_tpu_torch/playground/{model}/config.py")
     ref = jax_import_config(f"playground/{model}/config.py")

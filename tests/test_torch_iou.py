@@ -272,3 +272,23 @@ def test_kernel_bit_equal_at_the_callers_shapes_on_gpu(name):
     got = box_iou(a, b)
     assert torch.equal(bits(got), bits(box_iou_plain(a, b)))
     assert torch.equal(bits(got), bits(box_iou(a, b)))
+
+
+@pytest.mark.cuda
+def test_kernel_bit_equal_at_yolov3_shapes_on_gpu():
+    """YOLOv3's two calls a step at batch 8 of 800x1344: the gts' centred boxes
+    against the 9 anchors, (8, 100, 4) x (9, 4), and the ignore mask's
+    decoded boxes of the three levels against each image's padded gts,
+    (8, 66150, 4) x (8, 100, 4): bit-equal to the plain version, and two
+    runs bit-equal."""
+    _needs_gpu()
+    rng = np.random.RandomState(7)
+    gts = padded_gts(rng, 8, 100, 12, 1333.0).cuda()
+    wh = gts[..., 2:] - gts[..., :2]
+    anchors = torch.tensor([[116, 90], [156, 198], [373, 326], [30, 61], [62, 45], [42, 119], [10, 13], [16, 30],
+                            [33, 23]], dtype=torch.float32, device="cuda")
+    decoded = _iou_boxes(rng, (8, 3 * (25 * 42 + 50 * 84 + 100 * 168), 4), 1333.0).cuda()
+    for a, b in ((torch.cat([-wh / 2, wh / 2], -1), torch.cat([-anchors / 2, anchors / 2], 1)), (decoded, gts)):
+        got = box_iou(a, b)
+        assert torch.equal(bits(got), bits(box_iou_plain(a, b)))
+        assert torch.equal(bits(got), bits(box_iou(a, b)))

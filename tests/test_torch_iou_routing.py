@@ -3,7 +3,8 @@
 to the kernel and a CPU tensor to the plain version: Faster R-CNN's RPN
 targets and R-CNN sampling, YOLOX's SimOTA (in f32 and under the bf16
 policy), RetinaNet's anchor assignment, ATSS's assignment (once a step) and
-FreeAnchor's bag loss (twice a step); and OTA's dynamic-k matching goes
+FreeAnchor's bag loss (twice a step), YOLOv3's anchor match and ignore mask
+(twice a step); DETR calls it never; and OTA's dynamic-k matching goes
 through ``ops/matching_kernel.py::dynamic_k_matching`` once a step.
 
 On the CPU the wrapper returns the plain version's result, so the callers'
@@ -19,12 +20,13 @@ import pytest
 import torch
 
 from basedet_tpu_torch import build_model
-from basedet_tpu_torch.configs import ATSSConfig, FasterRCNNConfig, FreeAnchorConfig, OTAConfig, YOLOXSConfig
+from basedet_tpu_torch.configs import (ATSSConfig, DETRConfig, FasterRCNNConfig, FreeAnchorConfig, OTAConfig,
+                                       YOLOv3Config, YOLOXSConfig)
 from basedet_tpu_torch.layers.common.matcher import Matcher
 from basedet_tpu_torch.layers.head import rcnn
 from basedet_tpu_torch.layers.precision import precision_policy
 from basedet_tpu_torch.layers.common import matcher
-from basedet_tpu_torch.models.det import atss, free_anchor, retinanet, rpn, yolox
+from basedet_tpu_torch.models.det import atss, free_anchor, retinanet, rpn, yolov3, yolox
 from basedet_tpu_torch.ops import iou_kernel
 from basedet_tpu_torch.ops.iou_kernel import box_iou_plain
 from basedet_tpu_torch.structures import BoxCoder
@@ -33,7 +35,7 @@ from chip_smoke import _iou_boxes
 from tests.tiny import shrink
 
 
-@pytest.mark.parametrize("caller", [rpn, rcnn, yolox, retinanet, atss, free_anchor],
+@pytest.mark.parametrize("caller", [rpn, rcnn, yolox, retinanet, atss, free_anchor, yolov3],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_callers_take_the_wrapper(caller):
     assert caller.box_iou is iou_kernel.box_iou
@@ -140,3 +142,26 @@ def test_ota_get_losses_takes_the_matching_wrapper_once(monkeypatch):
     model.get_losses(batch)
     R = sum((128 // s) * (192 // s) for s in (8, 16, 32)) + 2 * 3 + 1 * 2
     assert seen == [((2, 6, R), (2, 6, R), (2, 6), 10)]
+
+
+def test_yolov3_get_losses_takes_the_wrapper_twice(monkeypatch):
+    """The gts' centred (0, 0, w, h) boxes against the 9 anchors, (B, K, 4) x
+    (9, 4); then every level's decoded boxes, detached, against each image's
+    gts in one call, (B, R, 4) x (B, K, 4), the JAX package's operand order."""
+    cfg = YOLOv3Config()
+    cfg.MODEL.BACKBONE.NAME = "darknet21"
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 8
+    model, batch = _tiny(cfg, (128, 192), 6)
+    seen = _counting(monkeypatch)
+    model.get_losses(batch)
+    R = 3 * sum((128 // s) * (192 // s) for s in (32, 16, 8))
+    assert seen == [((2, 6, 4), (9, 4), torch.float32, torch.float32),
+                    ((2, R, 4), (2, 6, 4), torch.float32, torch.float32)]
+
+
+def test_detr_get_losses_never_takes_the_wrapper(monkeypatch):
+    """DETR's matching cost takes the elementwise GIoU, not the pairwise IoU."""
+    model, batch = _tiny(DETRConfig(), (128, 192), 6)
+    seen = _counting(monkeypatch)
+    model.get_losses(batch)
+    assert seen == []

@@ -2,8 +2,8 @@
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
 its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN, tiny CenterNet and
-tiny RetinaNet, tiny ATSS, and YOLOX-S on a synthetic PNG set through the
-data slice)
+tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
+synthetic PNG set through the data slice)
 run in a subprocess that cannot import any of them, nor Pillow, which only
 JPEG needs. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
@@ -25,6 +25,14 @@ FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
 RETINANET = "basedet_tpu_torch/playground/retinanet_r50_1x/config.py"
 ATSS = "basedet_tpu_torch/playground/atss_r50_1x/config.py"
+YOLOV3 = "basedet_tpu_torch/playground/yolov3_darknet53/config.py"
+DETR = "basedet_tpu_torch/playground/detr_r50_150e/config.py"
+# tiny YOLOv3: Darknet-21 at width 8 (the port's width knob), on 128x192 images
+_TINY_YOLOV3 = ["MODEL.BACKBONE.NAME", "darknet21", "MODEL.BACKBONE.OUT_CHANNELS", "8",
+                "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
+# tiny DETR as tests/tiny.py shrinks it (resnet10, 1 + 1 layers, 16 queries), on 128x192 images
+_TINY_DETR = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.TRANSFORMER.NUM_ENCODERS", "1",
+              "MODEL.TRANSFORMER.NUM_DECODERS", "1", "MODEL.NUM_QUERIES", "16", "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
 # tiny RetinaNet as tests/tiny.py shrinks it (one conv per subnet), on 128x192 images
 _TINY_RETINANET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64", "MODEL.HEAD.NUM_CONVS", "1",
                    "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
@@ -196,12 +204,11 @@ def test_retinanet_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "retinanet")
 
 
-def test_atss_det_train_and_det_test_run_without_jax(tmp_path):
-    """Tiny ATSS trains 2 steps, then det_test serves its dumped weights, in
-    one blocked process (its IoU through kernel #10's wrapper, the plain
-    version here)."""
+def _train_test_blocked(tmp_path, config, opts):
+    """det_train 2 steps, then det_test on the dumped weights, in one blocked
+    process."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    script = _TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=ATSS, opts=_TINY_ATSS, flags=[])
+    script = _TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts, flags=[])
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -210,6 +217,21 @@ def test_atss_det_train_and_det_test_run_without_jax(tmp_path):
     assert train["steps"] == 2 and train["loss"] > 0
     assert test["results"]["num_detections"] > 0
     assert {r["image_id"] for r in json.loads((tmp_path / "predict_coco.json").read_text())} == set(range(8))
+
+
+def test_atss_det_train_and_det_test_run_without_jax(tmp_path):
+    """Tiny ATSS trains 2 steps, then det_test serves its dumped weights, in
+    one blocked process (its IoU through kernel #10's wrapper, the plain
+    version here)."""
+    _train_test_blocked(tmp_path, ATSS, _TINY_ATSS)
+
+
+@pytest.mark.parametrize("model", ["yolov3", "detr"])
+def test_last_families_det_train_and_det_test_run_without_jax(tmp_path, model):
+    """Tiny YOLOv3 (SGD, its IoUs through kernel #10's wrapper, NMS through
+    the NMS kernel's) and tiny DETR (DetrSolver's AdamW, the auction, no
+    kernel) train 2 steps and serve their dumped weights, blocked."""
+    _train_test_blocked(tmp_path, *{"yolov3": (YOLOV3, _TINY_YOLOV3), "detr": (DETR, _TINY_DETR)}[model])
 
 
 def test_det_train_on_synthetic_pngs_runs_without_jax_cv2_or_pil(tmp_path):
