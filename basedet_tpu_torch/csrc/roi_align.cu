@@ -81,9 +81,24 @@
 // chunk after another, so a tile that many RoIs cover (512 identical ones)
 // takes as long as its list. The TPU kernels' chunked accumulators, window
 // clustering, group masks and dense weight matmuls are not carried over.
+//
+// Both kernels are templates on the element type of the features, the
+// output, g and dF: f32 (the kernels above, bit for bit) or bf16, the type
+// the JAX package's Pallas kernels take (roi_align_pallas.py sends only bf16
+// features there). The bf16 variants compute as roi_align_window.py's
+// _fwd_kernel_win and _bwd_kernel_win do under the bf16 policy: each axis's
+// weight of a bin on a row, the sum over the bin's samples of their lerp
+// terms in _axis_weights's order, is rounded to bf16 once (merged_taps: the
+// first of the bin's taps on a row carries the row's weight, the others 0),
+// and every product and sum runs in f32 from the bf16 values; the output,
+// and dF, are rounded to bf16 once. They load and store 2-byte elements
+// (g through 16-byte cp.async where C % 8 == 0) and keep the f32 kernels'
+// structure; tensor cores are not used.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -100,7 +115,7 @@ constexpr int kChunk = 4;              // backward: RoIs a shared-memory stage h
 constexpr int kTransposePitch = kTileX + 1;  // backward: floats between staged channels of a row
 
 struct Levels {
-  const float* feat[kMaxLevels];
+  const void* feat[kMaxLevels];  // elements of the kernel's type
   long long stride[kMaxLevels][4];  // forward: elements between neighbours along b, c, y, x
   int h[kMaxLevels];
   int w[kMaxLevels];
@@ -113,7 +128,7 @@ struct Levels {
 // first block.
 struct LevelsOut {
   Levels in;
-  float* grad[kMaxLevels];
+  void* grad[kMaxLevels];  // elements of the kernel's type
   int tiles_y[kMaxLevels], tiles_x[kMaxLevels];
   long long first[kMaxLevels], blocks[kMaxLevels];
 };
@@ -126,8 +141,15 @@ struct Tap {
   float wlo, whi;
 };
 
-__device__ __forceinline__ Tap axis_tap(float start, float bin, int p, int s,
-                                        int size) {
+// One sample along one axis before its weights are formed: its rows, the
+// lerp and the sample weight (1/S, or 0 out of range).
+struct Sample {
+  int lo, hi;
+  float lerp, ws;
+};
+
+__device__ __forceinline__ Sample axis_sample(float start, float bin, int p, int s,
+                                              int size) {
   // (s + 0.5) / kSampling, exact: 0.25 or 0.75
   const float step = __fadd_rn(static_cast<float>(p), s == 0 ? 0.25f : 0.75f);
   const float coord = __fadd_rn(start, __fmul_rn(step, bin));
@@ -136,14 +158,77 @@ __device__ __forceinline__ Tap axis_tap(float start, float bin, int p, int s,
   const float c = fminf(fmaxf(coord, 0.f), top);  // NaN -> 0: never out of bounds
   const float lo = floorf(c);
   const float hi = fminf(__fadd_rn(lo, 1.f), top);
-  const float lerp = __fsub_rn(c, lo);
-  const float ws = oob ? 0.f : 1.f / kSampling;
+  Sample u;
+  u.lo = static_cast<int>(lo);
+  u.hi = static_cast<int>(hi);
+  u.lerp = __fsub_rn(c, lo);
+  u.ws = oob ? 0.f : 1.f / kSampling;
+  return u;
+}
+
+__device__ __forceinline__ Tap axis_tap(float start, float bin, int p, int s,
+                                        int size) {
+  const Sample u = axis_sample(start, bin, p, s, size);
   Tap t;
-  t.lo = static_cast<int>(lo);
-  t.hi = static_cast<int>(hi);
-  t.wlo = __fmul_rn(__fsub_rn(1.f, lerp), ws);
-  t.whi = __fmul_rn(lerp, ws);
+  t.lo = u.lo;
+  t.hi = u.hi;
+  t.wlo = __fmul_rn(__fsub_rn(1.f, u.lerp), u.ws);
+  t.whi = __fmul_rn(u.lerp, u.ws);
   return t;
+}
+
+// A sample's weight on row y, ((y == lo) * (1 - lerp) + (y == hi) * lerp) *
+// ws, as _axis_weights forms it before the sum over the samples.
+__device__ __forceinline__ float row_weight(const Sample& u, int y) {
+  const float a = y == u.lo ? __fsub_rn(1.f, u.lerp) : 0.f;
+  const float b = y == u.hi ? u.lerp : 0.f;
+  return __fmul_rn(__fadd_rn(a, b), u.ws);
+}
+
+// The bf16 variants' two taps of bin p along one axis, out[s] for sample s:
+// the rows of axis_tap, and as weights the bin's weight on each row (its two
+// samples' row_weight summed in f32, rounded to bf16) on the first of its
+// four taps that reads the row, 0 on the others. A sum over the four taps
+// then weighs each row once, by its rounded weight.
+__device__ __forceinline__ void merged_taps(float start, float bin, int p, int size, Tap* out) {
+  const Sample u0 = axis_sample(start, bin, p, 0, size);
+  const Sample u1 = axis_sample(start, bin, p, 1, size);
+  const int r[4] = {u0.lo, u0.hi, u1.lo, u1.hi};
+  float w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bool first = true;
+#pragma unroll
+    for (int j = 0; j < k; ++j) first = first && r[j] != r[k];
+    const float m = __fadd_rn(row_weight(u0, r[k]), row_weight(u1, r[k]));
+    w[k] = first ? __bfloat162float(__float2bfloat16_rn(m)) : 0.f;
+  }
+  out[0] = Tap{u0.lo, u0.hi, w[0], w[1]};
+  out[1] = Tap{u1.lo, u1.hi, w[2], w[3]};
+}
+
+// Element access of the templates: loads widen to f32, stores round to the
+// element type once.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
+// Four consecutive outputs, 16 bytes (f32) or 8 (bf16), to an address
+// aligned to that.
+__device__ __forceinline__ void store4(float* dst, float4 v) { *reinterpret_cast<float4*>(dst) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(dst) = u;
 }
 
 // One RoI on its level: the level id (clamped to the levels present), the
@@ -179,10 +264,12 @@ __device__ __forceinline__ Geometry roi_geometry(const Levels& lv,
 // Block: RoI br = blockIdx.x / slabs and channels [c0, c0 + kSlab), c0 =
 // kSlab * (blockIdx.x % slabs). Shared memory: the 2*ph y taps, the 2*pw x
 // taps, then the staged output, bin-major, kSlab + kStagePad floats a bin.
+// T: the features' and the output's element type (float or __nv_bfloat16).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
                      const int* __restrict__ levels, int R, int C, int ph,
-                     int pw, int slabs, float* __restrict__ out) {
+                     int pw, int slabs, T* __restrict__ out) {
   extern __shared__ float4 smem4[];
   Tap* ytap = reinterpret_cast<Tap*>(smem4);
   Tap* xtap = ytap + kSampling * ph;
@@ -193,12 +280,21 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
 
   const Geometry g = roi_geometry(lv, rois, levels, br, ph, pw);
   const int l = g.level, H = lv.h[l], W = lv.w[l];
-  for (int t = tid; t < kSampling * (ph + pw); t += kThreads) {
-    if (t < kSampling * ph)
-      ytap[t] = axis_tap(g.y1, g.bin_h, t / kSampling, t % kSampling, H);
-    else {
-      const int u = t - kSampling * ph;
-      xtap[u] = axis_tap(g.x1, g.bin_w, u / kSampling, u % kSampling, W);
+  if constexpr (std::is_same_v<T, float>) {
+    for (int t = tid; t < kSampling * (ph + pw); t += kThreads) {
+      if (t < kSampling * ph)
+        ytap[t] = axis_tap(g.y1, g.bin_h, t / kSampling, t % kSampling, H);
+      else {
+        const int u = t - kSampling * ph;
+        xtap[u] = axis_tap(g.x1, g.bin_w, u / kSampling, u % kSampling, W);
+      }
+    }
+  } else {  // a bin's two taps at once, its rows' weights merged and rounded
+    for (int t = tid; t < ph + pw; t += kThreads) {
+      if (t < ph)
+        merged_taps(g.y1, g.bin_h, t, H, ytap + kSampling * t);
+      else
+        merged_taps(g.x1, g.bin_w, t - ph, W, xtap + kSampling * (t - ph));
     }
   }
   __syncthreads();
@@ -209,11 +305,11 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
   const Tap tx = xtap[active ? lane >> 1 : 0];
   const long long sy = lv.stride[l][2];
   const long long xo = (long long)(lane & 1 ? tx.hi : tx.lo) * lv.stride[l][3];
-  const float* img = lv.feat[l] + (br / R) * lv.stride[l][0];
+  const T* img = static_cast<const T*>(lv.feat[l]) + (br / R) * lv.stride[l][0];
   const int c_end = min(c0 + kSlab, C);
   const int bins = ph * pw, row = kSlab + kStagePad;
   for (int c = c0 + warp; c < c_end; c += kThreads / 32) {
-    const float* plane = img + (long long)c * lv.stride[l][1] + xo;
+    const T* plane = img + (long long)c * lv.stride[l][1] + xo;
     for (int i0 = 0; i0 < ph; i0 += 8) {
       // the corner values of 8 bin rows: rows lo and hi of samples sy = 0, 1
       float f[8][4];
@@ -224,8 +320,8 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
         for (int s = 0; s < kSampling; ++s) {
           const Tap ty = ytap[min(i, ph - 1) * kSampling + s];
           const bool in = active && i < ph;
-          f[ii][2 * s] = in ? __ldg(plane + ty.lo * sy) : 0.f;
-          f[ii][2 * s + 1] = in ? __ldg(plane + ty.hi * sy) : 0.f;
+          f[ii][2 * s] = in ? to_f32(__ldg(plane + ty.lo * sy)) : 0.f;
+          f[ii][2 * s + 1] = in ? to_f32(__ldg(plane + ty.hi * sy)) : 0.f;
         }
       }
 #pragma unroll
@@ -253,19 +349,19 @@ roi_align_fwd_kernel(Levels lv, const float* __restrict__ rois,
   }
   __syncthreads();
 
-  // rows of C floats: this block's part of each bin's row, 16 bytes a lane
-  float* dst = out + br * bins * (long long)C;
+  // rows of C elements: this block's part of each bin's row, four elements a
+  // lane
+  T* dst = out + br * bins * (long long)C;
   if (C % 4 == 0) {
     for (int e = tid; e < bins * (kSlab / 4); e += kThreads) {
       const int bin = e / (kSlab / 4), c = c0 + 4 * (e % (kSlab / 4));
       if (c < C)
-        *reinterpret_cast<float4*>(dst + (long long)bin * C + c) =
-            *reinterpret_cast<const float4*>(stage + bin * row + (c - c0));
+        store4(dst + (long long)bin * C + c, *reinterpret_cast<const float4*>(stage + bin * row + (c - c0)));
     }
   } else {
     for (int e = tid; e < bins * kSlab; e += kThreads) {
       const int bin = e / kSlab, c = c0 + e % kSlab;
-      if (c < C) dst[(long long)bin * C + c] = stage[bin * row + (c - c0)];
+      if (c < C) dst[(long long)bin * C + c] = from_f32<T>(stage[bin * row + (c - c0)]);
     }
   }
 }
@@ -298,7 +394,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool copy, 
 }
 
 // One shared-memory stage of the backward, for up to kChunk RoIs: g's bins
-// of the block's slab (bins x kBwdLanes, channels past C zero), the weights
+// of the block's slab (bins x kBwdLanes elements of the kernel's type, in a
+// room of as many floats; channels past C zero), the weights
 // of the tile's columns (kMaxPw x kTileX, bins past pw zero) and of its rows
 // (kTileY x padded ph, bins past ph zero).
 struct Stage {
@@ -324,13 +421,21 @@ __device__ __forceinline__ Stage stage_at(float* base, int ph, int pw) {
 // The weights of bin p of one axis on the `n` tile rows (or columns) from
 // `at`, into w[0], w[stride], ...: zeros, then each sample's lo and hi taps
 // added in order, as _axis_weights sums them (a row takes at most one
-// nonzero term from each sample, so the order cannot change a bit).
+// nonzero term from each sample, so the order cannot change a bit). With
+// `merged` (bf16), the taps of merged_taps: one rounded weight a row.
+template <bool merged>
 __device__ __forceinline__ void bin_weights(float start, float bin, int p, int size, int at,
                                             int n, float* w, int stride) {
   for (int t = 0; t < n; ++t) w[t * stride] = 0.f;
+  Tap taps[kSampling];
+  if constexpr (merged) merged_taps(start, bin, p, size, taps);
 #pragma unroll
   for (int s = 0; s < kSampling; ++s) {
-    const Tap u = axis_tap(start, bin, p, s, size);
+    Tap u;
+    if constexpr (merged)
+      u = taps[s];
+    else
+      u = axis_tap(start, bin, p, s, size);
     if (u.lo >= at && u.lo < at + n) w[(u.lo - at) * stride] = __fadd_rn(w[(u.lo - at) * stride], u.wlo);
     if (u.hi >= at && u.hi < at + n) w[(u.hi - at) * stride] = __fadd_rn(w[(u.hi - at) * stride], u.whi);
   }
@@ -340,12 +445,16 @@ __device__ __forceinline__ void bin_weights(float start, float bin, int p, int s
 // the slab fastest, then the tile's column, row, image and level, the
 // coarsest level first (its few tiles hold the longest lists). Shared
 // memory: the page's list (kThreads entries), then two stages (reused by
-// the final transpose).
+// the final transpose). T: g's and dF's element type (float or
+// __nv_bfloat16); `vec`: g's rows copied 16 bytes at a time.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
+roi_align_bwd_kernel(LevelsOut lv, const T* __restrict__ grad,
                      const float* __restrict__ rois,
                      const int* __restrict__ levels, int R, int C, int ph,
                      int pw, int slabs, bool vec) {
+  constexpr bool kBf16 = !std::is_same_v<T, float>;
+  constexpr int kVec = 16 / sizeof(T);  // elements of a 16-byte copy
   extern __shared__ float4 smem4[];
   Entry* list = reinterpret_cast<Entry*>(smem4);
   float* stages = reinterpret_cast<float*>(list + kThreads);
@@ -364,7 +473,7 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
   const int b = static_cast<int>(blk / lv.tiles_y[l]);
   const int H = lv.in.h[l], W = lv.in.w[l], y = y0 + warp;
   const int bins = ph * pw, php = padded_ph(ph), per = stage_floats(ph, pw);
-  const float* gimg = grad + (long long)b * R * bins * C + c0;
+  const T* gimg = grad + (long long)b * R * bins * C + c0;
 
   float acc[kTileX];
 #pragma unroll
@@ -405,13 +514,18 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
       const Stage st = stage_at(stages + s * per, ph, pw);
       const int qn = min(kChunk, n - q0);
       for (int q = 0; q < qn; ++q) {
-        const float* src = gimg + (long long)list[q0 + q].r * bins * C;
-        float* dst = st.g + q * bins * kBwdLanes;
+        const T* src = gimg + (long long)list[q0 + q].r * bins * C;
+        T* dst = reinterpret_cast<T*>(st.g) + q * bins * kBwdLanes;
         if (vec) {
-          for (int t = tid; t < bins * (kBwdLanes / 4); t += kThreads) {
-            const int bin = t / (kBwdLanes / 4), c = 4 * (t % (kBwdLanes / 4));
+          for (int t = tid; t < bins * (kBwdLanes / kVec); t += kThreads) {
+            const int bin = t / (kBwdLanes / kVec), c = kVec * (t % (kBwdLanes / kVec));
             const bool in = c0 + c < C;
             cp_async(dst + bin * kBwdLanes + c, in ? src + (long long)bin * C + c : grad, in, true);
+          }
+        } else if constexpr (kBf16) {  // 2-byte elements: no cp.async of that size
+          for (int t = tid; t < bins * kBwdLanes; t += kThreads) {
+            const int bin = t / kBwdLanes, c = t % kBwdLanes;
+            dst[bin * kBwdLanes + c] = c0 + c < C ? src[(long long)bin * C + c] : from_f32<T>(0.f);
           }
         } else {
           for (int t = tid; t < bins * kBwdLanes; t += kThreads) {
@@ -425,8 +539,8 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
       const int tx = tid, ty = tid - kThreads / 2;
       if (tx < qn * pw) {
         const Entry& en = list[q0 + tx / pw];
-        bin_weights(en.x1, en.bin_w, tx % pw, W, x0, kTileX,
-                    st.wx + ((tx / pw) * kMaxPw + tx % pw) * kTileX, 1);
+        bin_weights<kBf16>(en.x1, en.bin_w, tx % pw, W, x0, kTileX,
+                           st.wx + ((tx / pw) * kMaxPw + tx % pw) * kTileX, 1);
       } else if (tx < qn * kMaxPw) {  // the rows of bins past pw
         const int z = tx - qn * pw;
         float* w = st.wx + ((z / (kMaxPw - pw)) * kMaxPw + pw + z % (kMaxPw - pw)) * kTileX;
@@ -436,7 +550,7 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
         const Entry& en = list[q0 + ty / php];
         float* w = st.wy + (ty / php) * kTileY * php + ty % php;
         if (ty % php < ph)
-          bin_weights(en.y1, en.bin_h, ty % php, H, y0, kTileY, w, php);
+          bin_weights<kBf16>(en.y1, en.bin_h, ty % php, H, y0, kTileY, w, php);
         else
           for (int t = 0; t < kTileY; ++t) w[t * php] = 0.f;
       }
@@ -461,17 +575,17 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
 #pragma unroll
         for (int j = 0; j < kMaxPw; ++j) u[j] = 0.f;
         const float4* wy = reinterpret_cast<const float4*>(st.wy + (q * kTileY + warp) * php);
-        const float* gq = st.g + q * bins * kBwdLanes + lane;
+        const T* gq = reinterpret_cast<const T*>(st.g) + q * bins * kBwdLanes + lane;
         for (int i0 = 0; i0 < ph; i0 += 8) {
           const float4 a = wy[i0 / 4], z = wy[i0 / 4 + 1];
           const float w8[8] = {a.x, a.y, a.z, a.w, z.x, z.y, z.z, z.w};
 #pragma unroll
           for (int ii = 0; ii < 8; ++ii) {
             if (w8[ii] == 0.f) continue;  // bins past ph too
-            const float* gi = gq + (i0 + ii) * pw * kBwdLanes;
+            const T* gi = gq + (i0 + ii) * pw * kBwdLanes;
 #pragma unroll
             for (int j = 0; j < kMaxPw; ++j)
-              if (j < pw) u[j] = __fmaf_rn(w8[ii], gi[j * kBwdLanes], u[j]);
+              if (j < pw) u[j] = __fmaf_rn(w8[ii], to_f32(gi[j * kBwdLanes]), u[j]);
           }
         }
         // the window's columns, 8 at a time: each column's sum over j in
@@ -505,9 +619,9 @@ roi_align_bwd_kernel(LevelsOut lv, const float* __restrict__ grad,
   __syncwarp();
   const int x = x0 + lane;
   if (y < H && x < W) {
-    float* out = lv.grad[l] + ((long long)b * C + c0) * H * W + (long long)y * W + x;
+    T* out = static_cast<T*>(lv.grad[l]) + ((long long)b * C + c0) * H * W + (long long)y * W + x;
     const int cn = min(kBwdLanes, C - c0);
-    for (int c = 0; c < cn; ++c) out[(long long)c * H * W] = tr[c * kTransposePitch + lane];
+    for (int c = 0; c < cn; ++c) out[(long long)c * H * W] = from_f32<T>(tr[c * kTransposePitch + lane]);
   }
 }
 
@@ -523,7 +637,7 @@ size_t bwd_smem(int ph, int pw, size_t max_bytes) {
 // Levels past n_levels repeat the last one, so that a clamped level id
 // always finds a valid entry. feats and feat_strides may be null (the
 // backward's).
-Levels make_levels(const float* const* feats, const long long* feat_strides,
+Levels make_levels(const void* const* feats, const long long* feat_strides,
                    const int* heights, const int* widths, const int* strides,
                    int n_levels) {
   Levels lv;
@@ -540,22 +654,10 @@ Levels make_levels(const float* const* feats, const long long* feat_strides,
   return lv;
 }
 
-}  // namespace
-
-// feats: n_levels device pointers to (B, C, H_l, W_l) f32 with
-// feat_strides their strides in elements (n_levels x 4 host long longs, b, c,
-// y, x); heights, widths, strides: n_levels host ints; rois (B, R, 4) f32,
-// levels (B, R) int32, out (B, R, ph, pw, C) f32, contiguous on the device.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for more levels than the kernel
-// holds, pw > kMaxPw or too many blocks.
-extern "C" int basedet_roi_align_fwd(const float* const* feats,
-                                     const long long* feat_strides,
-                                     const int* heights, const int* widths,
-                                     const int* strides, int n_levels,
-                                     const float* rois, const int* levels,
-                                     int B, int R, int C, int ph, int pw,
-                                     float* out, void* stream) {
+template <typename T>
+int roi_align_fwd(const void* const* feats, const long long* feat_strides, const int* heights,
+                  const int* widths, const int* strides, int n_levels, const float* rois,
+                  const int* levels, int B, int R, int C, int ph, int pw, T* out, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || pw < 1 || pw > kMaxPw || ph < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)B * R * C <= 0) return 0;
@@ -567,27 +669,19 @@ extern "C" int basedet_roi_align_fwd(const float* const* feats,
                       sizeof(float) * (size_t)ph * pw * (kSlab + kStagePad);
   if (smem > 48 * 1024) {
     const int err = static_cast<int>(cudaFuncSetAttribute(
-        roi_align_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+        roi_align_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     if (err) return err;
   }
-  roi_align_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  roi_align_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       lv, rois, levels, R, C, ph, pw, slabs, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// grads: n_levels device pointers to NCHW-contiguous (B, C, H_l, W_l) f32,
-// every element of which the kernel writes; grad_out (B, R, ph, pw, C) f32;
-// the rest as for the forward. Launches on `stream`, does not synchronise,
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// more levels than the kernel holds, pw > kMaxPw, bins that do not fit
-// shared memory or too many blocks.
-extern "C" int basedet_roi_align_bwd(float* const* grads, const int* heights,
-                                     const int* widths, const int* strides,
-                                     int n_levels, const float* grad_out,
-                                     const float* rois, const int* levels,
-                                     int B, int R, int C, int ph, int pw,
-                                     void* stream) {
+template <typename T>
+int roi_align_bwd(void* const* grads, const int* heights, const int* widths, const int* strides,
+                  int n_levels, const T* grad_out, const float* rois, const int* levels, int B,
+                  int R, int C, int ph, int pw, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || pw < 1 || pw > kMaxPw || ph < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)B * C <= 0) return 0;
@@ -612,12 +706,73 @@ extern "C" int basedet_roi_align_bwd(float* const* grads, const int* heights,
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const int err = static_cast<int>(cudaFuncSetAttribute(
-        roi_align_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+        roi_align_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     if (err) return err;
   }
-  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(grad_out) % 16 == 0;
-  roi_align_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = C % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(grad_out) % 16 == 0;
+  roi_align_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       lv, grad_out, rois, levels, R, C, ph, pw, slabs, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// feats: n_levels device pointers to (B, C, H_l, W_l) f32 with
+// feat_strides their strides in elements (n_levels x 4 host long longs, b, c,
+// y, x); heights, widths, strides: n_levels host ints; rois (B, R, 4) f32,
+// levels (B, R) int32, out (B, R, ph, pw, C) f32, contiguous on the device.
+// Launches on `stream`, does not synchronise, returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for more levels than the kernel
+// holds, pw > kMaxPw or too many blocks.
+extern "C" int basedet_roi_align_fwd(const float* const* feats,
+                                     const long long* feat_strides,
+                                     const int* heights, const int* widths,
+                                     const int* strides, int n_levels,
+                                     const float* rois, const int* levels,
+                                     int B, int R, int C, int ph, int pw,
+                                     float* out, void* stream) {
+  return roi_align_fwd<float>(reinterpret_cast<const void* const*>(feats), feat_strides, heights, widths,
+                              strides, n_levels, rois, levels, B, R, C, ph, pw, out, stream);
+}
+
+// The bf16 forward: feats and out hold bf16, the rest as for the f32 entry.
+extern "C" int basedet_roi_align_fwd_bf16(const void* const* feats,
+                                          const long long* feat_strides,
+                                          const int* heights, const int* widths,
+                                          const int* strides, int n_levels,
+                                          const float* rois, const int* levels,
+                                          int B, int R, int C, int ph, int pw,
+                                          void* out, void* stream) {
+  return roi_align_fwd<__nv_bfloat16>(feats, feat_strides, heights, widths, strides, n_levels, rois,
+                                      levels, B, R, C, ph, pw, static_cast<__nv_bfloat16*>(out), stream);
+}
+
+// grads: n_levels device pointers to NCHW-contiguous (B, C, H_l, W_l) f32,
+// every element of which the kernel writes; grad_out (B, R, ph, pw, C) f32;
+// the rest as for the forward. Launches on `stream`, does not synchronise,
+// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// more levels than the kernel holds, pw > kMaxPw, bins that do not fit
+// shared memory or too many blocks.
+extern "C" int basedet_roi_align_bwd(float* const* grads, const int* heights,
+                                     const int* widths, const int* strides,
+                                     int n_levels, const float* grad_out,
+                                     const float* rois, const int* levels,
+                                     int B, int R, int C, int ph, int pw,
+                                     void* stream) {
+  return roi_align_bwd<float>(reinterpret_cast<void* const*>(grads), heights, widths, strides, n_levels,
+                              grad_out, rois, levels, B, R, C, ph, pw, stream);
+}
+
+// The bf16 backward: grads and grad_out hold bf16, the rest as for the f32
+// entry.
+extern "C" int basedet_roi_align_bwd_bf16(void* const* grads, const int* heights,
+                                          const int* widths, const int* strides,
+                                          int n_levels, const void* grad_out,
+                                          const float* rois, const int* levels,
+                                          int B, int R, int C, int ph, int pw,
+                                          void* stream) {
+  return roi_align_bwd<__nv_bfloat16>(grads, heights, widths, strides, n_levels,
+                                      static_cast<const __nv_bfloat16*>(grad_out), rois, levels, B, R, C,
+                                      ph, pw, stream);
 }

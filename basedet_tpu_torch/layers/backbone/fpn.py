@@ -3,7 +3,11 @@ lateral 1x1 and output 3x3 convs over the bottom-up features, a bilinear
 top-down pass, and a top block: ``p6``, a stride-2 subsample of the last
 level (Faster R-CNN), or ``p6p7``, two 3x3 stride-2 convs, ``fpn_p6`` on
 ``top_block_in_feature`` (RetinaNet: ``res5``) and ``fpn_p7`` on
-``relu(p6)``. Not ported: norm, and the ``deconv`` top-down upsampling.
+``relu(p6)``. Every convolution follows the compute policy
+(``layers/precision.py``), and the top-down pass runs in its dtype; under
+``TRAINER.REMAT`` the whole pyramid is one segment (``layers/remat.py``). Not
+ported: norm, and the ``deconv`` top-down upsampling, which no configuration
+of the port selects.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from basedet_tpu_torch.layers import precision, remat
 
 
 def upsample_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -51,21 +57,24 @@ class FPN(nn.Module):
             self.fpn_p7 = nn.Conv2d(out_channels, out_channels, 3, 2, padding=1, device=device)
 
     def forward(self, bottom_up: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return remat.segment(self._pyramid, bottom_up)
+
+    def _pyramid(self, bottom_up: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         results: List[torch.Tensor] = []
         prev = None
         for name in self.in_features[::-1]:  # coarse → fine
-            lateral = getattr(self, f"fpn_lateral_{name}")(bottom_up[name])
+            lateral = precision.conv2d(getattr(self, f"fpn_lateral_{name}"), bottom_up[name])
             if prev is not None:
                 lateral = lateral + upsample_like(prev, lateral)
             prev = lateral
-            results.append(getattr(self, f"fpn_output_{name}")(lateral))
+            results.append(precision.conv2d(getattr(self, f"fpn_output_{name}"), lateral))
         out_names = [f"p{int(math.log2(s))}" for s in self.strides]
         outputs = dict(zip(out_names, results[::-1]))
         last = int(math.log2(self.strides[-1]))
         if self.top_block == "p6":
             outputs[f"p{last + 1}"] = outputs[f"p{last}"][:, :, ::2, ::2]
         else:
-            p6 = self.fpn_p6(bottom_up[self.top_block_in_feature])
+            p6 = precision.conv2d(self.fpn_p6, bottom_up[self.top_block_in_feature])
             outputs[f"p{last + 1}"] = p6
-            outputs[f"p{last + 2}"] = self.fpn_p7(F.relu(p6))
+            outputs[f"p{last + 2}"] = precision.conv2d(self.fpn_p7, F.relu(p6))
         return outputs

@@ -2,7 +2,11 @@
 ``basedet_tpu/layers/backbone/yolo_fpn.py``): per branch six ConvBNActs
 whose fifth output taps the lateral path, then a 1x1 prediction conv; the
 branches run coarse to fine, each after a nearest 2x upsample of the
-previous tap's lateral conv, concatenated with the finer feature."""
+previous tap's lateral conv, concatenated with the finer feature.
+
+The ConvBNActs follow the compute policy (``layers/precision.py``); the
+prediction conv is the JAX package's plain ``nn.Conv`` (no ``dtype=``), so
+under bf16 it promotes its input and gives f32."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -11,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.layers.blocks.yolo_block import DARKNET_KW, ConvBNAct
 
 
@@ -42,7 +47,7 @@ class YOLOFPN(nn.Module):
             x = getattr(self, f"output_conv{idx}_conv{i}")(x)
             if i == 4:
                 tap = x
-        return getattr(self, f"output_conv{idx}_pred")(x), tap
+        return precision.promoted(getattr(self, f"output_conv{idx}_pred"), x), tap
 
     def forward(self, features: List[torch.Tensor]) -> List[torch.Tensor]:
         feats = list(features)[::-1]

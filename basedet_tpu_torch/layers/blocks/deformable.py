@@ -7,6 +7,11 @@ of a table built from a one-pixel zero pad, and the K = 9 modulated taps are
 mixed by one dense layer over a tap-major (K, C) flatten. The gather's
 gradient in the table, the DCN's gradient in its input, is the row scatter
 of ``ops/scatter_rows_kernel.py`` (kernel #9 on the card).
+
+Under the compute policy (``layers/precision.py``) the offset convolution and
+the tap mix run in bf16 and so does the gathered table; the sample
+coordinates are f32, as the JAX package's f32 tap grid promotes them, and the
+bilinear weights are rounded to the table's dtype.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.ops.scatter_rows_kernel import gather_rows_batched
 
 TAPS = 9
@@ -82,14 +88,14 @@ class ModulatedDeformConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
-        off = self.conv_offset(x).permute(0, 2, 3, 1)  # (B, H, W, n_off)
+        off = precision.conv2d(self.conv_offset, x).permute(0, 2, 3, 1)  # (B, H, W, n_off)
         offsets = off[..., : 2 * TAPS].reshape(B, H, W, TAPS, 2)  # (dy, dx) per tap
         if self.modulated:
             mask = torch.sigmoid(off[..., 2 * TAPS:])  # (B, H, W, K)
         else:
             mask = torch.ones((B, H, W, TAPS), dtype=x.dtype, device=x.device)
 
-        k = torch.arange(-1.0, 2.0, dtype=x.dtype, device=x.device)
+        k = torch.arange(-1.0, 2.0, dtype=torch.float32, device=x.device)  # f32: promotes the grid
         ky, kx = torch.meshgrid(k, k, indexing="ij")
         gy, gx = torch.meshgrid(torch.arange(H, dtype=x.dtype, device=x.device),
                                 torch.arange(W, dtype=x.dtype, device=x.device), indexing="ij")
@@ -98,7 +104,7 @@ class ModulatedDeformConv(nn.Module):
 
         sampled = bilinear_sample_batched(x.permute(0, 2, 3, 1), ys, xs)  # (B, H, W, K, C)
         sampled = (sampled * mask[..., None]).reshape(B, H, W, TAPS * C)
-        return self.weight(sampled).permute(0, 3, 1, 2)
+        return precision.linear(self.weight, sampled).permute(0, 3, 1, 2)
 
 
 class DeformConv(ModulatedDeformConv):

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from basedet_tpu_torch.layers import precision
+from basedet_tpu_torch.layers import precision, remat
 from basedet_tpu_torch.layers.blocks.csp_fused import csp_layer_fused
 from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d, get_activation
 
@@ -37,7 +37,9 @@ class ConvBNAct(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x):
-        return self.act(self.bn(precision.conv2d(self.conv, x)))
+        # under TRAINER.REMAT "selective" the conv output is saved and the tail
+        # recomputed: the JAX package's "conv_out" anchor
+        return remat.conv_tail(lambda t: precision.conv2d(self.conv, t), lambda t: self.act(self.bn(t)), x)
 
 
 # Darknet's and YOLOFPN's ConvBNAct: LeakyReLU 0.1, BN eps 1e-5 and flax decay 0.9
@@ -125,7 +127,7 @@ class CSPLayer(nn.Module):
 
     def forward(self, x):
         if self.fusable and self.training and precision.fused_bn_enabled():
-            return self._fused(x)
+            return remat.segment(self._fused, x)
         x1 = self.conv1(x)
         for i in range(self.n):
             x1 = getattr(self, f"m_{i}")(x1)

@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from basedet_tpu_torch.layers import precision
+from basedet_tpu_torch.layers import precision, remat
 
 _ACTIVATIONS: dict = {
     "relu": F.relu,
@@ -35,7 +35,9 @@ def get_activation(name: Optional[Union[str, Callable]]) -> Callable:
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with all of its state frozen: scale, bias, mean and var are
     buffers (the JAX package's ``frozen`` collection), applied as the fixed
-    affine ``x * mul + add`` over NCHW channels, in the JAX op order."""
+    affine ``x * mul + add`` over NCHW channels, in the JAX op order, with
+    ``mul`` and ``add`` cast to the input's dtype (bf16 in, bf16 out under the
+    compute policy)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -49,7 +51,7 @@ class FrozenBatchNorm(nn.Module):
         inv = torch.rsqrt(self.running_var + self.eps)
         mul = self.weight * inv
         add = self.bias - self.running_mean * self.weight * inv
-        return x * mul[:, None, None] + add[:, None, None]
+        return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -91,7 +93,11 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
     @torch.no_grad()
     def update_running(self, mean, var) -> None:
-        """flax's running update from a batch mean and biased variance."""
+        """flax's running update from a batch mean and biased variance; none
+        while a REMAT segment is recomputed (``layers/remat.py``): the
+        statistics move once a step."""
+        if remat.recomputing():
+            return
         self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
         self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
 

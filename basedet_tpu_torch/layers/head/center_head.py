@@ -8,7 +8,10 @@ reproduces with ``ops/subpixel.py``, a TPU factorisation that is not ported;
 it runs on cuDNN, as the JAX package leaves it outside Pallas. Submodules
 carry the flax names (``dcn``, ``BatchNorm_0``, ``up_sample``,
 ``BatchNorm_1``; ``deconv<i>``; ``feat_conv``, ``out_conv``) for
-``utils/weights.py``.
+``utils/weights.py``. The DCN, the transposed convolution, the BNs and the
+heads follow the compute policy (``layers/precision.py``): under bf16 the
+maps are bf16. Under ``TRAINER.REMAT`` each deconvolution stage and each head
+is a segment (``layers/remat.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision, remat
 from basedet_tpu_torch.layers.blocks.deformable import DeformConv, ModulatedDeformConv
 from basedet_tpu_torch.layers.common.blocks import get_norm
 
@@ -70,7 +74,7 @@ class DeconvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.BatchNorm_0(self.dcn(x)))
-        return F.relu(self.BatchNorm_1(self.up_sample(x)))
+        return F.relu(self.BatchNorm_1(precision.conv_transpose2d(self.up_sample, x)))
 
 
 class CenternetDeconv(nn.Module):
@@ -91,7 +95,7 @@ class CenternetDeconv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for stage in self.stages():
-            x = stage(x)
+            x = remat.segment(stage, x)
         return x
 
 
@@ -111,7 +115,7 @@ class SingleHead(nn.Module):
         self.out_conv.bias.fill_(self.bias_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_conv(F.relu(self.feat_conv(x)))
+        return precision.conv2d(self.out_conv, F.relu(precision.conv2d(self.feat_conv, x)))
 
 
 class CenterHead(nn.Module):
@@ -126,5 +130,5 @@ class CenterHead(nn.Module):
         self.reg_head = SingleHead(in_channels, 2, device=device)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {"cls": torch.sigmoid(self.cls_head(x)), "wh": self.wh_head(x),
-                "reg": self.reg_head(x)}
+        return {"cls": torch.sigmoid(remat.segment(self.cls_head, x)), "wh": remat.segment(self.wh_head, x),
+                "reg": remat.segment(self.reg_head, x)}

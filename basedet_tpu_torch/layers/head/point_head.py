@@ -13,15 +13,25 @@ with ``share_param`` False each level has its own, ``_l<lv>`` before the
 index: ``cls_subnet_l<lv>_<i>``, ``cls_score_l<lv>``) for
 ``utils/weights.py``. GroupNorm takes flax's epsilon, 1e-6 (torch's default
 is 1e-5).
+
+Under the compute policy (``layers/precision.py``) the convolutions run in
+bf16, while GroupNorm and the ``scales``, which the JAX package builds with no
+``dtype=``, promote: a bf16 input gives an f32 output. So the subnets' convs
+take f32 inputs after the first, the offsets come out f32, and the logits and
+centerness bf16. Under ``TRAINER.REMAT`` each level is a segment
+(``layers/remat.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from basedet_tpu_torch.layers import precision, remat
 
 GN_GROUPS = 32
 GN_EPS = 1e-6  # flax nn.GroupNorm's default
@@ -76,9 +86,9 @@ class PointHead(nn.Module):
 
     def _subnet(self, x: torch.Tensor, kind: str, suffix: str) -> torch.Tensor:
         for i in range(self.num_convs):
-            x = getattr(self, f"{kind}_subnet{suffix}_{i}")(x)
+            x = precision.conv2d(getattr(self, f"{kind}_subnet{suffix}_{i}"), x)
             if self.with_norm:
-                x = getattr(self, f"{kind}_gn{suffix}_{i}")(x)
+                x = precision.promoted(getattr(self, f"{kind}_gn{suffix}_{i}"), x)
             x = F.relu(x)
         return x
 
@@ -86,13 +96,15 @@ class PointHead(nn.Module):
                                                                   List[torch.Tensor]]:
         """features: per level (N, C, H, W) → per level (logits (N, A·classes,
         H, W), decoded offsets (N, A·4, H, W), centerness (N, A, H, W))."""
-        logits, offsets, ctrness = [], [], []
-        for lv, (feat, stride) in enumerate(zip(features, self.strides)):
-            suffix = "" if self.share_param else f"_l{lv}"
-            c = self._subnet(feat, "cls", suffix)
-            b = self._subnet(feat, "bbox", suffix)
-            logits.append(getattr(self, f"cls_score{suffix}")(c))
-            raw = getattr(self, f"bbox_pred{suffix}")(b) * self.scales[lv]
-            offsets.append(F.relu(raw) * stride if self.decode_mode == "relu_scale" else torch.exp(raw))
-            ctrness.append(getattr(self, f"ctrness{suffix}")(b))
-        return logits, offsets, ctrness
+        outs = [remat.segment(functools.partial(self._forward_level, lv), feat) for lv, feat in enumerate(features)]
+        return tuple([out[k] for out in outs] for k in range(3))
+
+    def _forward_level(self, lv: int, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        suffix = "" if self.share_param else f"_l{lv}"
+        c = self._subnet(feat, "cls", suffix)
+        b = self._subnet(feat, "bbox", suffix)
+        logits = precision.conv2d(getattr(self, f"cls_score{suffix}"), c)
+        # the f32 scale promotes a bf16 output, as jnp does (a 0-dim tensor would not)
+        raw = precision.conv2d(getattr(self, f"bbox_pred{suffix}"), b).float() * self.scales[lv]
+        offsets = F.relu(raw) * self.strides[lv] if self.decode_mode == "relu_scale" else torch.exp(raw)
+        return logits, offsets, precision.conv2d(getattr(self, f"ctrness{suffix}"), b)

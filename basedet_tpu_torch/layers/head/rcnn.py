@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision, remat
 from basedet_tpu_torch.layers.common.function import first_argmax, topk_scores
 from basedet_tpu_torch.layers.common.sampling import sample_mask
 from basedet_tpu_torch.layers.losses import smooth_l1_loss
@@ -32,11 +33,17 @@ class RCNNPredictor(nn.Module):
     def forward(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pooled (R, ph, pw, C), channels last as the JAX package pools →
         (logits (R, C + 1), deltas (R, C, 4)). The flatten is in (h, w, c)
-        order, the order of the flax ``fc1`` kernel's rows."""
+        order, the order of the flax ``fc1`` kernel's rows. The layers follow
+        the compute policy (``layers/precision.py``), one segment under
+        ``TRAINER.REMAT`` (``layers/remat.py``)."""
+        return remat.segment(self._forward, pooled)
+
+    def _forward(self, pooled: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = pooled.reshape(pooled.shape[0], -1)
-        x = F.relu(self.fc1(x))
-        x = F.relu(self.fc2(x))
-        return self.pred_cls(x), self.pred_delta(x).reshape(-1, self.num_classes, 4)
+        x = F.relu(precision.linear(self.fc1, x))
+        x = F.relu(precision.linear(self.fc2, x))
+        return (precision.linear(self.pred_cls, x),
+                precision.linear(self.pred_delta, x).reshape(-1, self.num_classes, 4))
 
 
 @torch.no_grad()

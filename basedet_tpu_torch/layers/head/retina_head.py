@@ -5,16 +5,21 @@ to A·4 offsets. With ``share_param`` one set of convs serves every level
 (flax names ``cls_subnet_<i>``, ``bbox_subnet_<i>``, ``cls_score``,
 ``bbox_pred``); without, each level has its own, named with ``_l<level>``
 (``cls_subnet_l<lv>_<i>``, ``cls_score_l<lv>``, ...), for
-``utils/weights.py``.
+``utils/weights.py``. Every convolution follows the compute policy
+(``layers/precision.py``): under bf16 the outputs are bf16. Under
+``TRAINER.REMAT`` each level is a segment (``layers/remat.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from basedet_tpu_torch.layers import precision, remat
 
 
 class RetinaNetHead(nn.Module):
@@ -54,15 +59,16 @@ class RetinaNetHead(nn.Module):
     def forward(self, features: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """features: per level (N, C, H, W) → per level (logits (N, A·num_classes,
         H, W), offsets (N, A·4, H, W))."""
-        logits, offsets = [], []
-        for lv, feat in enumerate(features):
-            cls_convs, bbox_convs, cls_score, bbox_pred = self._level(lv)
-            c = feat
-            for conv in cls_convs:
-                c = F.relu(conv(c))
-            b = feat
-            for conv in bbox_convs:
-                b = F.relu(conv(b))
-            logits.append(cls_score(c))
-            offsets.append(bbox_pred(b))
-        return logits, offsets
+        outs = [remat.segment(functools.partial(self._forward_level, lv), feat)
+                for lv, feat in enumerate(features)]
+        return [c for c, _ in outs], [b for _, b in outs]
+
+    def _forward_level(self, lv: int, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cls_convs, bbox_convs, cls_score, bbox_pred = self._level(lv)
+        c = feat
+        for conv in cls_convs:
+            c = F.relu(precision.conv2d(conv, c))
+        b = feat
+        for conv in bbox_convs:
+            b = F.relu(precision.conv2d(conv, b))
+        return precision.conv2d(cls_score, c), precision.conv2d(bbox_pred, b)

@@ -15,7 +15,12 @@ kernels (``layers/blocks/csp_fused.py``), where the JAX package reads
 ``BASEDET_FUSED_BN=1`` from the environment.
 
 Modules read the policy when they run; ``make_train_step`` enters it around
-the forward and the losses.
+the forward and the losses (and, under ``TRAINER.REMAT``, around their
+recomputation in the backward). A flax layer built with the policy's
+``dtype=`` is :func:`conv2d`, :func:`linear` or :func:`conv_transpose2d` here;
+a flax layer built without it (``nn.Conv``, ``nn.Dense``, ``nn.GroupNorm``
+with no ``dtype=``) computes in the promotion of its input with its f32
+parameters, :func:`promoted` here: a bf16 input gives an f32 output.
 """
 from __future__ import annotations
 
@@ -32,6 +37,12 @@ _POLICY: Tuple[Optional[torch.dtype], bool] = (None, False)  # (compute dtype, f
 def compute_dtype() -> Optional[torch.dtype]:
     """The compute dtype, or None for full f32 (no casts)."""
     return _POLICY[0]
+
+
+def current_policy() -> Tuple[Optional[torch.dtype], bool]:
+    """(compute dtype, fused BN) as set now, for :func:`precision_policy` to
+    re-enter later (a rematerialised segment's recomputation)."""
+    return _POLICY
 
 
 def fused_bn_enabled() -> bool:
@@ -76,3 +87,33 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride, conv.padding, conv.dilation,
                  conv.groups)
     return y if conv.bias is None else y + conv.bias.to(dt)[:, None, None]
+
+
+def linear(dense: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``dense(x)`` under the policy, as flax's ``nn.Dense(dtype=...)``: input,
+    weight and bias cast to the compute dtype, the bias added after the product
+    in that dtype; without one, the module as it is."""
+    dt = compute_dtype()
+    if dt is None:
+        return dense(x)
+    y = F.linear(x.to(dt), dense.weight.to(dt))
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
+def conv_transpose2d(deconv: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """``deconv(x)`` under the policy: input, weight and bias cast to the
+    compute dtype, as the JAX package's ``SubpixelConvTranspose2x`` casts its
+    input and kernel; without one, the module as it is."""
+    dt = compute_dtype()
+    if dt is None:
+        return deconv(x)
+    y = F.conv_transpose2d(x.to(dt), deconv.weight.to(dt), None, deconv.stride, deconv.padding,
+                           deconv.output_padding, deconv.groups, deconv.dilation)
+    return y if deconv.bias is None else y + deconv.bias.to(dt)[:, None, None]
+
+
+def promoted(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` with x cast to the promotion of its dtype and the
+    module's f32 parameters: a flax layer that has no ``dtype=`` takes a bf16
+    input to f32 (jnp's promotion), where PyTorch would refuse the mix."""
+    return module(x.to(torch.promote_types(x.dtype, torch.float32)))

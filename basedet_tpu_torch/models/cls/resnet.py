@@ -12,7 +12,10 @@ ported. Submodules carry the flax names (``conv1``, ``layer1_0``,
 so that ``utils/weights.py`` maps the variable tree by name. ``freeze_at``
 stops gradients at the stage boundary, as ``lax.stop_gradient`` does there,
 and turns ``requires_grad`` off for the frozen stages' weights; 0 freezes
-nothing.
+nothing. Every convolution follows the compute policy
+(``layers/precision.py``): under bf16 the stem casts the image and its kernel,
+and the blocks, their norms and the residual adds stay in bf16. Under
+``TRAINER.REMAT`` the stem and each block are segments (``layers/remat.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision, remat
 from basedet_tpu_torch.layers.common.blocks import get_norm
 
 _STAGE_SPECS = {
@@ -57,12 +61,12 @@ class _Block(nn.Module):
     def forward(self, x):
         y = x
         for i, conv in enumerate(self.convs):
-            y = getattr(self, self.norms[i])(getattr(self, conv)(y))
+            y = getattr(self, self.norms[i])(precision.conv2d(getattr(self, conv), y))
             if i < len(self.convs) - 1:
                 y = F.relu(y)
         identity = x
         if self.has_downsample:
-            identity = getattr(self, self.norms[len(self.convs)])(self.downsample_conv(x))
+            identity = getattr(self, self.norms[len(self.convs)])(precision.conv2d(self.downsample_conv, x))
         return F.relu(y + identity)
 
 
@@ -123,15 +127,18 @@ class ResNet(nn.Module):
         for m in frozen if freeze_at >= 1 else ():
             m.requires_grad_(False)
 
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(getattr(self, self.stem_norm)(precision.conv2d(self.conv1, x)))
+        return F.max_pool2d(y, 3, 2, 1)
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        y = F.relu(getattr(self, self.stem_norm)(self.conv1(x)))
-        y = F.max_pool2d(y, 3, 2, 1)
+        y = remat.segment(self._stem, x)
         if self.freeze_at >= 1:
             y = y.detach()
         feats = {"stem": y}
         for s, names in enumerate(self.stages):
             for name in names:
-                y = getattr(self, name)(y)
+                y = remat.segment(getattr(self, name), y)
             if self.freeze_at >= s + 2:
                 y = y.detach()
             feats[f"res{s + 2}"] = y

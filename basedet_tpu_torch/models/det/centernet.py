@@ -13,8 +13,10 @@ flatten, decodes and rescales them to the original image. The head outputs
 are channels-last, the JAX package's layout, so that the losses and the
 decode index them as it does.
 
-Nothing is sampled (``draws_per_step`` False), and the layers have no bf16
-path (``follows_compute_policy`` False: ``--amp`` is refused).
+Nothing is sampled (``draws_per_step`` False). Under the bf16 policy
+(``--amp``) every layer computes in bf16 and the losses in f32: the focal
+loss casts the class map, and the gathered sizes and offsets promote against
+their f32 targets.
 """
 from __future__ import annotations
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.layers.backbone.build import make_backbone
 from basedet_tpu_torch.layers.blocks.transformer import (MLP, LearnedPositionEmbedding, Transformer,
                                                          sine_position_embedding)
@@ -100,7 +101,7 @@ class DETRModule(nn.Module):
         feat_mask = mask[:, ::fh, ::fw][:, :H, :W] < 0.5
         pos = sine_position_embedding(feat_mask, self.query_embed.shape[1] // 2) if self.sine \
             else self.pos_embed(feat_mask)
-        proj = self.input_proj(src)
+        proj = precision.promoted(self.input_proj, src)  # a plain nn.Conv: f32 from a bf16 backbone
         D = proj.shape[1]
         return proj.permute(0, 2, 3, 1).reshape(B, H * W, D), feat_mask.reshape(B, H * W), pos.reshape(B, H * W, D)
 

@@ -12,6 +12,11 @@ multilevel RoIAlign (forward kernel, and on the way back the backward kernel)
 → box predictor → R-CNN losses. Targets and proposals are computed without
 gradient. The sampling noise is an argument (``layers/common/sampling.py``).
 
+Under the bf16 policy (``--amp``) the backbone, FPN, RPN head, RoIAlign (its
+bf16 kernels) and box head run in bf16; the RPN's objectness loss runs in its
+logits' bf16, as the JAX package's does; the proposals decode to f32 boxes,
+and the R-CNN losses and inference cast to f32.
+
 The batch is written out where the JAX package vmaps over images.
 """
 from __future__ import annotations
@@ -177,11 +182,11 @@ class FasterRCNNModule(nn.Module):
 
     def box_head(self, pooled: torch.Tensor, proposals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pooled (B, P, ph, pw, C) → class-specific boxes (B, P, C, 4) and
-        foreground scores (B, P, C)."""
+        foreground scores (B, P, C), decoded in f32 whatever the policy."""
         B, P = proposals.shape[:2]
         logits, deltas = self.rcnn(pooled.reshape(B * P, *pooled.shape[2:]))
-        scores = torch.softmax(logits, dim=-1)[:, 1:]
-        boxes = self.rcnn_coder.decode(proposals.reshape(-1, 4)[:, None, :], deltas)
+        scores = torch.softmax(logits.float(), dim=-1)[:, 1:]
+        boxes = self.rcnn_coder.decode(proposals.reshape(-1, 4)[:, None, :], deltas.float())
         return boxes.reshape(B, P, self.num_classes, 4), scores.reshape(B, P, self.num_classes)
 
     def head_losses(self, pooled: torch.Tensor, labels: torch.Tensor, targets: torch.Tensor,

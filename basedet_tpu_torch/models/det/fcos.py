@@ -22,8 +22,10 @@ index, as ``lax.top_k``), scores at or below ``TEST.CLS_THRESHOLD`` masked to
 ``NEG_INF``, decoded; all levels' candidates (5000 at 800x1344) go through
 class-aware NMS (the NMS kernel) and are rescaled to the original image.
 
-Nothing is sampled (``draws_per_step`` False) and the layers have no bf16
-path (``follows_compute_policy`` False: ``--amp`` is refused).
+Nothing is sampled (``draws_per_step`` False). Under the bf16 policy
+(``--amp``) the backbone, FPN and head convolutions run in bf16; GroupNorm
+and the learnt scales give f32, and ``_flatten_level`` casts the rest to f32,
+so the assignment and the losses run in f32.
 """
 from __future__ import annotations
 

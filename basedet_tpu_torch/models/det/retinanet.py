@@ -19,8 +19,9 @@ Inference, per image and level: the top 1000 of the sigmoid scores over
 NMS (the NMS kernel) and are rescaled to the original image.
 
 The batch is written out where the JAX package vmaps over images. Nothing
-is sampled (``draws_per_step`` False), and the layers have no bf16 path
-(``follows_compute_policy`` False: ``--amp`` is refused).
+is sampled (``draws_per_step`` False). Under the bf16 policy (``--amp``) the
+network runs in bf16 and ``_flatten_level`` casts its outputs to f32: the
+assignment (its IoU through kernel #10) and the losses run in f32.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch.layers import precision, remat
 from basedet_tpu_torch.layers.common.function import topk_scores
 from basedet_tpu_torch.layers.common.matcher import Matcher
 from basedet_tpu_torch.layers.common.sampling import sample_mask
@@ -23,7 +24,9 @@ from basedet_tpu_torch.structures import BoxCoder, clip_boxes, nonempty_mask
 class RPNHead(nn.Module):
     """3x3 conv + ReLU, then 1x1 objectness logits (A) and box offsets (4A),
     shared over the levels. Per level it returns logits (B, H*W*A) and
-    offsets (B, H*W*A, 4) in the JAX package's (h, w, a) order."""
+    offsets (B, H*W*A, 4) in the JAX package's (h, w, a) order, in the
+    compute policy's dtype (``layers/precision.py``); each level a segment
+    under ``TRAINER.REMAT`` (``layers/remat.py``)."""
 
     def __init__(self, in_channels: int, channels: int = 256, num_cell_anchors: int = 3,
                  device=None):
@@ -33,13 +36,14 @@ class RPNHead(nn.Module):
         self.rpn_bbox_offsets = nn.Conv2d(channels, num_cell_anchors * 4, 1, device=device)
 
     def forward(self, features: Sequence[torch.Tensor]) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        logits, offsets = [], []
-        for f in features:
-            t = F.relu(self.rpn_conv(f))
-            b = t.shape[0]
-            logits.append(self.rpn_cls_score(t).permute(0, 2, 3, 1).reshape(b, -1))
-            offsets.append(self.rpn_bbox_offsets(t).permute(0, 2, 3, 1).reshape(b, -1, 4))
-        return logits, offsets
+        outs = [remat.segment(self._forward_level, f) for f in features]
+        return [lg for lg, _ in outs], [of for _, of in outs]
+
+    def _forward_level(self, f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        t = F.relu(precision.conv2d(self.rpn_conv, f))
+        b = t.shape[0]
+        return (precision.conv2d(self.rpn_cls_score, t).permute(0, 2, 3, 1).reshape(b, -1),
+                precision.conv2d(self.rpn_bbox_offsets, t).permute(0, 2, 3, 1).reshape(b, -1, 4))
 
 
 def find_top_proposals(
@@ -55,7 +59,9 @@ def find_top_proposals(
     """Per level (B, R_l) logits, (B, R_l, 4) offsets and (R_l, 4) anchors,
     img_hw (B, 2) [cur_h, cur_w] → proposals (B, P, 4), scores (B, P), valid
     (B, P) with P = post_nms_topk (``find_top_proposals_single``, batched).
-    Ties in the top-k go to the lower index, as ``lax.top_k`` gives them."""
+    Ties in the top-k go to the lower index, as ``lax.top_k`` gives them.
+    Under the bf16 policy the scores stay bf16 and the offsets decode against
+    the f32 anchors, which promotes the proposals to f32."""
     cand_boxes, cand_scores, cand_levels = [], [], []
     for level, (scores, offsets, anchors) in enumerate(zip(logits_l, offsets_l, anchors_l)):
         k = min(prev_nms_topk, scores.shape[1])
@@ -114,7 +120,9 @@ def rpn_losses(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B, R), offsets (B, R, 4), labels (B, R), gt_offsets (B, R, 4)
     → (objectness BCE, box L1), each summed over the batch and divided by the
-    batch's count of sampled anchors (at least 1)."""
+    batch's count of sampled anchors (at least 1). As in the JAX package, the
+    BCE runs in the logits' dtype (bf16 under the policy, the labels cast to
+    it) and the box loss promotes against the f32 targets."""
     valid = labels >= 0
     fg = labels > 0
     num_valid = valid.sum().clamp(min=1).to(torch.float32)

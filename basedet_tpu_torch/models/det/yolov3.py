@@ -33,8 +33,9 @@ decode bug kept), a stable top-1000 of conf·cls over (anchor, class)
 (``topk_scores``), then class-aware NMS over the three levels' 3000
 candidates (the NMS kernel) and the rescale, through ``post_processing``.
 
-f32 only (``follows_compute_policy`` False: ``--amp`` is refused); nothing is
-sampled.
+Nothing is sampled. Under the bf16 policy (``--amp``) Darknet and the FPN's
+ConvBNActs run in bf16 and the prediction convs promote to f32, so the
+targets and losses run in f32.
 """
 from __future__ import annotations
 

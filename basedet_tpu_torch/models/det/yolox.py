@@ -77,8 +77,6 @@ class YOLOXModule(nn.Module):
 
 @registers.models.register()
 class YOLOX(BaseNet):
-    follows_compute_policy = True
-
     def __init__(self, cfg, device, generator: Optional[torch.Generator] = None):
         super().__init__(cfg, device)
         self.strides = (8, 16, 32)

@@ -20,6 +20,12 @@ These are the plain versions of the two CUDA kernels in
 NCHW per level; the output is (B, R, ph, pw, C), channels last, as the JAX
 package gives it, so that the box head flattens it in the same (h, w, c)
 order.
+
+In bf16 (features, or g for the backward) they compute as the JAX package's
+``multilevel_roi_align_batched`` does on bf16 features: ``Py`` and ``Px``
+rounded to bf16 (``_axis_weights(...).astype(feat.dtype)``), both
+contractions and the sum over the levels in f32, the output rounded to bf16
+once; the backward's dF of each level is summed in f32 and rounded once.
 """
 from __future__ import annotations
 
@@ -92,6 +98,11 @@ def _level_weights(rois: torch.Tensor, levels: torch.Tensor, level: int, stride:
             _axis_weights(x1, bin_w, pw, sampling_ratio, W, mask))
 
 
+def _rounded(weights: Tuple[torch.Tensor, torch.Tensor], dtype: torch.dtype):
+    """The weights as the features' dtype holds them, back in f32 for the sums."""
+    return tuple(w.to(dtype).float() for w in weights)
+
+
 def multilevel_roi_align_plain(
     features: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -100,19 +111,21 @@ def multilevel_roi_align_plain(
     output_size: Tuple[int, int] = (7, 7),
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """features per level (B, C, H_l, W_l) f32, rois (B, R, 4) xyxy in image
-    coordinates, levels (B, R) 0-based level ids → (B, R, ph, pw, C) f32.
-    ``multilevel_roi_align_plain.calls`` counts its calls."""
+    """features per level (B, C, H_l, W_l) f32 or bf16, rois (B, R, 4) xyxy in
+    image coordinates, levels (B, R) 0-based level ids → (B, R, ph, pw, C) in
+    the features' dtype. ``multilevel_roi_align_plain.calls`` counts its
+    calls."""
     multilevel_roi_align_plain.calls += 1
+    dtype = features[0].dtype
     out = None
     with full_f32():
         for li, (feat, stride) in enumerate(zip(features, strides)):
-            py, px = _level_weights(rois, levels, li, stride, feat.shape[-2:], output_size,
-                                    sampling_ratio)
+            py, px = _rounded(_level_weights(rois, levels, li, stride, feat.shape[-2:], output_size,
+                                             sampling_ratio), dtype)
             t = torch.einsum("briy,bcyx->brixc", py, feat.float())
             o = torch.einsum("brjx,brixc->brijc", px, t)
             out = o if out is None else out + o
-    return out
+    return out.to(dtype)
 
 
 multilevel_roi_align_plain.calls = 0
@@ -127,19 +140,19 @@ def multilevel_roi_align_backward_plain(
     sampling_ratio: int = 2,
 ) -> List[torch.Tensor]:
     """The gradient of :func:`multilevel_roi_align_plain` in its features:
-    grad (B, R, ph, pw, C) f32 and the forward's rois, levels and strides,
-    with ``sizes`` the (H_l, W_l) per level → dF per level (B, C, H_l, W_l)
-    f32, zero where no RoI of the level lands.
+    grad (B, R, ph, pw, C) f32 or bf16 and the forward's rois, levels and
+    strides, with ``sizes`` the (H_l, W_l) per level → dF per level (B, C,
+    H_l, W_l) in grad's dtype, zero where no RoI of the level lands.
     ``multilevel_roi_align_backward_plain.calls`` counts its calls."""
     multilevel_roi_align_backward_plain.calls += 1
     output_size = tuple(grad.shape[2:4])
     out = []
     with full_f32():
         for li, (size, stride) in enumerate(zip(sizes, strides)):
-            py, px = _level_weights(rois, levels, li, stride, tuple(size), output_size,
-                                    sampling_ratio)
+            py, px = _rounded(_level_weights(rois, levels, li, stride, tuple(size), output_size,
+                                             sampling_ratio), grad.dtype)
             t = torch.einsum("brjx,brijc->brixc", px, grad.float())
-            out.append(torch.einsum("briy,brixc->bcyx", py, t))
+            out.append(torch.einsum("briy,brixc->bcyx", py, t).to(grad.dtype))
     return out
 
 

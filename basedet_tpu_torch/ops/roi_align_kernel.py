@@ -28,6 +28,15 @@ give the same bits. :func:`tile_gather_model` is its decomposition in
 Python, for the CPU tests. The gradient goes to the features only; RoIs
 that require one are refused, as the JAX package gives them none.
 
+Both kernels come in f32 and bf16 (the element type of the features, the
+output, g and dF; RoIs stay f32). The bf16 variants are the JAX package's
+Pallas kernels' own dtype: each axis's weights rounded to bf16 once, products
+and sums in f32, the output and dF rounded to bf16 once. A bf16 CUDA tensor
+launches them or raises; it is never sent through the f32 kernels or a plain
+version. ``multilevel_roi_align.launches`` and
+``multilevel_roi_align_backward.launches`` count the f32 launches,
+``.launches_bf16`` the bf16 ones.
+
 The kernels are built from the repository's source at first use and bound
 with ``ctypes`` (``ops/_build.py``).
 """
@@ -54,6 +63,7 @@ SOURCE = CSRC / "roi_align.cu"
 MAX_LEVELS = 4
 MAX_PW = 8  # kMaxPw of the source: bins across a pooled output
 TILE_Y, TILE_X = 8, 32  # kTileY, kTileX of the source: the backward's tile of a level
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +84,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
+    # the bf16 entries take the same arguments, their element pointers untyped
+    lib.basedet_roi_align_fwd_bf16.argtypes = fn.argtypes
+    lib.basedet_roi_align_fwd_bf16.restype = ctypes.c_int
+    lib.basedet_roi_align_bwd_bf16.argtypes = bwd.argtypes
+    lib.basedet_roi_align_bwd_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -102,9 +117,10 @@ def _check_rois(n_levels, rois, levels, strides) -> None:
 def _check(features, rois, levels, strides) -> None:
     _check_rois(len(features), rois, levels, strides)
     B, C = features[0].shape[:2]
+    dtype = features[0].dtype
     for f in features:
-        if f.dim() != 4 or f.shape[:2] != (B, C) or f.dtype != torch.float32:
-            raise ValueError(f"features must be f32 (B, C, H, W) with one B and C, got "
+        if f.dim() != 4 or f.shape[:2] != (B, C) or f.dtype != dtype or dtype not in DTYPES:
+            raise ValueError(f"features must be f32 or bf16 (B, C, H, W) with one B, C and dtype, got "
                              f"{[(tuple(x.shape), x.dtype) for x in features]}")
         if f.device != rois.device:
             raise ValueError("features and rois lie on different devices")
@@ -118,18 +134,22 @@ def _launch_forward(features, rois, levels, strides, output_size) -> torch.Tenso
     ph, pw = output_size
     if not 1 <= pw <= MAX_PW or ph < 1:
         raise ValueError(f"the RoIAlign kernel pools at most {MAX_PW} bins across, got {output_size}")
-    out = torch.empty((B, R, ph, pw, C), dtype=torch.float32, device=rois.device)
+    bf16 = features[0].dtype == torch.bfloat16
+    out = torch.empty((B, R, ph, pw, C), dtype=features[0].dtype, device=rois.device)
     ptrs, heights, widths, level_strides, n = _level_args(features, [f.shape[-2:] for f in features], strides)
     feat_strides = (ctypes.c_longlong * (4 * n))(*[s for f in features for s in f.stride()])
     rois, levels = rois.contiguous(), levels.contiguous()
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream(rois.device).cuda_stream
-        err = _library().basedet_roi_align_fwd(
-            ptrs, feat_strides, heights, widths, level_strides, n, rois.data_ptr(), levels.data_ptr(), B, R, C,
-            ph, pw, out.data_ptr(), stream)
+        entry = _library().basedet_roi_align_fwd_bf16 if bf16 else _library().basedet_roi_align_fwd
+        err = entry(ptrs, feat_strides, heights, widths, level_strides, n, rois.data_ptr(), levels.data_ptr(), B, R,
+                    C, ph, pw, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign kernel launch failed: CUDA error {err}")
-    multilevel_roi_align.launches += 1
+    if bf16:
+        multilevel_roi_align.launches_bf16 += 1
+    else:
+        multilevel_roi_align.launches += 1
     return out
 
 
@@ -141,19 +161,20 @@ def multilevel_roi_align_backward(
     sizes: Sequence[Tuple[int, int]],
 ) -> List[torch.Tensor]:
     """The gradient of :func:`multilevel_roi_align` in its features: grad
-    (B, R, ph, pw, C) f32 and the forward's rois, levels and strides, with
-    ``sizes`` the (H_l, W_l) per level → dF per level, NCHW-contiguous (B, C,
-    H_l, W_l) f32, zero where no RoI of the level lands.
+    (B, R, ph, pw, C) f32 or bf16 and the forward's rois, levels and strides,
+    with ``sizes`` the (H_l, W_l) per level → dF per level, NCHW-contiguous
+    (B, C, H_l, W_l) in grad's dtype, zero where no RoI of the level lands.
 
-    A CUDA tensor goes through the kernel
-    (``multilevel_roi_align_backward.launches`` counts its launches): one
+    A CUDA tensor goes through the kernel of its dtype
+    (``multilevel_roi_align_backward.launches`` counts the f32 launches,
+    ``.launches_bf16`` the bf16 ones): one
     launch writes every element of every level once, so two runs on the same
     inputs give the same bits. It takes at most ``MAX_PW`` bins across, as
     the forward does. A CPU tensor goes through the plain version."""
     _check_rois(len(sizes), rois, levels, strides)
-    if (grad.dim() != 5 or grad.shape[:2] != rois.shape[:2] or grad.dtype != torch.float32
+    if (grad.dim() != 5 or grad.shape[:2] != rois.shape[:2] or grad.dtype not in DTYPES
             or grad.device != rois.device):
-        raise ValueError(f"grad must be f32 (B, R, ph, pw, C) beside the rois, got "
+        raise ValueError(f"grad must be f32 or bf16 (B, R, ph, pw, C) beside the rois, got "
                          f"{grad.dtype} {tuple(grad.shape)}")
     if rois.device.type == "cpu":
         return multilevel_roi_align_backward_plain(grad, rois, levels, strides, sizes)
@@ -162,22 +183,27 @@ def multilevel_roi_align_backward(
     B, R, ph, pw, C = grad.shape
     if not 1 <= pw <= MAX_PW or ph < 1:
         raise ValueError(f"the RoIAlign backward kernel takes at most {MAX_PW} bins across, got {(ph, pw)}")
+    bf16 = grad.dtype == torch.bfloat16
     counts = [B * C * h * w for h, w in sizes]
-    flat = torch.empty(sum(counts), dtype=torch.float32, device=rois.device)
+    flat = torch.empty(sum(counts), dtype=grad.dtype, device=rois.device)
     dfs = [t.view(B, C, h, w) for t, (h, w) in zip(flat.split(counts), sizes)]
     grad, rois, levels = grad.contiguous(), rois.contiguous(), levels.contiguous()
     with torch.cuda.device(rois.device):
         stream = torch.cuda.current_stream(rois.device).cuda_stream
-        err = _library().basedet_roi_align_bwd(
-            *_level_args(dfs, sizes, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
-            B, R, C, ph, pw, stream)
+        entry = _library().basedet_roi_align_bwd_bf16 if bf16 else _library().basedet_roi_align_bwd
+        err = entry(*_level_args(dfs, sizes, strides), grad.data_ptr(), rois.data_ptr(), levels.data_ptr(),
+                    B, R, C, ph, pw, stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign backward kernel launch failed: CUDA error {err}")
-    multilevel_roi_align_backward.launches += 1
+    if bf16:
+        multilevel_roi_align_backward.launches_bf16 += 1
+    else:
+        multilevel_roi_align_backward.launches += 1
     return dfs
 
 
 multilevel_roi_align_backward.launches = 0
+multilevel_roi_align_backward.launches_bf16 = 0
 
 
 def _axis_taps(start: np.ndarray, bin_size: np.ndarray, p: int, s: int, size: int):
@@ -270,6 +296,7 @@ class _RoIAlignOnCard(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         rois, levels = ctx.saved_tensors
+        # autograd hands g in the output's dtype, the features'
         grads = multilevel_roi_align_backward(grad, rois, levels, ctx.strides, ctx.sizes)
         return (None, None, None, None, *grads)
 
@@ -281,14 +308,16 @@ def multilevel_roi_align(
     strides: Sequence[int],
     output_size: Tuple[int, int] = (7, 7),
 ) -> torch.Tensor:
-    """features per level (B, C, H_l, W_l) f32, rois (B, R, 4) xyxy, levels
-    (B, R) int32 0-based level ids → (B, R, ph, pw, C) f32, differentiable
-    in the features.
+    """features per level (B, C, H_l, W_l) f32 or bf16 (one dtype), rois
+    (B, R, 4) f32 xyxy, levels (B, R) int32 0-based level ids → (B, R, ph,
+    pw, C) in the features' dtype, differentiable in the features (dF in
+    their dtype).
 
-    A CUDA tensor goes through the kernel (``multilevel_roi_align.launches``
-    counts its launches) and, on the way back, through the backward kernel
-    (:func:`multilevel_roi_align_backward`). A CPU tensor goes through the
-    plain version, whose gradient is autograd's own."""
+    A CUDA tensor goes through the kernel of its dtype
+    (``multilevel_roi_align.launches`` counts the f32 launches,
+    ``.launches_bf16`` the bf16 ones) and, on the way back, through the
+    backward kernel (:func:`multilevel_roi_align_backward`). A CPU tensor
+    goes through the plain version, whose gradient is autograd's own."""
     _check(features, rois, levels, strides)
     if rois.device.type == "cpu":
         return multilevel_roi_align_plain(features, rois, levels, strides, output_size)
@@ -298,6 +327,7 @@ def multilevel_roi_align(
 
 
 multilevel_roi_align.launches = 0
+multilevel_roi_align.launches_bf16 = 0
 
 
 def pool_rois_multilevel(

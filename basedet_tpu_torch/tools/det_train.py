@@ -9,10 +9,11 @@ dataset (``data/datasets/info.py``, under ``$BASEDET_DATA_DIR``) or ``dummy``
 for synthetic batches; a ``DATA.TEST.name`` other than ``dummy``, or
 ``TEST.EVAL_EPOCH_INTERVAL``, evaluates on that split during and after
 training. ``--resume`` continues from ``GLOBAL.CKPT_SAVE_DIR/latest.pt`` at
-the epoch after it. ``--amp`` trains YOLOX under the bf16 policy
-(``TRAINER.AMP.FUSED_BN True`` adds the fused CSP chain) and is refused for
-the other models; ``--remat``, ``--tb`` and ``--debug`` are refused: they
-are not ported yet.
+the epoch after it. ``--amp`` trains any model under the bf16 policy
+(``TRAINER.AMP.FUSED_BN True`` adds YOLOX's fused CSP chain); ``--remat``
+recomputes the network's activations in the backward (``TRAINER.REMAT``,
+also ``"selective"``). ``--tb`` and ``--debug`` are refused: they are not
+ported yet.
 """
 from __future__ import annotations
 

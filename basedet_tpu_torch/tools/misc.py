@@ -29,7 +29,7 @@ def default_parser(description: str = "basedet_tpu_torch") -> argparse.ArgumentP
     parser.add_argument("-f", "--file", type=str, required=False,
                         default="config.py", help="config file path")
     parser.add_argument("--resume", action="store_true", help="resume training")
-    parser.add_argument("--amp", action="store_true", help="bf16 compute policy (the port: YOLOX only)")
+    parser.add_argument("--amp", action="store_true", help="bf16 compute policy (TRAINER.AMP.ENABLE)")
     parser.add_argument("--ema", action="store_true", help="enable model EMA")
     parser.add_argument("--tb", action="store_true", help="enable tensorboard")
     parser.add_argument("-w", "--weights", type=str, default=None,
@@ -37,7 +37,7 @@ def default_parser(description: str = "basedet_tpu_torch") -> argparse.ArgumentP
     parser.add_argument("--debug", action="store_true",
                         help="JAX's sync debugging; refused by the port, which runs eagerly")
     parser.add_argument("--remat", action="store_true",
-                        help="rematerialize the backbone to trade FLOPs for memory")
+                        help="rematerialize the network to trade FLOPs for memory (TRAINER.REMAT)")
     parser.add_argument(
         "opts", nargs=argparse.REMAINDER, default=None,
         help="config override key/value pairs",

@@ -7,8 +7,8 @@ Run from the root of the repository. Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit. The script
      sets no precision: the port's models and train step run in IEEE f32
      (TF32 off) by themselves, or under the bf16 policy where a phase's
-     config asks for it, and phases 7, 8, 9c, 12, 12b, 17, 22, 29 and 37 hold
-     them to the CPU;
+     config asks for it, and phases 7, 8, 9c, 12, 12b, 17, 22, 29, 37 and 41
+     hold them to the CPU;
   2. build the kernels afresh, in parallel: basedet_tpu_torch/csrc/nms.cu,
      csrc/matching.cu, csrc/roi_align.cu (RoIAlign's forward and backward
      in one library), csrc/fused_bn.cu (the fused 1x1-GEMM + BN-statistics
@@ -40,6 +40,15 @@ Run from the root of the repository. Phases, each of which raises on failure:
      two runs are bit-equal and every dF is NCHW-contiguous; time both, the
      kernel's device time (profiler) apart from anything else, which must be
      nothing (one device operation a call);
+  4d. the bf16 RoIAlign kernels (the JAX package's Pallas kernels' own dtype)
+     against their plain bf16 versions on 4b's and 4c's cases (proposal-like
+     at B = 1 and at the train shape B = 2, R = 512, edges, |F| and |g| ~ 1e3,
+     C = 100 and 6, channels-last, identical RoIs): elementwise within one
+     bf16 ulp, or, for values so near 0 that the f32 sums' order alone moves
+     them further, within the f32 kernels' own gates (``_bf16_gate``); the
+     backward's two runs bit-equal, dF bf16 and NCHW-contiguous; each timed
+     by device time beside the f32 kernel on the same RoIs, with its bf16
+     bound;
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
@@ -259,9 +268,28 @@ Run from the root of the repository. Phases, each of which raises on failure:
      targets + ignore mask, losses; DETR: backbone, encoder, decoder, heads,
      matching, losses), backward and the optimizer, with its own peak
      memory; then inference at batch 1 (network and post-process);
- 39. print the kernel report (eight kernels in six sources; every kernel's
-     launches path by path, the new paths included), the card, and the
-     result line.
+ 39. det_train --amp on the nine other families at full width, 2 steps of
+     each config's batch (RetinaNet, FCOS, ATSS, OTA, FreeAnchor, Faster
+     R-CNN and DETR 2 of 800x1333, CenterNet 16 of 512², YOLOv3 8 of
+     800x1333): finite losses, each kernel's launches per step as in f32 but
+     Faster R-CNN's RoIAlign through the bf16 kernels (1 forward, 1
+     backward a step, the f32 ones 0) and CenterNet's #9 on bf16 values,
+     plain 0; det_test (f32) on each dump, 8 requests;
+ 40. each family's bf16 step beside its f32 step (events, means of 3), with
+     peak memory and the device's idle share;
+ 41. card against CPU under the bf16 policy, one train pass of RetinaNet
+     (batch 2), Faster R-CNN (batch 4, noise copied) and CenterNet (batch
+     2, BN on running statistics) at 512x512, held with the CPU tests'
+     yardstick (losses 10%, gradient norm 15%, cosine at least half the
+     CPU's bf16-vs-f32 cosine, which must be 0.5 or more);
+ 42. TRAINER.REMAT on full-width YOLOv3 in f32: one pass each without
+     REMAT, with True and with "selective" at batch 8 (losses and gradient
+     norm equal within 1e-5, peak memory, launches counted per pass: #10's
+     calls lie outside every segment), then batch 16 with True (peak, step
+     time; it must fit the card);
+ 43. print the kernel report (ten kernels in six sources, the bf16
+     RoIAlign variants apart; every kernel's launches path by path, the new
+     paths included), the card, and the result line.
 """
 import argparse
 import concurrent.futures
@@ -1761,12 +1789,14 @@ def roi_align_touched(feats, rois, levels, output_size=(7, 7)):
 def roi_align_bound(feats, rois, levels):
     """RoIAlign's bound: the output written once, the rois and level ids
     read once, and the C channels of every feature row that some RoI's taps
-    touch read once (``roi_align_touched``); 16 taps x (2 multiplies + 1
-    add) + 4 sample weights per output element in f32."""
+    touch read once (``roi_align_touched``), each element in the features'
+    dtype; 16 taps x (2 multiplies + 1 add) + 4 sample weights per output
+    element in f32."""
     B, R = levels.shape
+    size = feats[0].element_size()
     out_elems = B * R * 7 * 7 * ROI_C
-    feat_bytes = roi_align_touched(feats, rois, levels) * ROI_C * 4
-    t = bound(out_elems * 4 + feat_bytes + B * R * 20, out_elems * (16 * 3 + 4 * 4))
+    feat_bytes = roi_align_touched(feats, rois, levels) * ROI_C * size
+    t = bound(out_elems * size + feat_bytes + B * R * 20, out_elems * (16 * 3 + 4 * 4))
     return (*t, feat_bytes)
 
 
@@ -1838,11 +1868,13 @@ def roi_align_timing(rng, gen, card):
 
 def roi_align_bwd_bound(grad, sizes):
     """The RoIAlign backward's bound: g, the rois and the level ids read
-    once, every level's dF written once; per element of g, 4 samples' weights
-    (4 multiplies) and 16 taps x (1 multiply + 1 add) in f32."""
+    once, every level's dF written once, each element in g's dtype; per
+    element of g, 4 samples' weights (4 multiplies) and 16 taps x (1 multiply
+    + 1 add) in f32."""
     B, R = grad.shape[:2]
-    d_bytes = sum(B * h * w * grad.shape[-1] * 4 for h, w in sizes)
-    t = bound(grad.numel() * 4 + d_bytes + B * R * 20, grad.numel() * (16 * 2 + 4))
+    size = grad.element_size()
+    d_bytes = sum(B * h * w * grad.shape[-1] * size for h, w in sizes)
+    t = bound(grad.numel() * size + d_bytes + B * R * 20, grad.numel() * (16 * 2 + 4))
     return (*t, d_bytes)
 
 
@@ -1909,7 +1941,8 @@ def roi_align_bwd_timing(grad, rois, card, name, plain=True):
         f"{per_level}: wrapper {ms:.4f} ms per call (events); device time {device:.4f} ms in {ops:.2f} operations "
         f"a call (profiler): the kernel {kernel:.4f} ms, anything else {sum(other.values()):.4f} ms {sorted(other)}; "
         + (f"plain {plain_ms:.3f} ms; " if plain else "")
-        + f"bound {bound_ms:.4f} ms ({bound_by}: {grad.numel() * 4 / 1e6:.1f} MB of g read, {d_bytes / 1e6:.1f} MB "
+        + f"bound {bound_ms:.4f} ms ({bound_by}: {grad.numel() * grad.element_size() / 1e6:.1f} MB of g read, "
+        f"{d_bytes / 1e6:.1f} MB "
         f"of dF written), the kernel at {bound_ms / kernel:.3f} of it | {card}")
     return dict(ms=ms, device_ms=device, kernel_ms=kernel, other_ms=sum(other.values()), ops=ops,
                 names=sorted(names), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -1923,6 +1956,167 @@ def phase_roi_align_bwd(card):
     check(t["ops"] == 1, f"the RoIAlign backward wrapper ran {t['ops']} device operations a call, not 1: {t['names']}")
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], library_ms=None)
+
+
+# -- the bf16 RoIAlign kernels (#5-#8 in the JAX package's own dtype) -----------------------------
+
+def _bf16_gate(got, want, f32_tol):
+    """(worst |kernel - plain| in bf16 ulps of the larger of the two, elements past one ulp, elements
+    past one ulp but within ``f32_tol``, the verdict). Both round once to bf16 from f32 sums that
+    differ in order only, so an element may differ by one rounding step; where the value is so near 0
+    that the f32 sums' order alone (the f32 kernel's own gate, ``f32_tol``) moves it by more than a bf16
+    ulp, that gate holds it instead."""
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.maximum(_bf16_ulp(got), _bf16_ulp(want))
+    past = diff > ulp
+    floored = past & (diff <= f32_tol)
+    ok = not bool((past & (diff > f32_tol)).any())
+    return float((diff / ulp).max()), int(past.sum()), int(floored.sum()), ok
+
+
+def _check_roi_align_bf16(name, feats, rois):
+    """The bf16 forward kernel against its plain version on bf16 features: the output's dtype, the
+    gate of ``_bf16_gate`` (the f32 forward's 1e-5 of max(1, max|F|) as the floor); returns the
+    largest |kernel - plain|."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+
+    feats = [f.bfloat16() for f in feats]
+    levels = roi_level_assignment(rois, 2, 5)
+    before = multilevel_roi_align.launches_bf16
+    got = multilevel_roi_align(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    check(multilevel_roi_align.launches_bf16 == before + 1 and got.dtype == torch.bfloat16,
+          f"bf16 RoIAlign on case {name!r}: {got.dtype}, {multilevel_roi_align.launches_bf16 - before} bf16 launches")
+    want = multilevel_roi_align_plain(feats, rois, levels, ROI_STRIDES)
+    tol = 1e-5 * max(1.0, max(float(f.float().abs().max()) for f in feats))
+    ulps, past, floored, ok = _bf16_gate(got, want, tol)
+    err = float((got.float() - want.float()).abs().max())
+    log(f"[roi-bf16] {name:16s} B={rois.shape[0]} R={rois.shape[1]} C={feats[0].shape[1]}: max |kernel - plain| "
+        f"{err:.3e} = {ulps:.2f} bf16 ulps; {past} of {got.numel()} elements past one ulp, all {floored} of them "
+        f"within the f32 gate {tol:.3e}: {ok}")
+    check(ok, f"the bf16 RoIAlign kernel differs from its plain version by more than a bf16 ulp on case {name!r}")
+    return err
+
+
+def _check_roi_align_bwd_bf16(name, grad, rois):
+    """The bf16 backward kernel against its plain version on a bf16 g: dF in bf16, NCHW-contiguous,
+    two runs bit-equal, the gate of ``_bf16_gate`` (the f32 backward's ROI_BWD_RTOL of max(1, max|dF|)
+    as the floor); returns the largest |kernel - plain|."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    grad = grad.bfloat16()
+    levels = roi_level_assignment(rois, 2, 5)
+    before = multilevel_roi_align_backward.launches_bf16
+    got = multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    again = multilevel_roi_align_backward(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    torch.cuda.synchronize()
+    check(multilevel_roi_align_backward.launches_bf16 == before + 2 and all(g.dtype == torch.bfloat16 for g in got),
+          f"bf16 RoIAlign backward on case {name!r}: {[g.dtype for g in got]}")
+    want = multilevel_roi_align_backward_plain(grad, rois, levels, ROI_STRIDES, ROI_LEVELS)
+    biggest = max(float(w.float().abs().max()) for w in want)
+    tol = ROI_BWD_RTOL * max(1.0, biggest)
+    gates = [_bf16_gate(g, w, tol) for g, w in zip(got, want)]
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    equal = all(torch.equal(g, a) for g, a in zip(got, again))
+    log(f"[roi-bwd-bf16] {name:16s} B={rois.shape[0]} R={rois.shape[1]} C={grad.shape[-1]}: max |kernel - plain| "
+        f"{err:.3e} = {max(g[0] for g in gates):.2f} bf16 ulps (max |dF| {biggest:.3e}); {sum(g[1] for g in gates)} "
+        f"elements past one ulp, all {sum(g[2] for g in gates)} of them within the f32 gate {tol:.3e}: "
+        f"{all(g[3] for g in gates)}; two runs bit-equal: {equal}")
+    check(all(g.is_contiguous() and g.shape == w.shape for g, w in zip(got, want)),
+          f"bf16 RoIAlign backward: a dF is not NCHW-contiguous (B, C, H, W) on case {name!r}")
+    check(equal, f"bf16 RoIAlign backward: two runs differ on case {name!r}")
+    check(all(g[3] for g in gates), f"the bf16 RoIAlign backward differs from its plain version by more than a bf16 "
+                                    f"ulp on case {name!r}")
+    return err
+
+
+def roi_align_bf16_timing(feats, rois, card, name):
+    """The forward wrapper on bf16 and on f32 features, the same RoIs: the kernels' device time
+    (profiler), events, the bf16 plain version and each dtype's bound."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align
+
+    levels = roi_level_assignment(rois, 2, 5)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        f = [x.to(dt) for x in feats]
+        call = lambda: multilevel_roi_align(f, rois, levels, ROI_STRIDES)
+        ms = cuda_ms(call, reps=20, warmup=3)
+        _, _, names = device_kernels(call, 10, names=("roi_align",))
+        kernel = sum(v for n, v in names.items() if "roi_align" in n)
+        out[dt] = (ms, kernel, *roi_align_bound(f, rois, levels)[:2])
+    bf = [x.bfloat16() for x in feats]
+    plain_ms = cuda_ms(lambda: multilevel_roi_align_plain(bf, rois, levels, ROI_STRIDES), reps=3, warmup=1)
+    (ms, kernel, b_ms, b_by), (ms32, kernel32, b32, _) = out[torch.bfloat16], out[torch.float32]
+    log(f"[roi-bf16] forward {name}, B={rois.shape[0]} R={rois.shape[1]} C={feats[0].shape[1]}: bf16 kernel device "
+        f"{kernel:.4f} ms (profiler), events {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), the kernel at "
+        f"{b_ms / kernel:.3f} of it; the f32 kernel on the same RoIs {kernel32:.4f} ms device, {ms32:.4f} events "
+        f"(bound {b32:.4f}); bf16 plain {plain_ms:.3f} ms | {card}")
+    return dict(ms=kernel, events_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=kernel32)
+
+
+def roi_align_bwd_bf16_timing(grad, rois, card, name):
+    """The backward wrapper on a bf16 g and on the f32 g, the same RoIs: device time (profiler),
+    events, the bf16 plain version and each dtype's bound."""
+    from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, roi_level_assignment
+    from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
+
+    levels = roi_level_assignment(rois, 2, 5)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = grad.to(dt)
+        call = lambda: multilevel_roi_align_backward(g, rois, levels, ROI_STRIDES, ROI_LEVELS)
+        ms = cuda_ms(call, reps=20, warmup=3)
+        _, ops, names = device_kernels(call, 10, names=("roi_align_bwd",))
+        kernel = sum(v for n, v in names.items() if "roi_align_bwd" in n)
+        out[dt] = (ms, kernel, ops, *roi_align_bwd_bound(g, ROI_LEVELS)[:2])
+    g16 = grad.bfloat16()
+    plain_ms = cuda_ms(lambda: multilevel_roi_align_backward_plain(g16, rois, levels, ROI_STRIDES, ROI_LEVELS),
+                       reps=3, warmup=1)
+    (ms, kernel, ops, b_ms, b_by), (ms32, kernel32, _, b32, _) = out[torch.bfloat16], out[torch.float32]
+    check(ops == 1, f"the bf16 RoIAlign backward ran {ops} device operations a call, not 1")
+    log(f"[roi-bwd-bf16] {name}, B={grad.shape[0]} R={grad.shape[1]} C={grad.shape[-1]}: bf16 kernel device "
+        f"{kernel:.4f} ms (profiler, {ops} operation a call), events {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), the "
+        f"kernel at {b_ms / kernel:.3f} of it; the f32 kernel on the same RoIs {kernel32:.4f} ms device, {ms32:.4f} "
+        f"events (bound {b32:.4f}); bf16 plain {plain_ms:.3f} ms | {card}")
+    return dict(ms=kernel, events_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=kernel32)
+
+
+def phase_roi_align_bf16(card):
+    """4d. The bf16 RoIAlign forward and backward against their plain versions on phase 4b's and
+    4c's cases (proposal-like at B = 1 and 2, edges, |F| and |g| ~ 1e3, C = 100 and 6,
+    channels-last features, identical RoIs), then timed beside the f32 kernels at the eval shape
+    (B = 1, R = 1000) and the train shape (B = 2, R = 512). Returns the report entries."""
+    rng, gen = np.random.RandomState(SEED + 4), torch.Generator(device="cuda").manual_seed(SEED + 4)
+    edges = torch.from_numpy(_edge_rois()).cuda()
+    worst = 0.0
+    for B, R in ((1, ROI_R), (FRCNN_TRAIN_B, FRCNN_TRAIN_R)):
+        worst = max(worst, _check_roi_align_bf16(f"proposal-like", _roi_feats(gen, B),
+                                                 torch.from_numpy(_proposal_rois(rng, B, R)).cuda()))
+    worst = max(worst, _check_roi_align_bf16("edges", _roi_feats(gen, 1), edges))
+    worst = max(worst, _check_roi_align_bf16("edges |F|~4e3", [f * 1000.0 for f in _roi_feats(gen, 1)], edges))
+    for C in (100, 6):
+        worst = max(worst, _check_roi_align_bf16(f"edges C={C}", _roi_feats(gen, 1, C), edges))
+    same = torch.from_numpy(np.broadcast_to(np.float32([301.3, 211.7, 642.9, 505.1]),
+                                            (FRCNN_TRAIN_B, FRCNN_TRAIN_R, 4)).copy()).cuda()
+    worst = max(worst, _check_roi_align_bf16("identical RoIs", _roi_feats(gen, FRCNN_TRAIN_B), same))
+    feats = [f.contiguous(memory_format=torch.channels_last) for f in _roi_feats(gen, 1)]
+    worst = max(worst, _check_roi_align_bf16("channels-last F", feats, torch.from_numpy(_proposal_rois(rng, 1, 300)).cuda()))
+    cases = roi_align_bwd_cases(SEED + 5)
+    worst_bwd = max(_check_roi_align_bwd_bf16(name, g, rois) for name, (g, rois) in cases.items())
+    for C in (100, 6):  # channels off the block's slab: the scalar copies of g
+        g = torch.randn(1, edges.shape[1], 7, 7, C, device="cuda", generator=gen)
+        worst_bwd = max(worst_bwd, _check_roi_align_bwd_bf16(f"edges C={C}", g, edges))
+    fwd = roi_align_bf16_timing(_roi_feats(gen, 1), torch.from_numpy(_proposal_rois(rng, 1, ROI_R)).cuda(), card,
+                                "eval shape")
+    fwd_train = roi_align_bf16_timing(_roi_feats(gen, FRCNN_TRAIN_B), cases["proposal-like"][1], card, "train shape")
+    bwd = roi_align_bwd_bf16_timing(*cases["proposal-like"], card, "proposal-like")
+    roi_align_bwd_bf16_timing(*cases["identical RoIs"], card, "identical RoIs")
+    keys = ("plain_ms", "bound_ms", "bound_by")
+    return ({"max_abs_err": worst, "ms": fwd["events_ms"], **{k: fwd[k] for k in keys}, "library_ms": None},
+            {"max_abs_err": worst_bwd, "ms": bwd["events_ms"], **{k: bwd[k] for k in keys}, "library_ms": None})
 
 
 @torch.no_grad()
@@ -3387,6 +3581,22 @@ DATA_STEPS = 10  # iterations per epoch of phases 25-26
 DATA_COUNTS = {}  # data-slice path -> {kernel: (launches, plain calls)}
 
 
+class _Bf16Launches:
+    """A kernel's bf16 variant as ``kernel_counts`` reads a kernel: its wrapper counts its launches in
+    ``launches_bf16``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self):
+        return self.wrapper.launches_bf16
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.launches_bf16 = value
+
+
 @contextlib.contextmanager
 def kernel_counts(path):
     """Zero every kernel's launch count and every plain version's call count just before the body
@@ -3404,6 +3614,9 @@ def kernel_counts(path):
     pairs = {"nms_keep": (nms_keep, nms_keep_plain), "dynamic_k_matching": (dynamic_k_matching, dynamic_k_matching_plain),
              "multilevel_roi_align": (multilevel_roi_align, multilevel_roi_align_plain),
              "multilevel_roi_align_backward": (multilevel_roi_align_backward, multilevel_roi_align_backward_plain),
+             "multilevel_roi_align_bf16": (_Bf16Launches(multilevel_roi_align), multilevel_roi_align_plain),
+             "multilevel_roi_align_backward_bf16": (_Bf16Launches(multilevel_roi_align_backward),
+                                                    multilevel_roi_align_backward_plain),
              "fused_gemm_stats": (fused_gemm_stats, fused_gemm_stats_plain),
              "fused_gemm_stats_backward": (fused_gemm_stats_backward, fused_gemm_stats_backward_plain),
              "scatter_rows": (scatter_rows, scatter_rows_plain)}
@@ -4602,8 +4815,8 @@ def phase_yolov3_train_timing(weights, card):
                 model.ignore_mask(model.decode(pred.detach(), grid), gt, nv))
 
     t["targets + ignore mask"], (tg, ignore) = _timed(targets)
-    t["losses"], _ = _timed(lambda: model.losses(pred, tg, ignore))
-    del feats, preds, pred, tg, ignore
+    t["losses"], losses = _timed(lambda: model.losses(pred, tg, ignore))
+    del feats, preds, pred, tg, ignore, losses  # the losses' graph would hold the forward's activations
     return _step_timing("YOLOv3", model, state, step, batch, before, t, card)
 
 
@@ -4639,8 +4852,8 @@ def phase_detr_train_timing(weights, card):
              f"{owner.shape[0] * owner.shape[1]} (layer, image) problems of {logits.shape[2]} queries x "
              f"{owner.shape[2]} targets, {AuctionStats.rounds} rounds run, {int(AuctionStats.needed.max())} needed, "
              f"{AuctionStats.syncs} host syncs a call")
-    t["losses"], _ = _timed(lambda: model.layer_losses(logits, coords, owner, *targets))
-    del src, pad, pos, memory, hs, logits, coords
+    t["losses"], losses = _timed(lambda: model.layer_losses(logits, coords, owner, *targets))
+    del src, pad, pos, memory, hs, logits, coords, losses  # the losses' graph would hold the activations
     return _step_timing("DETR", model, state, step, batch, before, t, card, notes)
 
 
@@ -4705,6 +4918,314 @@ def phase_last_families(out_dir, card):
         phase_last_inference_timing(name, model, card)
 
 
+# -- the bf16 policy (--amp) of the nine other families, and TRAINER.REMAT ------------------------
+
+AMP_FAMILIES = {  # model: (config, batch, image, {kernel: launches per det_train --amp step})
+    "RetinaNet": (RETINA_CONFIG, RETINA_B, FRCNN_IMAGE, {"box_iou": 1}),
+    "FCOS": (NEW_MODELS["FCOS"][0], NEW_B, FRCNN_IMAGE, {}),
+    "ATSS": (NEW_MODELS["ATSS"][0], NEW_B, FRCNN_IMAGE, {"box_iou": 1}),
+    "OTA": (NEW_MODELS["OTA"][0], NEW_B, FRCNN_IMAGE, {"dynamic_k_matching": 1}),
+    "FreeAnchor": (NEW_MODELS["FreeAnchor"][0], NEW_B, FRCNN_IMAGE, {"box_iou": 2}),
+    "Faster R-CNN": (FRCNN_CONFIG, FRCNN_TRAIN_B, FRCNN_IMAGE,
+                     {"multilevel_roi_align_bf16": 1, "multilevel_roi_align_backward_bf16": 1, "nms_keep": 1,
+                      "box_iou": 2}),
+    "CenterNet": (CNET_CONFIG, CNET_B, CNET_IMAGE, {"scatter_rows": 3}),
+    "YOLOv3": (YOLOV3_CONFIG, YOLOV3_B, FRCNN_IMAGE, {"box_iou": YOLOV3_IOU_CALLS}),
+    "DETR": (DETR_CONFIG, DETR_B, FRCNN_IMAGE, {}),
+}
+AMP_WEIGHTS = {"RetinaNet": "retinanet_r50_seed0.pt", "Faster R-CNN": "faster_rcnn_r50_seed0.pt",
+               "CenterNet": "centernet_r50_seed0.pt", "YOLOv3": "yolov3_seed0.pt", "DETR": "detr_seed0.pt",
+               **{name: f"{name.lower()}_r50_seed0.pt" for name in NEW_MODELS}}  # the earlier phases' files
+AMP_STEPS, AMP_REPS = 2, 3  # det_train --amp steps; timed steps of each dtype
+# the card-vs-CPU bf16 gate at 512x512 (its CPU passes, f32 and bf16, are the phase's cost): {model: (batch,
+# BN in eval mode)}, each a setup where bf16 tracks f32. Faster R-CNN at batch 4: its box loss averages the few
+# positive RoIs of 3 gts an image, and at batch 2 one RoI sampled otherwise after a bf16 rounding moved it by
+# 17% (card 0.0392, CPU bf16 0.0336, f32 0.0389 on both). CenterNet with BN on its running statistics: in train
+# mode (FREEZE_AT 0) the stem's and layer1's gradients, most of the norm, are what cancels in the BN backward
+# of bf16 activation gradients, and the bf16 gradient is unrelated to the f32 one (the phase reports its cosine)
+AMP_GATES, AMP_GATE_IMAGE = {"RetinaNet": (2, False), "Faster R-CNN": (4, False), "CenterNet": (2, True)}, (512, 512)
+REMAT_RTOL, REMAT_B16 = 1e-5, 16
+
+
+def _amp_weights(out_dir, name):
+    """The weights an earlier phase saved for ``name`` (random from SEED, spread)."""
+    path = os.path.join(out_dir, AMP_WEIGHTS[name])
+    check(os.path.exists(path), f"no weights for {name} at {path}")
+    return path
+
+
+def _amp_opts(out_dir, name, weights=None, batch=None, image=None):
+    """det_train (with ``weights``) or det_test options of ``name``'s --amp path."""
+    _, b, img, _ = AMP_FAMILIES[name]
+    b, img = batch or b, image or img
+    opts = ["DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", str(tuple(img)).replace(" ", ""), "GLOBAL.OUTPUT_DIR",
+            out_dir]
+    if weights is None:
+        return opts
+    return [*opts, "DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(b), "SOLVER.MAX_EPOCH", "1",
+            "SOLVER.NUM_IMAGE_PER_EPOCH", str(AMP_STEPS * b), "GLOBAL.LOG_INTERVAL", "1", "MODEL.WEIGHTS", weights,
+            "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, f"{name.replace(' ', '_')}_amp_ckpt")]
+
+
+def phase_amp_train(out_dir, name):
+    """det_train --amp on full-width ``name``, AMP_STEPS steps of its config's batch, every kernel's
+    and plain version's count zeroed just before and read just after: the launches per step of
+    AMP_FAMILIES (the bf16 RoIAlign for Faster R-CNN, #9 on bf16 values for CenterNet), plain 0;
+    finite losses. Then det_test serves the dump in f32 (DummyLoader's 8 requests). Faster R-CNN:
+    the bf16 RoIAlign kernels held to their plain versions on the first step's own features and
+    RoIs (the backward with a random bf16 g of the step's shape: the Function's g is not reachable
+    from outside); returns their largest |kernel - plain|."""
+    from basedet_tpu_torch.models import det
+    from basedet_tpu_torch.ops import roi_align_kernel, scatter_rows_kernel
+    from basedet_tpu_torch.tools import det_test, det_train
+
+    config, batch, _, per_step = AMP_FAMILIES[name]
+    path = f"{name} det_train --amp"
+    cls = getattr(det, name.replace(" ", "").replace("-", ""))
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    keep_first = lambda args, out: [a.detach().clone() if torch.is_tensor(a) else a for a in args]
+    with recording(cls, "get_losses", keep_losses) as losses, \
+            recording(scatter_rows_kernel, "scatter_rows", lambda args, out: args[1].dtype) as scatters, \
+            recording(roi_align_kernel, "_launch_forward", keep_first) as roi_calls, \
+            kernel_counts(path):
+        t0 = time.perf_counter()
+        trainer = det_train.main(["-f", config, "--device", "cuda", "--amp",
+                                  *_amp_opts(out_dir, name, _amp_weights(out_dir, name))])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    check(steps == AMP_STEPS and len(losses) == AMP_STEPS, f"{path} took {steps} steps")
+    counts = _new_counts(path, {k: n * steps for k, n in per_step.items()})
+    check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite {path} losses {losses}")
+    check(len(scatters) == per_step.get("scatter_rows", 0) * steps and all(d == torch.bfloat16 for d in scatters),
+          f"{path}: #9 took {len(scatters)} value tensors of {set(scatters)}, not bf16")
+    dumped = os.path.join(out_dir, f"{name.replace(' ', '_')}_amp_ckpt", "dumped_model.pt")
+    del trainer
+    gc.collect()
+    with kernel_counts(f"{name} det_test of the --amp run"):
+        results = det_test.main(["-f", config, "-w", dumped, "--device", "cuda", *_amp_opts(out_dir, name),
+                                 "TEST.CLS_THRESHOLD", "0.0"])
+    check(results["num_detections"] > 0, f"{name}'s --amp dump served no detection")
+    per = "; ".join(", ".join(f"{k.replace('_loss', '')} {v:.4f}" for k, v in step.items()) for step in losses)
+    log(f"[amp-train] det_train --amp {name}, {steps} steps of {batch} images, bf16 policy, in {seconds:.2f} s; kernel "
+        f"launches {counts}{f' (#9 on {len(scatters)} bf16 value tensors)' if scatters else ''}; losses per step: "
+        f"{per}; det_test (f32) on its dump: {results['num_detections']} detections over 8 requests")
+    if not roi_calls:
+        return None
+    feats, rois = roi_calls[0][:2]
+    check(all(f.dtype == torch.bfloat16 for f in feats), f"{path}: the first step's RoIAlign took {feats[0].dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    grad = torch.randn(*rois.shape[:2], 7, 7, feats[0].shape[1], device="cuda", generator=gen)
+    return (_check_roi_align_bf16("train step's own", feats, rois),
+            _check_roi_align_bwd_bf16("train step's RoIs", grad, rois))
+
+
+def _amp_setup(name, weights, device, amp, batch=None, image=None, extra=()):
+    """Full-width ``name`` in train mode with ``weights``, its train state and step (bf16 policy with
+    ``amp``), and the first synthetic batch."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import DataloaderBuilder
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.tools import import_config
+    from basedet_tpu_torch.utils.registry import registers
+
+    cfg = import_config(AMP_FAMILIES[name][0])
+    cfg.merge([*_amp_opts(".", name, weights, batch, image), *extra, "TRAINER.AMP.ENABLE", str(bool(amp))])
+    model = build_model(cfg, device)
+    model.load_weights(weights)
+    solver = registers.solvers.get(cfg.SOLVER.BUILDER_NAME).build(cfg)
+    state = TrainState(model.train(), solver)
+    return model, state, make_train_step(model, solver, cfg), next(DataloaderBuilder.build(cfg))
+
+
+def phase_amp_timing(out_dir, name, card):
+    """``name``'s train step in f32 and under the bf16 policy, the same weights and batch: events ms
+    (mean of AMP_REPS), peak memory above what was held before the model was built, and the device's
+    idle share (1 - the profiler's device time over the events time of the same AMP_REPS profiled
+    steps; the phase fails if the device time exceeds it). Returns {dtype: (ms, peak GiB, idle
+    share)}."""
+    out = {}
+    for amp in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model, state, step, batch = _amp_setup(name, _amp_weights(out_dir, name), "cuda", amp)
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), reps=AMP_REPS, warmup=0)
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        marks = []
+
+        def marked_step():
+            marks.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+            marks[-1][0].record()
+            step(state, batch)
+            marks[-1][1].record()
+
+        busy = device_kernels(marked_step, AMP_REPS, warmup=0)[0]
+        torch.cuda.synchronize()
+        wall = sum(a.elapsed_time(b) for a, b in marks[-AMP_REPS:]) / AMP_REPS  # the profiled steps' own
+        check(busy <= wall, f"{name}: {busy:.3f} ms of device time in a step of {wall:.3f} ms")
+        out["bf16" if amp else "f32"] = (ms, peak, 1 - busy / wall)
+        del model, state, step, batch
+    (f_ms, f_peak, f_idle), (b_ms, b_peak, b_idle) = out["f32"], out["bf16"]
+    b, img = AMP_FAMILIES[name][1:3]
+    log(f"[amp-timing] {name} train step, batch {b} of {img[0]}x{img[1]}: bf16 {b_ms:.3f} ms ({1000 * b / b_ms:.2f} "
+        f"img/s), peak {b_peak:.2f} GiB, device idle share {b_idle:.3f}; f32 {f_ms:.3f} ms ({1000 * b / f_ms:.2f} img/s), "
+        f"peak {f_peak:.2f} GiB, idle {f_idle:.3f}; bf16 at {b_ms / f_ms:.3f} of the f32 step (events, means of "
+        f"{AMP_REPS}; idle share over {AMP_REPS} profiled steps) | {card}")
+    return out
+
+
+def _flat_grads(module):
+    return {n: p.grad.detach().double().cpu() for n, p in module.named_parameters() if p.grad is not None}
+
+
+def _cos(a, b):
+    keys = sorted(b)
+    x = torch.cat([a[k].flatten() for k in keys])
+    y = torch.cat([b[k].flatten() for k in keys])
+    return float(x @ y / (x.norm() * y.norm()))
+
+
+def phase_amp_card_vs_cpu(out_dir, name, card):
+    """One bf16 train pass of ``name`` on the card against one on the CPU, same weights and batch
+    (AMP_GATES's batch of AMP_GATE_IMAGE; Faster R-CNN's sampling noise drawn once, copied), held with
+    the CPU tests' yardstick (tests/test_torch_amp_families.py): each loss within 10% of the CPU's
+    bf16 loss, the gradient norm within 15%, the gradient's cosine with the CPU's bf16 gradient at
+    least half the CPU's bf16-vs-f32 cosine, which must itself be at least 0.5."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
+    from basedet_tpu_torch.layers.precision import precision_policy
+
+    weights = _amp_weights(out_dir, name)
+    b, eval_bn = AMP_GATES[name]
+    h, w = AMP_GATE_IMAGE
+    noise = None
+    if name == "Faster R-CNN":
+        anchors = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
+        noise = draw_sampling_noise(42, 0, b, anchors, FRCNN_CANDIDATES, "cpu")
+    runs = {}
+    setups = [("cpu", eval_bn, (None, torch.bfloat16)), ("cuda", eval_bn, (torch.bfloat16,))]
+    if eval_bn:  # why not in train mode: the card's bf16 gradient against its f32 one there, reported
+        setups.append(("cuda", False, (None, torch.bfloat16)))
+    for device, eval_mode, dtypes in setups:
+        model, _, _, batch = _amp_setup(name, weights, device, False, b, AMP_GATE_IMAGE)
+        if eval_mode:
+            model.module.eval()
+        kw = {"noise": {k: t.to(device) for k, t in noise.items()}} if noise else {}
+        for dtype in dtypes:
+            model.module.zero_grad(set_to_none=True)
+            with full_f32(), precision_policy(dtype):
+                total, losses = model.get_losses(batch, **kw)
+            with full_f32():
+                total.backward()
+            runs[device, eval_mode, dtype] = ({k: float(v.detach()) for k, v in losses.items()},
+                                              _flat_grads(model.module))
+        del model
+    (cl, cg), (fl, fg), (gl, gg) = (runs["cpu", eval_bn, torch.bfloat16], runs["cpu", eval_bn, None],
+                                    runs["cuda", eval_bn, torch.bfloat16])
+    norm = lambda g: math.sqrt(sum(float((t ** 2).sum()) for t in g.values()))
+    loss_ok = all(abs(gl[k] - cl[k]) <= 0.1 * abs(cl[k]) for k in cl)
+    norm_ok = abs(norm(gg) - norm(cg)) <= 0.15 * norm(cg)
+    cos, yard = _cos(gg, cg), _cos(fg, cg)
+    train_mode = ""
+    if eval_bn:
+        tb, tf = runs["cuda", False, torch.bfloat16][1], runs["cuda", False, None][1]
+        early = [k for k in tf if k.startswith(("bottom_up.conv1.", "bottom_up.layer1_"))]
+        train_mode = (f"; in train mode on the card the bf16 gradient's cosine with the f32 one is {_cos(tb, tf):.4f}, "
+                      f"the stem's and layer1's share of the f32 norm {norm({k: tf[k] for k in early}) ** 2 / norm(tf) ** 2:.3f}")
+    log(f"[amp-gate] {name}, batch {b} of {h}x{w}{', BN in eval mode' if eval_bn else ''}, bf16 card | bf16 CPU: "
+        "losses " + ", ".join(f"{k} {gl[k]:.4f} | {cl[k]:.4f} (CPU f32 {fl[k]:.4f})" for k in cl)
+        + f"; gradient norm {norm(gg):.4f} | {norm(cg):.4f} (CPU f32 {norm(fg):.4f}); cosine with the CPU's bf16 "
+        f"gradient {cos:.4f}, the CPU's bf16 against its f32 {yard:.4f}{train_mode} | {card}")
+    check(yard >= 0.5, f"{name}: bf16 does not track f32 on this setup (cosine {yard:.4f}); the gate would be empty")
+    check(loss_ok and norm_ok and cos >= 0.5 * yard, f"{name}: the card's bf16 pass is off the CPU's")
+
+
+def phase_remat(out_dir, card):
+    """TRAINER.REMAT on full-width YOLOv3 (f32, its config's batch of 8): one forward and backward
+    each without REMAT, with True and with "selective", from the same weights and batch: losses and
+    gradient norm equal within REMAT_RTOL, peak memory and time of each; kernel launches counted per
+    pass (#10's two calls lie outside every segment, so twice a pass in each mode); then steps at
+    batch 16 with REMAT True: peak (must fit the card) and step time."""
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.layers.remat import remat_policy
+
+    weights = _amp_weights(out_dir, "YOLOv3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model, _, _, batch = _amp_setup("YOLOv3", weights, "cuda", False)
+    state = {k: v.clone() for k, v in model.module.state_dict().items()}
+    runs = {}
+    for mode in (None, "full", "selective"):
+        model.module.load_state_dict(state)
+        model.module.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        path = f"YOLOv3 REMAT {mode} pass"
+        with kernel_counts(path):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with full_f32(), remat_policy(mode):
+                total, losses = model.get_losses(batch)
+            with full_f32():
+                total.backward()
+            end.record()
+            torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        runs[mode] = ({k: float(v.detach()) for k, v in losses.items()}, _grad_norm(model.module), peak,
+                      start.elapsed_time(end), check_counts(path, {"box_iou": YOLOV3_IOU_CALLS}))
+        del total, losses
+    plain = runs[None]
+    for mode in ("full", "selective"):
+        lo, g = runs[mode][:2]
+        check(all(abs(lo[k] - v) <= REMAT_RTOL * abs(v) for k, v in plain[0].items())
+              and abs(g - plain[1]) <= REMAT_RTOL * plain[1], f"REMAT {mode}: losses {lo} and norm {g} off {plain[:2]}")
+    log(f"[remat] YOLOv3 f32, batch {YOLOV3_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}, one forward + backward: "
+        + "; ".join(f"{mode or 'no REMAT'}: peak {p:.2f} GiB, {ms:.1f} ms (one pass, events), total loss "
+                    f"{lo['total_loss']:.6f}, gradient norm {g:.6f}, launches {c}"
+                    for mode, (lo, g, p, ms, c) in runs.items())
+        + f" (peaks above what was held before the model was built) | {card}")
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model, st, step, batch = _amp_setup("YOLOv3", weights, "cuda", False, REMAT_B16, extra=["TRAINER.REMAT", "True"])
+    check(batch["data"].shape[0] == REMAT_B16, f"a batch of {batch['data'].shape[0]}")
+    step(st, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(st, batch), reps=2, warmup=0)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    log(f"[remat] YOLOv3 f32 train step at batch {REMAT_B16} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} with TRAINER.REMAT "
+        f"True: {ms:.1f} ms a step ({1000 * REMAT_B16 / ms:.2f} img/s, events, mean of 2), peak {peak:.2f} GiB of the "
+        f"card's {total:.1f} | {card}")
+    check(peak < total, "YOLOv3 at batch 16 with REMAT does not fit")
+    del model, st, step, batch
+
+
+def phase_amp_families(out_dir, card):
+    """39-42. det_train --amp for the nine families (and det_test on each dump), each one's bf16 step
+    beside its f32 step, the card-vs-CPU bf16 gate on RetinaNet, Faster R-CNN and CenterNet, and
+    REMAT on YOLOv3. Returns the bf16 RoIAlign kernels' largest |kernel - plain| on Faster R-CNN's
+    first --amp step's own arguments (forward, backward)."""
+    errs = None
+    for name in AMP_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        errs = phase_amp_train(out_dir, name) or errs
+        phase_amp_timing(out_dir, name, card)
+    for name in AMP_GATES:
+        phase_amp_card_vs_cpu(out_dir, name, card)
+    phase_remat(out_dir, card)
+    return errs
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -4717,6 +5238,7 @@ def main():
     matching = phase_matching(card)
     roi = phase_roi_align(card)
     roi_bwd = phase_roi_align_bwd(card)
+    roi_bf16, roi_bwd_bf16 = phase_roi_align_bf16(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg, model, weights = make_weights(out_dir)
         match_launches, dumped, yolox_iou = phase_train(out_dir, weights)
@@ -4763,6 +5285,8 @@ def main():
         phase_data_bench(out_dir, card)
         phase_new_models(out_dir, card)
         phase_last_families(out_dir, card)
+        for report, err in zip((roi_bf16, roi_bwd_bf16), phase_amp_families(out_dir, card)):
+            report["max_abs_err"] = max(report["max_abs_err"], err)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -4795,6 +5319,8 @@ def main():
     roi_by_path = by_path("multilevel_roi_align", {"Faster R-CNN det_train": train_roi,
                                                    "Faster R-CNN det_test": roi_launches})
     roi_bwd_by_path = by_path("multilevel_roi_align_backward", {"Faster R-CNN det_train": train_roi_bwd})
+    roi_bf16_by_path = by_path("multilevel_roi_align_bf16", {})
+    roi_bwd_bf16_by_path = by_path("multilevel_roi_align_backward_bf16", {})
     fused_by_path = by_path("fused_gemm_stats", {"YOLOX-S det_train --amp": amp_fused})
     fused_bwd_by_path = by_path("fused_gemm_stats_backward", {"YOLOX-S det_train --amp": amp_fused_bwd})
     scatter_by_path = by_path("scatter_rows", {"CenterNet det_train": cnet_launches})
@@ -4819,6 +5345,15 @@ def main():
         "source": "basedet_tpu_torch/csrc/roi_align.cu",
         "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94",
         **entry(roi_bwd_by_path, roi_bwd),
+    }, {
+        "name": "multilevel_roi_align_bf16", "route": "cuda", "source": "basedet_tpu_torch/csrc/roi_align.cu",
+        "replaces": "basedet_tpu/ops/roi_align_window.py:257 and basedet_tpu/ops/roi_align_pallas.py:54 (bf16)",
+        **entry(roi_bf16_by_path, roi_bf16),
+    }, {
+        "name": "multilevel_roi_align_backward_bf16", "route": "cuda",
+        "source": "basedet_tpu_torch/csrc/roi_align.cu",
+        "replaces": "basedet_tpu/ops/roi_align_window.py:355 and basedet_tpu/ops/roi_align_pallas.py:94 (bf16)",
+        **entry(roi_bwd_bf16_by_path, roi_bwd_bf16),
     }, {
         "name": "fused_gemm_stats", "route": "cuda", "source": "basedet_tpu_torch/csrc/fused_bn.cu",
         "replaces": "basedet_tpu/ops/fused_bn.py:152", **entry(fused_by_path, fused_fwd),

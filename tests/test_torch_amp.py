@@ -57,6 +57,18 @@ from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tiny models: their many small ops
+    otherwise wait on the threads of the other test workers (measured: the
+    REMAT tests 192 s with the default threads beside a running tier-1, 8 s
+    with one). The previous count is restored after."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _flat(tree):
     from tests.test_torch_yolox_train import flat
 
@@ -306,13 +318,26 @@ def test_det_train_amp_fused_on_cpu(tmp_path):
     assert all(math.isfinite(r["score"]) for r in records)
 
 
-def test_make_train_step_refuses_remat():
+@pytest.mark.parametrize("remat", ["True", "selective"])
+def test_make_train_step_takes_remat_under_amp(remat):
+    """``TRAINER.REMAT`` with the bf16 policy and the fused chain on tiny
+    YOLOX-S: the step's losses and updated parameters equal those of a step
+    without REMAT, bit for bit (the segments rerun the same operations)."""
     from basedet_tpu_torch import build_model
-    from basedet_tpu_torch.engine.train_state import make_train_step
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
     from basedet_tpu_torch.solver import YOLOXSolver
     from basedet_tpu_torch.tools import import_config
+    from tests.test_torch_yolox_train import make_batch
 
-    cfg = import_config("basedet_tpu_torch/playground/yolox_s/config.py")
-    cfg.merge(["MODEL.WIDTH_FACTOR", "0.25", "TRAINER.REMAT", "True", "TRAINER.AMP.ENABLE", "True"])
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        make_train_step(build_model(cfg, "cpu"), YOLOXSolver.build(cfg), cfg)
+    runs = []
+    for mode in ("False", remat):
+        cfg = import_config("basedet_tpu_torch/playground/yolox_s/config.py")
+        cfg.merge(["MODEL.WIDTH_FACTOR", "0.25", "TRAINER.REMAT", mode, "TRAINER.AMP.ENABLE", "True",
+                   "TRAINER.AMP.FUSED_BN", "True"])
+        model = build_model(cfg, "cpu").train()
+        solver = YOLOXSolver.build(cfg)
+        metrics = make_train_step(model, solver, cfg)(TrainState(model, solver), make_batch())
+        runs.append(({k: float(v) for k, v in metrics.items()}, model.module.state_dict()))
+    (m0, sd0), (m1, sd1) = runs
+    assert m0 == m1 and all(math.isfinite(v) for v in m1.values())
+    assert all(torch.equal(sd0[k], sd1[k]) for k in sd0)

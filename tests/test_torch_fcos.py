@@ -340,13 +340,19 @@ def test_inference_matches_jax(tiny):
     check_detections(tiny["port"], tiny["jmodel"], tiny["variables"], tiny["batch"])
 
 
-def test_fcos_refuses_amp():
-    """``--amp`` is not ported for the FCOS family: the train step says so by
-    model name."""
-    from basedet_tpu_torch.engine.train_state import make_train_step
+def test_fcos_trains_under_amp():
+    """``--amp`` (``TRAINER.AMP.ENABLE``) on tiny FCOS: one train step under the
+    bf16 policy with finite losses and f32 parameters
+    (``tests/test_torch_amp_families.py`` holds it to the JAX package's)."""
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.layers import precision
     from basedet_tpu_torch.solver import DetSolver
 
     cfg = tiny_cfgs("FCOSConfig")[1]
     cfg.merge(["TRAINER.AMP.ENABLE", "True"])
-    with pytest.raises(NotImplementedError, match="FCOS"):
-        make_train_step(build_model(cfg, "cpu"), DetSolver.build(cfg), cfg)
+    port = build_model(cfg, "cpu").train()
+    solver = DetSolver.build(cfg)
+    metrics = make_train_step(port, solver, cfg)(TrainState(port, solver), make_batch())
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and metrics["total_loss"] > 0
+    assert precision.compute_dtype() is None
+    assert all(p.dtype == torch.float32 for p in port.module.parameters())

@@ -1,7 +1,8 @@
 """basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
 the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
 its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
-bf16 policy with the fused CSP chain, tiny Faster R-CNN, tiny CenterNet and
+bf16 policy with the fused CSP chain, tiny Faster R-CNN (also with
+``--amp --remat``), tiny CenterNet and
 tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
 synthetic PNG set through the data slice)
 run in a subprocess that cannot import any of them, nor Pillow, which only
@@ -119,9 +120,13 @@ print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules i
 """
 
 
+# one intra-op thread a subprocess: tiny models' small ops otherwise wait on
+# the threads of the other test workers
+_ENV = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+
+
 def _run_blocked(script):
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_ENV,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -207,9 +212,8 @@ def test_retinanet_det_train_runs_without_jax(tmp_path):
 def _train_test_blocked(tmp_path, config, opts):
     """det_train 2 steps, then det_test on the dumped weights, in one blocked
     process."""
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
     script = _TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts, flags=[])
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_ENV, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     train, test = (json.loads(line) for line in proc.stdout.strip().splitlines()[-2:])
@@ -250,17 +254,11 @@ def test_det_train_amp_fused_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "yolox_s", flags=["--amp"], extra=["TRAINER.AMP.FUSED_BN", "True"])
 
 
-def test_faster_rcnn_refuses_amp(tmp_path):
-    """``--amp`` is ported for YOLOX only: Faster R-CNN's ResNet, FPN, RPN and
-    RoIAlign kernels have no bf16 path, and det_train says so by model name."""
-    import pytest
-
-    from basedet_tpu_torch.tools import det_train
-
-    config, opts = _TRAIN_OPTS["faster_rcnn"]
-    opts = [*opts, "MODEL.BATCHSIZE", "2", "DATA.TRAIN.name", "dummy", "GLOBAL.OUTPUT_DIR", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="FasterRCNN"):
-        det_train.main(["-f", config, "--device", "cpu", "--amp", *opts])
+def test_faster_rcnn_det_train_amp_remat_runs_without_jax(tmp_path):
+    """``det_train --amp --remat`` on tiny Faster R-CNN, blocked: its ResNet,
+    FPN, RPN, bf16 RoIAlign (the plain bf16 versions here) and box head
+    under the bf16 policy, the network recomputed segment by segment."""
+    _det_train_blocked(tmp_path, "faster_rcnn", flags=["--amp", "--remat"])
 
 
 def test_port_sources_never_import_jax():

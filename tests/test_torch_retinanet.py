@@ -329,14 +329,22 @@ def test_inference_matches_jax(tiny):
     np.testing.assert_allclose(got["boxes"][same], want["boxes"][same], rtol=0, atol=1e-3)
 
 
-def test_retinanet_refuses_amp(tmp_path):
-    """``--amp`` is not ported for RetinaNet: its layers have no bf16 path,
-    and the train step says so by model name."""
-    from basedet_tpu_torch.engine.train_state import make_train_step
+def test_retinanet_trains_under_amp():
+    """``--amp`` (``TRAINER.AMP.ENABLE``) on tiny RetinaNet: one train step
+    under the bf16 policy with finite losses and f32 parameters, the IoU
+    through the wrapper once (``tests/test_torch_amp_families.py`` holds the
+    losses to the JAX package's)."""
+    from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
+    from basedet_tpu_torch.layers import precision
     from basedet_tpu_torch.solver import DetSolver
 
     cfg = tiny_cfg()
     cfg.merge(["TRAINER.AMP.ENABLE", "True"])
-    port = build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="RetinaNet"):
-        make_train_step(port, DetSolver.build(cfg), cfg)
+    port = build_model(cfg, "cpu").train()
+    solver = DetSolver.build(cfg)
+    calls = box_iou_plain.calls
+    metrics = make_train_step(port, solver, cfg)(TrainState(port, solver), make_batch())
+    assert box_iou_plain.calls - calls == 1
+    assert set(metrics) == LOSSES | {"lr"} and all(np.isfinite(float(v)) for v in metrics.values())
+    assert precision.compute_dtype() is None
+    assert all(p.dtype == torch.float32 for p in port.module.parameters())
