@@ -2,10 +2,14 @@
 datasets that ``DATA.TRAIN.name`` and ``DATA.TEST.name`` name
 (``data/datasets/info.py``), or the synthetic ``dummy`` batches.
 
-The global batch is ``MODEL.BATCHSIZE`` times the world size, which is
-``torch.distributed``'s where it is initialised and 1 otherwise. On a CUDA
-``device`` the batches leave the loader page-locked (a pinned
-``CanvasRing``) and cross to the card without blocking the host.
+The global batch is ``MODEL.BATCHSIZE`` times the world size, which is the
+process group's (``basedet_tpu_torch/parallel``) and 1 without one. The
+sequence of global batches does not depend on the world size; a train
+loader yields the rank's ``MODEL.BATCHSIZE`` rows of each (rank r: rows
+r·B … (r+1)·B−1): the synthetic loader makes the global batch and slices it,
+the COCO loaders decode the rank's images only. On a CUDA ``device`` the
+batches leave the loader page-locked (a pinned ``CanvasRing``) and cross to
+the card without blocking the host.
 """
 from __future__ import annotations
 
@@ -15,13 +19,9 @@ import numpy as np
 import torch
 
 from basedet_tpu_torch.data.collators.pack import CanvasRing
+from basedet_tpu_torch.parallel import shard_batch, world_size
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.registry import registers
-
-
-def world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _ring(device) -> CanvasRing:
@@ -29,7 +29,8 @@ def _ring(device) -> CanvasRing:
 
 
 def _dummy_stream(cfg, image_size) -> Iterator[Dict[str, np.ndarray]]:
-    """Synthetic batches without end; an epoch that yields none raises."""
+    """The rank's rows of synthetic global batches, without end; an epoch
+    that yields none raises."""
     loader = DummyLoader(
         batch_size=cfg.MODEL.BATCHSIZE * world_size(),
         image_size=tuple(image_size),
@@ -40,7 +41,7 @@ def _dummy_stream(cfg, image_size) -> Iterator[Dict[str, np.ndarray]]:
         produced = False
         for batch in loader:
             produced = True
-            yield batch
+            yield shard_batch(batch)
         if not produced:
             raise RuntimeError("dataloader epoch produced no batches")
 

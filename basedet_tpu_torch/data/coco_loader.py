@@ -9,8 +9,14 @@ DataLoader re-raises it; the loader then stops its workers and yields no
 more); a pass over the sampler that yields no batch raises instead of
 spinning; ``close()`` stops the workers.
 
+Under a process group each rank's loader walks the global batch sampler and
+decodes its own rows of each batch (``RankBatchSampler``). A rank pads its
+rows to their own size (or bucket), where the JAX package pads the global
+batch to one: with images of varying size the padded shapes can differ.
+
 Workers are forked, persist across passes, and each seeds its copy of the
-dataset's ``DataRNG`` from (seed, pass, worker id) in ``worker_init_fn``,
+dataset's ``DataRNG`` from (seed, pass, stream) in ``worker_init_fn``, the
+stream being the worker id counted over every rank's workers,
 with one intra-op thread. They touch no CUDA: their batches come back through
 shared memory and are pinned in the main process (``pin_batch`` into the
 loader's ``CanvasRing``). ``close()`` stops them; a later batch forks new
@@ -33,10 +39,12 @@ from basedet_tpu_torch.data.datasets.mosaic_dataset import MosaicDataset
 from basedet_tpu_torch.data.samplers.samplers import (
     AspectRatioGroupSampler,
     InferenceSampler,
+    RankBatchSampler,
     ShuffledBatchSampler,
 )
 from basedet_tpu_torch.data.transforms.transforms import DataRNG, build_transforms
 from basedet_tpu_torch.data.transforms.yolox_transform import TrainTransform
+from basedet_tpu_torch.parallel import rank, world_size
 
 
 def stream_seed(seed: int, epoch: int, worker: int) -> int:
@@ -45,11 +53,12 @@ def stream_seed(seed: int, epoch: int, worker: int) -> int:
     return int(np.random.SeedSequence([seed, epoch, worker]).generate_state(1)[0])
 
 
-def seed_worker(seed: int, epoch: int, worker_id: int) -> None:
+def seed_worker(seed: int, epoch: int, first_stream: int, worker_id: int) -> None:
     """``worker_init_fn``: one intra-op thread, and the worker's copy of the
-    dataset's ``DataRNG`` seeded from (seed, epoch, worker id)."""
+    dataset's ``DataRNG`` seeded from (seed, epoch, first_stream + worker
+    id)."""
     torch.set_num_threads(1)
-    torch.utils.data.get_worker_info().dataset.rng.seed(stream_seed(seed, epoch, worker_id))
+    torch.utils.data.get_worker_info().dataset.rng.seed(stream_seed(seed, epoch, first_stream + worker_id))
 
 
 class TransformedDataset:
@@ -72,16 +81,18 @@ class TrainLoader:
     """An endless stream of collated batches, pass after pass over
     ``batch_sampler``. ``dataset`` carries a ``DataRNG`` as ``.rng``; with
     no workers the main process reseeds it at each pass. With a pinned
-    ``ring`` every batch leaves page-locked."""
+    ``ring`` every batch leaves page-locked. ``first_stream`` (the rank
+    times its workers) keeps two ranks' streams apart."""
 
     def __init__(self, dataset, batch_sampler, collator, num_workers: int = 0, seed: int = 42,
-                 ring: Optional[CanvasRing] = None):
+                 ring: Optional[CanvasRing] = None, first_stream: int = 0):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.collator = collator
         self.num_workers = num_workers
         self.seed = seed
         self.ring = ring
+        self.first_stream = first_stream
         self.epoch = 0  # passes started
         self.forks = 0  # times the workers were forked
         self._loader: Optional[DataLoader] = None
@@ -95,13 +106,14 @@ class TrainLoader:
 
     def _start_pass(self):
         if self.num_workers == 0:
-            self.dataset.rng.seed(stream_seed(self.seed, self.epoch, 0))
+            self.dataset.rng.seed(stream_seed(self.seed, self.epoch, self.first_stream))
         if self._loader is None:
             self.forks += self.num_workers > 0
             self._loader = DataLoader(
                 self.dataset, batch_sampler=self.batch_sampler, collate_fn=self.collator,
                 num_workers=self.num_workers, persistent_workers=self.num_workers > 0,
-                worker_init_fn=functools.partial(seed_worker, self.seed, self.epoch) if self.num_workers else None,
+                worker_init_fn=(functools.partial(seed_worker, self.seed, self.epoch, self.first_stream)
+                                if self.num_workers else None),
             )
         self.epoch += 1
         self._produced = False
@@ -144,6 +156,13 @@ def _seed(cfg) -> int:
     return cfg.get("SEED", 42)
 
 
+def _train_loader(cfg, dataset, batch_sampler, collator, ring) -> TrainLoader:
+    """The rank's loader over ``batch_sampler``'s global batches."""
+    workers = cfg.DATA.get("NUM_WORKERS", 0)
+    return TrainLoader(dataset, RankBatchSampler(batch_sampler, rank(), world_size()), collator,
+                       num_workers=workers, seed=_seed(cfg), ring=ring, first_stream=rank() * max(1, workers))
+
+
 def build_coco_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] = None,
                             with_mask: bool = False) -> TrainLoader:
     """COCO-format ``DATA.TRAIN.name`` → ``AUG.TRAIN_VALUE`` transforms →
@@ -156,8 +175,8 @@ def build_coco_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] =
     collator = DetectionPadCollator(max_instances=cfg.DATA.get("MAX_INSTANCES", 100),
                                     size_buckets=cfg.DATA.get("SIZE_BUCKETS", None), ring=ring,
                                     with_mask=with_mask)
-    return TrainLoader(TransformedDataset(dataset, build_transforms(cfg.AUG.TRAIN_VALUE)), sampler, collator,
-                       num_workers=cfg.DATA.get("NUM_WORKERS", 0), seed=_seed(cfg), ring=ring)
+    return _train_loader(cfg, TransformedDataset(dataset, build_transforms(cfg.AUG.TRAIN_VALUE)), sampler,
+                         collator, ring)
 
 
 def build_yolox_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] = None) -> TrainLoader:
@@ -174,9 +193,8 @@ def build_yolox_train_loader(cfg, global_batch: int, ring: Optional[CanvasRing] 
         mixup_scale=tuple(setting.MIXUP_SCALE), shear=setting.SHEAR, enable_mixup=setting.ENABLE_MIXUP,
         mosaic_prob=setting.MOSAIC_PROB, mixup_prob=setting.MIXUP_PROB,
     )
-    loader = TrainLoader(mosaic, ShuffledBatchSampler(len(mosaic), global_batch, seed=_seed(cfg)),
-                         DetectionPadCollator(max_instances=cfg.DATA.get("MAX_INSTANCES", 100), ring=ring),
-                         num_workers=cfg.DATA.get("NUM_WORKERS", 0), seed=_seed(cfg), ring=ring)
+    loader = _train_loader(cfg, mosaic, ShuffledBatchSampler(len(mosaic), global_batch, seed=_seed(cfg)),
+                           DetectionPadCollator(max_instances=cfg.DATA.get("MAX_INSTANCES", 100), ring=ring), ring)
     loader.mosaic_dataset = mosaic
     return loader
 

@@ -1,3 +1,3 @@
-from .samplers import AspectRatioGroupSampler, InferenceSampler, ShuffledBatchSampler
+from .samplers import AspectRatioGroupSampler, InferenceSampler, RankBatchSampler, ShuffledBatchSampler
 
-__all__ = ["AspectRatioGroupSampler", "InferenceSampler", "ShuffledBatchSampler"]
+__all__ = ["AspectRatioGroupSampler", "InferenceSampler", "RankBatchSampler", "ShuffledBatchSampler"]

@@ -1,8 +1,8 @@
 """Samplers (counterpart of ``basedet_tpu/data/samplers/samplers.py``):
-aspect-ratio grouped batches, YOLOX's shuffled epoch batches and the
-contiguous inference shard. Each pass draws from a generator seeded by the
-sampler's seed and its pass count, so a seed gives the same batches every
-run."""
+aspect-ratio grouped batches, YOLOX's shuffled epoch batches, the rank's
+rows of either, and the contiguous inference shard. Each pass draws from a
+generator seeded by the sampler's seed and its pass count, so a seed gives
+the same batches every run."""
 from __future__ import annotations
 
 import random
@@ -63,6 +63,27 @@ class ShuffledBatchSampler:
 
     def __len__(self) -> int:
         return self.size // self.batch_size
+
+
+class RankBatchSampler:
+    """The rank's rows of each global batch of ``batch_sampler``: indices
+    ``[rank·n, (rank + 1)·n)`` of a batch of ``n·world_size``. The global
+    sequence is the wrapped sampler's at any world size."""
+
+    def __init__(self, batch_sampler, rank: int = 0, world_size: int = 1):
+        if batch_sampler.batch_size % world_size:
+            raise ValueError(f"a global batch of {batch_sampler.batch_size} does not split over {world_size} ranks")
+        self.batch_sampler = batch_sampler
+        self.batch_size = batch_sampler.batch_size // world_size
+        self.rank = rank
+
+    def __iter__(self) -> Iterator[List[int]]:
+        n = self.batch_size
+        for batch in self.batch_sampler:
+            yield batch[self.rank * n:(self.rank + 1) * n]
+
+    def __len__(self) -> int:
+        return len(self.batch_sampler)
 
 
 class InferenceSampler:

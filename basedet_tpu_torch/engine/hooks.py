@@ -1,7 +1,12 @@
 """Training hooks (counterpart of ``basedet_tpu/engine/hooks.py``): host code
 run between steps. Ported: logging, the LR hook, checkpoints, resume and
 evaluation. TensorBoard and orbax checkpoints are not ported;
-``engine/build.py`` refuses the configs that ask for them."""
+``engine/build.py`` refuses the configs that ask for them.
+
+Under a process group, rank 0 alone writes the checkpoints and runs the
+evaluation, over the whole split, as the JAX package's one process does; the
+other ranks wait for it at a barrier. Every rank resumes from the same file,
+then takes rank 0's state."""
 from __future__ import annotations
 
 import datetime
@@ -11,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from basedet_tpu_torch import parallel
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.registry import registers
 
@@ -88,6 +94,11 @@ class CheckpointHook(BaseHook):
         self.save_period = save_period
 
     def _save(self, name: str):
+        if parallel.is_main_process():
+            self._write(name)
+        parallel.barrier()
+
+    def _write(self, name: str):
         t = self.trainer
         os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, name)
@@ -109,10 +120,12 @@ class CheckpointHook(BaseHook):
 
     def after_train(self):
         t = self.trainer
-        os.makedirs(self.save_dir, exist_ok=True)
-        path = os.path.join(self.save_dir, "dumped_model.pt")
-        torch.save(t.state.variables(t.model.module, ema=t.ema_enabled), path)
-        logger.info(f"dumped {'EMA ' if t.ema_enabled else ''}weights to {path}")
+        if parallel.is_main_process():
+            os.makedirs(self.save_dir, exist_ok=True)
+            path = os.path.join(self.save_dir, "dumped_model.pt")
+            torch.save(t.state.variables(t.model.module, ema=t.ema_enabled), path)
+            logger.info(f"dumped {'EMA ' if t.ema_enabled else ''}weights to {path}")
+        parallel.barrier()
 
 
 @registers.hooks.register()
@@ -120,7 +133,9 @@ class ResumeHook(BaseHook):
     """Before training, restore ``save_dir/latest.pt`` as ``CheckpointHook``
     wrote it: the module's parameters and buffers, the optimizer, the EMA
     parameters, the step and the epoch; training goes on at the epoch after
-    it. The config's MAX_EPOCH and iterations per epoch stay in force."""
+    it. The config's MAX_EPOCH and iterations per epoch stay in force. Every
+    rank reads the file once rank 0 has written it, then takes rank 0's
+    parameters, buffers and EMA parameters."""
 
     def __init__(self, save_dir: str, enable: bool = True):
         self.save_dir = save_dir
@@ -129,6 +144,7 @@ class ResumeHook(BaseHook):
     def before_train(self):
         if not self.enable:
             return
+        parallel.barrier()
         path = os.path.join(self.save_dir, "latest.pt")
         if not os.path.exists(path):
             logger.info(f"no checkpoint at {path}; training from scratch")
@@ -143,6 +159,8 @@ class ResumeHook(BaseHook):
             with torch.no_grad():
                 for name, value in ckpt["ema"].items():
                     t.state.ema_params[name].copy_(value)
+        parallel.broadcast_module(t.model.module)
+        parallel.broadcast_tensors((t.state.ema_params or {}).values())
         t.state.step = ckpt["step"]
         t.progress.epoch = ckpt["progress"]["epoch"]
         t.progress.inner_iter = ckpt["progress"]["inner_iter"]
@@ -155,16 +173,22 @@ class EvalHook(BaseHook):
     """Evaluate on the trainer's test loader every ``eval_interval`` epochs
     (the last excepted) with the live weights, and after training with the
     live weights, then the EMA weights where the trainer keeps them. Results
-    land in ``trainer.eval_results["model"]`` and ``["EMA"]``. Without an
-    evaluator (none was asked for) it does nothing."""
+    land in ``trainer.eval_results["model"]`` and ``["EMA"]`` (rank 0's
+    alone under a process group). Without an evaluator (none was asked for)
+    it does nothing."""
 
     def __init__(self, eval_interval: Optional[int] = None):
         self.eval_interval = eval_interval
 
     def _run_eval(self, ema: bool):
-        t = self.trainer
-        if t.evaluator is None:
+        if self.trainer.evaluator is None:
             return
+        if parallel.is_main_process():
+            self._evaluate(ema)
+        parallel.barrier()
+
+    def _evaluate(self, ema: bool):
+        t = self.trainer
         module = t.model.module
         live = None
         if ema:

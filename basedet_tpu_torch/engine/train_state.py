@@ -12,6 +12,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from basedet_tpu_torch import parallel
 from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.precision import policy_from_cfg, precision_policy
 from basedet_tpu_torch.layers.remat import mode_from_cfg, remat_policy
@@ -65,8 +66,18 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     A model that samples (``draws_per_step``: Faster R-CNN's anchors and
     RoIs, DETR's dropout) is handed ``cfg.SEED`` (42 unless set) and the step, from which it
     seeds its draw, as the JAX package folds the step into its key: a step's
-    draw does not depend on what ran before it."""
+    draw does not depend on what ran before it.
+
+    Under a process group (``basedet_tpu_torch/parallel``) each rank steps its
+    own rows of the global batch: the gradients are averaged over ranks
+    (``parallel.all_reduce_grads``) after the backward and before the
+    clipping, so every rank takes the same update; the metrics stay the
+    rank's own (the trainer averages them at its log interval). The fused
+    CSP chain is refused there."""
     dtype, fused_bn = policy_from_cfg(cfg)
+    if fused_bn and parallel.is_active():
+        raise NotImplementedError("TRAINER.AMP.FUSED_BN takes the BN statistics inside the fused kernels over one "
+                                  "rank's rows; it is not ported to data-parallel training")
     remat = mode_from_cfg(cfg)
     ema_cfg = cfg.TRAINER.EMA
     use_ema = bool(ema_cfg.get("ENABLE", False))
@@ -84,6 +95,7 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
                 total, loss_dict = model.get_losses(batch, **randomness)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
+        parallel.all_reduce_grads(params)
         solver.clip_grads(params)
         lr = solver.lr_schedule(state.step)
         for group in state.optimizer.param_groups:

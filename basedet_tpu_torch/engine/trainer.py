@@ -1,5 +1,9 @@
 """DetTrainer: the training loop around the train step (counterpart of
-``basedet_tpu/engine/trainer.py``). One device, world size 1, no mesh.
+``basedet_tpu/engine/trainer.py``). The world size is the process group's
+(``basedet_tpu_torch/parallel``; 1 without one): each rank steps
+``MODEL.BATCHSIZE`` rows of a global batch of ``MODEL.BATCHSIZE`` times the
+world size, from the same state, which ``init_state`` broadcasts from rank
+0; the logged losses are averaged over ranks.
 
 Where ``TEST.EVAL_EPOCH_INTERVAL`` is set or ``DATA.TEST.name`` is not
 ``dummy``, the trainer builds the evaluator and the test loader for
@@ -10,6 +14,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+from basedet_tpu_torch import parallel
 from basedet_tpu_torch.data.build import build_test_dataloader
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.meters import MeterBuffer
@@ -28,12 +33,13 @@ class DetTrainer:
         self.solver = solver
         self.log_interval = cfg.GLOBAL.get("LOG_INTERVAL", 20)
         self.meters = MeterBuffer(window_size=self.log_interval)
-        self.world_size = 1
-        self.global_batch_size = cfg.MODEL.BATCHSIZE
-        self.progress = Progress(max_epoch=cfg.SOLVER.MAX_EPOCH, max_iter=iters_per_epoch(cfg))
+        self.world_size = parallel.world_size()
+        self.global_batch_size = cfg.MODEL.BATCHSIZE * self.world_size
+        self.progress = Progress(max_epoch=cfg.SOLVER.MAX_EPOCH, max_iter=iters_per_epoch(cfg, self.world_size))
         self.ema_enabled = bool(cfg.TRAINER.EMA.get("ENABLE", False))
         self.train_step = make_train_step(model, solver, cfg)
-        # models may map batches per step (YOLOX's multiscale resize)
+        # models may map batches per step (YOLOX's multiscale resize, from
+        # the step alone, so every rank resizes alike)
         self.batch_mapper = getattr(model, "train_batch_mapper", None)
         self.state: Optional[TrainState] = None
         self._last_fence = None
@@ -52,6 +58,7 @@ class DetTrainer:
         if weights:
             logger.info(f"loading weights from {weights}")
             self.model.load_weights(weights)
+        parallel.broadcast_module(self.model.module)
         self.state = TrainState(self.model, self.solver, ema=self.ema_enabled)
 
     def train(self):
@@ -90,7 +97,7 @@ class DetTrainer:
         metrics = self.train_step(self.state, batch)
         # reading the losses waits for the device: only at the log interval
         if self.progress.current_iter % self.log_interval == 0:
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(v) for k, v in parallel.reduce_metrics(metrics).items()}
             t2 = time.perf_counter()
             if self._last_fence is not None:
                 self.meters.update(train_time=(t2 - self._last_fence) / self.log_interval)

@@ -4,7 +4,10 @@
 generator, so the keep masks are drawn with ``torch.rand(...,
 generator=...)``: an element is kept where its uniform draw is below the keep
 probability, as ``jax.random.bernoulli`` decides, and a kept element is
-divided by that probability."""
+divided by that probability. A mask over the batch (leading dimension) is
+drawn at the global batch's shape, of which the rank takes its rows
+(``parallel.shard_rows``), so a rank draws its images' rows of the world
+size 1 mask."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -12,20 +15,28 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from basedet_tpu_torch.parallel import shard_rows, world_size
+
 
 def keep_mask(shape: Sequence[int], keep_prob: float, generator: torch.Generator, device) -> torch.Tensor:
     """Bernoulli(``keep_prob``) of ``shape`` from ``generator``: bool, True = kept."""
     return torch.rand(tuple(shape), generator=generator, device=device) < keep_prob
 
 
+def batch_keep_mask(shape: Sequence[int], keep_prob: float, generator: torch.Generator, device) -> torch.Tensor:
+    """``keep_mask`` of a per-rank ``shape`` whose leading dimension is the
+    batch: the rank's rows of the mask of the global batch."""
+    return shard_rows(keep_mask((shape[0] * world_size(), *shape[1:]), keep_prob, generator, device))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout(rate)`` in train mode: ``x / keep`` where kept, 0
-    elsewhere. ``generator`` None means deterministic (eval mode); a rate of
-    0 returns ``x``."""
+    elsewhere, for ``x`` (batch, ...). ``generator`` None means deterministic
+    (eval mode); a rate of 0 returns ``x``."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    return torch.where(keep_mask(x.shape, keep, generator, x.device), x / keep, 0.0)
+    return torch.where(batch_keep_mask(x.shape, keep, generator, x.device), x / keep, 0.0)
 
 
 def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> torch.Tensor:
@@ -34,7 +45,7 @@ def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> 
     if drop_prob <= 0.0:
         return x
     keep = 1.0 - drop_prob
-    mask = keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, generator, x.device)
+    mask = batch_keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, generator, x.device)
     return x / keep * mask
 
 

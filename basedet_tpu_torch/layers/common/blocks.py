@@ -1,7 +1,12 @@
-"""Activations and norms by name, the frozen BatchNorm and flax's train-mode
-BatchNorm (counterparts of ``get_activation``, ``get_norm``,
-``FrozenBatchNorm`` and ``nn.BatchNorm`` as ``basedet_tpu/layers/common/blocks.py``
-uses them)."""
+"""Activations and norms by name, the frozen BatchNorm, flax's train-mode
+BatchNorm and GroupNorm (counterparts of ``get_activation``, ``get_norm``,
+``FrozenBatchNorm``, ``nn.BatchNorm`` and ``nn.GroupNorm`` as
+``basedet_tpu/layers/common/blocks.py`` uses them).
+
+Under a process group (``basedet_tpu_torch/parallel``) a train-mode BN
+reduces its statistics over every rank's rows (``CrossRankBatchNorm``), as
+flax's ``nn.BatchNorm`` does over a batch that pjit shards: ``BN`` and
+``SyncBN`` alike."""
 from __future__ import annotations
 
 import functools
@@ -11,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from basedet_tpu_torch import parallel
 from basedet_tpu_torch.layers import precision, remat
 
 _ACTIVATIONS: dict = {
@@ -54,6 +60,46 @@ class FrozenBatchNorm(nn.Module):
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
+class CrossRankBatchNorm(torch.autograd.Function):
+    """Train-mode BN of an f32 NCHW ``x`` over the rows of every rank: flax's
+    statistics (mean and biased variance as E[x²] - E[x]², clamped at 0) and
+    normalisation ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
+
+    Forward: one all-reduce of [Σx, Σx², n] (float64, so the count is exact).
+    Backward: one all-reduce of [Σdy, Σdy·x̂], from which dx is the gradient
+    of every rank's loss together; ``weight`` and ``bias`` get this rank's
+    own Σdy·x̂ and Σdy, which ``parallel.all_reduce_grads`` then averages
+    with every other parameter's gradient. Returns (y, mean, var); the last
+    two, for the running update, carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=torch.float64, device=x.device)
+        sums = parallel.all_reduce_sum_(torch.cat([x.sum((0, 2, 3)).double(), (x * x).sum((0, 2, 3)).double(),
+                                                   count]))
+        n = sums[-1]
+        mean = (sums[:c] / n).float()
+        var = torch.clamp_min((sums[c:2 * c] / n).float() - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (x - mean[:, None, None]) * (invstd * weight)[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, n.float())
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        xhat = (x - mean[:, None, None]) * invstd[:, None, None]
+        local = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        dbias, dweight = local[:c].clone(), local[c:].clone()
+        sums = parallel.all_reduce_sum_(local)
+        dx = (weight * invstd)[:, None, None] * (dy - (sums[:c] / n)[:, None, None]
+                                                - xhat * (sums[c:] / n)[:, None, None])
+        return dx, dweight, dbias, None
+
+
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates the running statistics as
     flax's ``nn.BatchNorm`` does: ``r = (1 - momentum) * r + momentum * stat``
@@ -63,10 +109,18 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
     Under a compute dtype it is flax's ``nn.BatchNorm(dtype=...)`` instead:
     statistics reduced in f32 as E[x²] - E[x]² (``use_fast_variance``), the
-    normalisation in f32 in flax's order, the output in the compute dtype."""
+    normalisation in f32 in flax's order, the output in the compute dtype.
+
+    In train mode under a process group, both take their statistics over
+    every rank's rows (``CrossRankBatchNorm``, in f32; the output in the
+    compute dtype where there is one); without one, the paths above."""
 
     def forward(self, x):
         dt = precision.compute_dtype()
+        if self.training and parallel.is_active():
+            y, mean, var = CrossRankBatchNorm.apply(x.float(), self.weight, self.bias, self.eps)
+            self.update_running(mean, var)
+            return y.to(dt or x.dtype)
         if dt is not None:
             return self._forward_policy(x, dt)
         if not self.training:
@@ -102,16 +156,39 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
 
 
+class FlaxGroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(num_groups, epsilon, dtype=compute dtype)``:
+    torch's ``group_norm`` in f32; under a compute dtype the statistics and
+    the normalisation in f32 in flax's order (E[x²] - E[x]²), the output in
+    the compute dtype."""
+
+    def forward(self, x):
+        dt = precision.compute_dtype()
+        if dt is None:
+            return super().forward(x)
+        b, c = x.shape[:2]
+        xg = x.float().reshape(b, self.num_groups, -1)
+        mean = xg.mean(-1, keepdim=True)
+        var = torch.clamp_min((xg * xg).mean(-1, keepdim=True) - mean * mean, 0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(dt)
+
 
 def get_norm(name: Optional[str]) -> Optional[Callable[..., nn.Module]]:
     """A norm constructor ``(channels, device=None) -> module`` by name, or
-    None for no norm. The port has only what its models use: ``BN`` is
-    flax's ``nn.BatchNorm`` with the JAX package's defaults for it (eps 1e-5,
-    flax momentum 0.9, which torch writes 0.1), ``FrozenBN`` the frozen one."""
+    None for no norm. ``BN`` and ``SyncBN`` are flax's ``nn.BatchNorm`` with
+    the JAX package's defaults for it (eps 1e-5, flax momentum 0.9, which
+    torch writes 0.1), one module: its statistics are over every rank under a
+    process group, as the JAX package's are over the sharded batch for both.
+    ``FrozenBN`` is the frozen one; ``GN`` flax's ``nn.GroupNorm(32,
+    epsilon=1e-5)`` (the point head's GroupNorm keeps flax's default eps,
+    1e-6)."""
     if not name:
         return None
-    if name == "BN":
+    if name in ("BN", "SyncBN"):
         return functools.partial(FlaxBatchNorm2d, eps=1e-5, momentum=0.1)
     if name == "FrozenBN":
         return FrozenBatchNorm
+    if name == "GN":
+        return lambda channels, device=None: FlaxGroupNorm(32, channels, eps=1e-5, device=device)
     raise NotImplementedError(f"norm {name!r} is not ported to basedet_tpu_torch yet")

@@ -18,6 +18,7 @@ from basedet_tpu_torch.layers.common.sampling import sample_mask
 from basedet_tpu_torch.layers.losses import smooth_l1_loss
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import BoxCoder
 
 
@@ -111,8 +112,9 @@ def rcnn_losses(
     """logits (N, C + 1), deltas (N, C, 4), labels (N,) with -1 for unfilled
     rows, targets (N, 4), weight (N,) → (softmax cross-entropy, box L1 on the
     foreground's own class), each summed over all rows of the batch and
-    divided by the sum of the weights (at least 1)."""
-    num = weight.sum().clamp(min=1.0)
+    divided by the sum of the weights over the global batch (at least 1; this
+    rank's share of it, ``parallel.global_normaliser``)."""
+    num = global_normaliser(weight.sum(), 1.0)
     log_probs = F.log_softmax(logits.float(), dim=-1)
     nll = -log_probs.gather(1, labels.clamp(min=0)[:, None])[:, 0]
     cls_loss = (nll * weight).sum() / num

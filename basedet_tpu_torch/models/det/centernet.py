@@ -32,6 +32,7 @@ from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.head.center_head import CenterHead, CenternetDeconv
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
+from basedet_tpu_torch.parallel import global_normaliser, global_sum, world_size
 from basedet_tpu_torch.structures import clip_boxes
 from basedet_tpu_torch.utils.registry import registers
 
@@ -102,15 +103,18 @@ def centernet_targets(gt: torch.Tensor, num_valid: torch.Tensor, out_hw: Tuple[i
 
 def focal_loss(pred: torch.Tensor, gtmap: torch.Tensor) -> torch.Tensor:
     """CenterNet's modified focal loss over the (B, H, W, C) maps; a location
-    is positive where its target is exactly 1 (a gt centre: exp(0))."""
+    is positive where its target is exactly 1 (a gt centre: exp(0)); the
+    positives are counted over the global batch
+    (``parallel.global_normaliser``). With no positive on any rank the
+    positive term is 0 everywhere, so the loss is the JAX package's
+    ``-neg_loss`` branch."""
     p = torch.clamp(pred.float(), 1e-12, 1 - 1e-7)
     pos = (gtmap == 1.0).to(torch.float32)
     neg = 1.0 - pos
     neg_w = (1 - gtmap) ** 4
     pos_loss = torch.sum(torch.log(p) * (1 - p) ** 2 * pos)
     neg_loss = torch.sum(torch.log(1 - p) * p ** 2 * neg_w * neg)
-    num_pos = torch.sum(pos)
-    return torch.where(num_pos == 0, -neg_loss, -(pos_loss + neg_loss) / torch.clamp_min(num_pos, 1))
+    return -(pos_loss + neg_loss) / global_normaliser(torch.sum(pos), 1.0)
 
 
 def gather_at(featmap: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -184,7 +188,8 @@ class CenterNet(BaseNet):
             gt_boxes, img_info[:, 4].to(torch.int32), tuple(pred["cls"].shape[1:3]),
             self.num_classes, head.DOWN_SCALE, head.MIN_OVERLAP)
         loss_cls = focal_loss(pred["cls"], score_map)
-        norm = torch.sum(mask) * 2 + 1e-4
+        # over the global batch: each rank divides by its share, Σn / W (parallel.global_sum)
+        norm = (global_sum(torch.sum(mask)) * 2 + 1e-4) / world_size()
         loss_wh = torch.sum(torch.abs(gather_at(pred["wh"], index) - wh_t) * mask[..., None]) / norm
         loss_reg = torch.sum(torch.abs(gather_at(pred["reg"], index) - reg_t) * mask[..., None]) / norm
         w = self.cfg.MODEL.LOSS

@@ -44,6 +44,7 @@ from basedet_tpu_torch.layers.common.sampling import step_generator
 from basedet_tpu_torch.layers.losses import iou_loss
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import convert_boxes
 from basedet_tpu_torch.structures.box_ops import clip_boxes
 from basedet_tpu_torch.utils.registry import registers
@@ -148,7 +149,8 @@ class DETR(BaseNet):
     def targets(self, gt: torch.Tensor, info: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """gt (B, K, 5), im_info → normalised xcycwh boxes (B, K, 4), 0-based
         classes (B, K), validity (B, K) (within ``num_inst`` and of positive
-        size), and the valid count (at least 1)."""
+        size), and the valid count over the global batch (at least 1) as this
+        rank's share of it (``parallel.global_normaliser``)."""
         K = gt.shape[1]
         wh = torch.stack([info[:, 1], info[:, 0]], dim=-1)
         tgt_xyxy = gt[..., :4] / torch.cat([wh, wh], dim=-1)[:, None, :]
@@ -156,7 +158,7 @@ class DETR(BaseNet):
         tgt_cls = (gt[..., 4].to(torch.int32) - 1).clamp(0, self.num_classes - 1).long()
         tgt_valid = ((torch.arange(K, device=gt.device)[None] < info[:, 4:5].to(torch.int32))
                      & (tgt_xyxy[..., 2] > tgt_xyxy[..., 0]) & (tgt_xyxy[..., 3] > tgt_xyxy[..., 1]))
-        num_boxes = tgt_valid.sum().to(torch.float32).clamp(min=1.0)
+        num_boxes = global_normaliser(tgt_valid.sum(), 1.0)
         return tgt_boxes, tgt_cls, tgt_valid, num_boxes
 
     def matching_cost(self, logits: torch.Tensor, coords: torch.Tensor, tgt_boxes: torch.Tensor,
@@ -198,7 +200,7 @@ class DETR(BaseNet):
         weight = torch.cat([torch.ones(C, device=owner.device), torch.full((1,), float(eos), device=owner.device)])
         nll = -torch.gather(F.log_softmax(logits_all, dim=-1), 3, target_classes[..., None])[..., 0]
         w = weight[target_classes]
-        loss_ce = (nll * w).sum(dim=(1, 2)) / w.sum(dim=(1, 2)).clamp(min=1e-12)
+        loss_ce = (nll * w).sum(dim=(1, 2)) / global_normaliser(w.sum(dim=(1, 2)), 1e-12)
         matched = torch.gather(coords_all, 2, safe_owner.clamp(0, Q - 1)[..., None].expand(L, B, K, 4))
         pair = pair.to(torch.float32)
         loss_bbox = ((matched - tgt_boxes).abs() * pair[..., None]).sum(dim=(1, 2, 3)) / num_boxes

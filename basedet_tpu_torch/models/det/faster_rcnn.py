@@ -47,6 +47,7 @@ from basedet_tpu_torch.models.det.rpn import (
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
 from basedet_tpu_torch.ops.roi_align_kernel import pool_rois_multilevel
 from basedet_tpu_torch.structures import BoxCoder
+from basedet_tpu_torch.parallel import shard_rows, world_size
 from basedet_tpu_torch.utils.registry import registers
 
 
@@ -109,6 +110,7 @@ class FasterRCNNModule(nn.Module):
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 normal(m.weight, math.sqrt(2.0 / (m.weight[0].numel())))
+        self.fpn.reset_norms()
         for m in list(self.rpn.modules()) + list(self.rcnn.modules()):
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 normal(m.weight, 0.001 if m is self.rcnn.pred_delta else 0.01)
@@ -204,14 +206,17 @@ class FasterRCNNModule(nn.Module):
         """The train branch: the four losses and their sum. The sampling
         noise is ``noise`` when given (as ``draw_sampling_noise`` returns it
         for this batch's anchors and its proposals plus gt rows), else drawn
-        on the image's device from (seed, step)."""
+        on the image's device from (seed, step), at the global batch's shape,
+        of which this rank takes its rows (``parallel.shard_rows``): a rank's
+        noise is its images' rows of the world-size-1 draw."""
         num_gt = img_info[:, 4].to(torch.int64)
         feats = self.features(image)
         rpn_out = self.rpn_head(feats)
         if noise is None:
             noise = draw_sampling_noise(
-                seed, step, image.shape[0], sum(x.shape[1] for x in rpn_out[0]),
+                seed, step, image.shape[0] * world_size(), sum(x.shape[1] for x in rpn_out[0]),
                 self.rpn_cfg.TRAIN_POST_NMS_TOPK + gt_boxes.shape[1], image.device)
+            noise = {k: shard_rows(v) for k, v in noise.items()}
         labels, offsets = self.rpn_targets(feats, gt_boxes, num_gt, noise["rpn_pos"], noise["rpn_neg"])
         rpn_cls, rpn_reg = self.rpn_loss(rpn_out, labels, offsets)
         proposals, valid = self.proposals(feats, img_info, train=True, rpn_out=rpn_out)

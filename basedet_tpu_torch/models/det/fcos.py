@@ -42,6 +42,7 @@ from basedet_tpu_torch.layers.losses import binary_cross_entropy, iou_loss, sigm
 from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.det.retinanet import RetinaNetModule, _flatten_level
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import PointCoder
 from basedet_tpu_torch.utils.registry import registers
 
@@ -156,13 +157,13 @@ class FCOS(BaseNet):
         """(B, R, ·) head outputs of every level and their targets → focal,
         centerness-weighted IoU and centerness losses."""
         fg = labels > 0
-        num_fg = fg.sum().clamp(min=1).to(torch.float32)
+        num_fg = global_normaliser(fg.sum(), 1.0)
         weight = torch.where(fg, gt_ctr, 0.0)
         lcfg = self.cfg.MODEL.LOSSES
         cls_loss = (sigmoid_focal_loss(logits, self.one_hot(labels, logits.dtype), alpha=lcfg.FOCAL_LOSS_ALPHA,
                                        gamma=lcfg.FOCAL_LOSS_GAMMA)).sum() / num_fg
         reg_loss = ((iou_loss(offsets, gt_offsets, box_mode="ltrb", loss_type=lcfg.IOU_LOSS_TYPE) * weight).sum()
-                    / weight.sum().clamp(min=1e-6) * lcfg.REG_LOSS_WEIGHT)
+                    / global_normaliser(weight.sum(), 1e-6) * lcfg.REG_LOSS_WEIGHT)
         ctr_loss = (binary_cross_entropy(ctrness, gt_ctr, with_logits=True) * fg).sum() / num_fg
         total = cls_loss + reg_loss + ctr_loss
         return {"total_loss": total, "cls_loss": cls_loss, "reg_loss": reg_loss, "ctr_loss": ctr_loss}

@@ -30,6 +30,7 @@ from basedet_tpu_torch.layers.losses import smooth_l1_loss
 from basedet_tpu_torch.models.det.retinanet import RetinaNet
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.utils.registry import registers
 
 
@@ -90,11 +91,13 @@ class FreeAnchor(RetinaNet):
         w = w / w.sum(-1, keepdim=True)
         pos_losses = -_safelog((w * bag).sum(-1)) * a["gt_valid"]
 
-        num_fg = num_valid.sum().to(torch.float32).clamp(min=1.0)
+        # the gt count over the global batch, as this rank's share; at least 1, so the JAX package's
+        # floor of num_fg · bag_size at 1 never acts
+        num_fg = global_normaliser(num_valid.sum(), 1.0)
         pos_loss = pos_losses.sum() / num_fg * alpha
         neg_scores = scores * (1.0 - a["box_prob"])
         neg_loss = ((neg_scores ** gamma * -_safelog(1.0 - neg_scores)).sum()
-                    / (num_fg * bag_size).clamp(min=1.0) * (1 - alpha))
+                    / (num_fg * bag_size) * (1 - alpha))
         total = pos_loss + neg_loss
         return {"total_loss": total, "pos_loss": pos_loss, "neg_loss": neg_loss}
 

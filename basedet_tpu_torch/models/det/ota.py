@@ -29,6 +29,7 @@ from basedet_tpu_torch.layers.common.matcher import SinkhornMatcher, topk_dynami
 from basedet_tpu_torch.layers.losses import binary_cross_entropy, iou_loss, sigmoid_focal_loss
 from basedet_tpu_torch.models.det.fcos import FCOS, in_centre_region
 from basedet_tpu_torch.ops.nms import gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.utils.registry import registers
 
 
@@ -100,7 +101,7 @@ class OTA(FCOS):
     def losses(self, logits: torch.Tensor, offsets: torch.Tensor, pred_ious: torch.Tensor, labels: torch.Tensor,
                gt_deltas: torch.Tensor, gt_ious: torch.Tensor) -> Dict[str, torch.Tensor]:
         fg = labels > 0
-        num_fg = fg.sum().clamp(min=1).to(torch.float32)
+        num_fg = global_normaliser(fg.sum(), 1.0)
         lcfg = self.cfg.MODEL.LOSSES
         loss_cls = sigmoid_focal_loss(logits, self.one_hot(labels, logits.dtype), alpha=lcfg.FOCAL_LOSS_ALPHA,
                                       gamma=lcfg.FOCAL_LOSS_GAMMA).sum() / num_fg

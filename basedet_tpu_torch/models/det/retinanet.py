@@ -44,6 +44,7 @@ from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import BoxCoder
 from basedet_tpu_torch.utils.registry import registers
 
@@ -89,7 +90,9 @@ class RetinaNetModule(nn.Module):
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, math.sqrt(2.0 / m.weight[0].numel()), generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+        self.fpn.reset_norms()
         self.head.init_weights(generator)
 
     def features(self, image: torch.Tensor) -> List[torch.Tensor]:
@@ -165,7 +168,7 @@ class RetinaNet(BaseNet):
         loss over the foreground, each over the batch's foreground count."""
         valid = labels >= 0
         fg = labels > 0
-        num_fg = fg.sum().clamp(min=1).to(torch.float32)
+        num_fg = global_normaliser(fg.sum(), 1.0)
         classes = torch.arange(1, self.num_classes + 1, device=labels.device)
         targets = ((labels[..., None] == classes) & fg[..., None]).to(logits.dtype)
         lcfg = self.cfg.MODEL.LOSSES

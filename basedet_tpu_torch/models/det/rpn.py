@@ -18,6 +18,7 @@ from basedet_tpu_torch.layers.common.sampling import sample_mask
 from basedet_tpu_torch.layers.losses import binary_cross_entropy, smooth_l1_loss
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, batched_nms_padded, gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import BoxCoder, clip_boxes, nonempty_mask
 
 
@@ -120,12 +121,13 @@ def rpn_losses(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B, R), offsets (B, R, 4), labels (B, R), gt_offsets (B, R, 4)
     → (objectness BCE, box L1), each summed over the batch and divided by the
-    batch's count of sampled anchors (at least 1). As in the JAX package, the
+    global batch's count of sampled anchors (at least 1; this rank's share of
+    it, ``parallel.global_normaliser``). As in the JAX package, the
     BCE runs in the logits' dtype (bf16 under the policy, the labels cast to
     it) and the box loss promotes against the f32 targets."""
     valid = labels >= 0
     fg = labels > 0
-    num_valid = valid.sum().clamp(min=1).to(torch.float32)
+    num_valid = global_normaliser(valid.sum(), 1.0)
     cls_loss = (binary_cross_entropy(logits, labels.to(logits.dtype), with_logits=True) * valid).sum() / num_valid
     reg_loss = (smooth_l1_loss(offsets, gt_offsets, smooth_l1_beta) * fg[..., None]).sum() / num_valid
     return cls_loss, reg_loss

@@ -28,6 +28,7 @@ from basedet_tpu_torch.models.base_net import BaseNet
 from basedet_tpu_torch.models.cls.csp_darknet import CSPDarknet
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
+from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import convert_boxes
 from basedet_tpu_torch.utils.registry import registers
 
@@ -213,7 +214,7 @@ class YOLOX(BaseNet):
         )
 
         matched = gather_rows(gt_boxes, matched_gt.long())  # (B, R, 5)
-        num_fg = fg_mask.sum().to(torch.float32).clamp(min=1.0)
+        num_fg = global_normaliser(fg_mask.sum(), 1.0)
 
         gt_xcycwh = convert_boxes(matched[..., :4], "xyxy", "xcycwh")
         loss_iou = (

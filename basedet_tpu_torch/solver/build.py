@@ -1,6 +1,8 @@
 """Solvers: config → optimizer, LR schedule and gradient clipping
-(counterpart of ``basedet_tpu/solver/build.py``). One device: the world size
-is 1. ``DefaultSolver`` (SGD, AdamW or Adam), ``DetSolver``, ``YOLOXSolver``
+(counterpart of ``basedet_tpu/solver/build.py``), at the world size the
+trainer gives (the process group's): it scales the LR (or, under
+``REDUCE_MODE`` SUM, the weight decay) and divides the iterations per epoch
+as the JAX package does at that device count. ``DefaultSolver`` (SGD, AdamW or Adam), ``DetSolver``, ``YOLOXSolver``
 and ``DetrSolver``, under ``MultiStepLR``, ``CosineLR`` or ``YoloxCosineLR``.
 
 optax's ``add_decayed_weights → trace(nesterov) → scale(-lr)`` is

@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from basedet_tpu_torch import parallel
 
 class Registry:
     """Name -> object map filled by the ``@registry.register()`` decorator."""
@@ -88,11 +89,12 @@ def build_evaluator(cfg):
 
 def build_trainer(cfg, device):
     """The ``cfg.TRAINER.NAME`` trainer around the config's model (on
-    ``device``), train loader (pinned for a CUDA ``device``), solver and hook
-    list."""
+    ``device``), train loader (pinned for a CUDA ``device``; the rank's rows
+    under a process group), solver (at the process group's world size) and
+    hook list."""
     all_register()
     model = build_model(cfg, device)
     dataloader = registers.dataloader.get(cfg.DATA.BUILDER_NAME).build(cfg, device)
-    solver = registers.solvers.get(cfg.SOLVER.BUILDER_NAME).build(cfg)
+    solver = registers.solvers.get(cfg.SOLVER.BUILDER_NAME).build(cfg, parallel.world_size())
     hooks = registers.hooks.get(cfg.HOOKS.BUILDER_NAME).build(cfg)
     return registers.trainers.get(cfg.TRAINER.NAME)(cfg, model, dataloader, solver, hooks)

@@ -28,7 +28,8 @@ The FCOS family's point head adds flax ``GroupNorm`` modules
 (``cls_gn_<i>``, ``bbox_gn_<i>``, and ``cls_gn_l<lv>_<i>``,
 ``bbox_gn_l<lv>_<i>`` per level): ``scale``/``bias`` → ``weight``/``bias`` of
 ``nn.GroupNorm``, no transpose; and its top-level ``scales`` parameter (one
-per level) keeps its name and shape.
+per level) keeps its name and shape. An FPN with ``GN`` holds flax's
+``GroupNorm_<i>`` under the same rule.
 
 RetinaNet's FPN top-block convs (``fpn_p6``, ``fpn_p7``) and its head, in
 either ``share_param`` form (``cls_subnet_<i>``, ``cls_score``, ... or
@@ -61,7 +62,7 @@ _BN = "BatchNorm_0"
 _BN_NAME = re.compile(r"BatchNorm_\d+")
 _TRANSPOSED = "up_sample"
 _FROZEN_BN = "FrozenBatchNorm_"
-_GN_NAME = re.compile(r"(cls|bbox)_gn(_l\d+)?_\d+")
+_GN_NAME = re.compile(r"(cls|bbox)_gn(_l\d+)?_\d+|GroupNorm_\d+")
 _LN_NAME = re.compile(r"norm\d+|encoder_norm|decoder_norm")
 _ATTENTION = ("self_attn", "cross_attn")
 _PROJ_IN = ("query", "key", "value")

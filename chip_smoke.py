@@ -287,9 +287,29 @@ Run from the root of the repository. Phases, each of which raises on failure:
      norm equal within 1e-5, peak memory, launches counted per pass: #10's
      calls lie outside every segment), then batch 16 with True (peak, step
      time; it must fit the card);
- 43. print the kernel report (ten kernels in six sources, the bf16
+ 43. data-parallel det_train at world size 1 over NCCL: ``python -m
+     torch.distributed.run --nproc-per-node 1`` runs this script as the
+     worker (``--dp-worker``), which drives det_train --multi-host on
+     full-width YOLOX-S, batch 8 of 640x640, 4 steps, f32; under the process
+     group the cross-rank BN and the gradient all-reduce run at world size 1
+     (their calls counted). Each step's losses against the plain det_train's
+     on the same batches (DP_LOSS_RTOLS by step; the state after the steps
+     reported), the step wall time beside the plain one, #2 and #10 once a
+     step, plain 0;
+ 44. two ranks sharing the card over gloo (``--nproc-per-node 2
+     --dist-backend gloo``): full-width YOLOX-S at 4 a rank against the plain
+     det_train at 8, Faster R-CNN R50-FPN at 1 a rank against 2, 2 steps
+     each: rank 0's parameters and BN buffers to rtol 1e-4, atol 1e-6 of the
+     plain run's (YOLOX-S: the update of its parameters and of its BN
+     buffers, each as a whole, to DP_UPDATE_RTOL: see there why), both
+     ranks' state_dicts
+     bit-equal, each step's losses by DP_LOSS_RTOLS, each kernel's launches
+     per rank, which gloo collectives take CUDA tensors; each rank writes its
+     results to a file under the phase's directory, which the phase reads;
+ 45. print the kernel report (ten kernels in six sources, the bf16
      RoIAlign variants apart; every kernel's launches path by path, the new
-     paths included), the card, and the result line.
+     paths and each data-parallel rank included), the card, and the result
+     line.
 """
 import argparse
 import concurrent.futures
@@ -388,35 +408,99 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, iters, warmup=2, attempts=3, names=()):
-    """Every device operation fn runs, from torch.profiler: (device ms per
-    call of fn, operations (kernels, memsets, copies) per call, {name: device
-    ms per call}). A profiler pass now and then reports no kernels at all (its
-    records arrive after the pass): a pass that reports nothing, or none of
-    the operations whose name contains one of ``names``, is repeated, up to
-    ``attempts`` times. A pass can also miss a launch or two (9 of 10 seen):
-    each operation counts as its mean time a launch times its launches a call
-    rounded to a whole number."""
-    from torch.profiler import ProfilerActivity, profile
+class ProfilerMiss(RuntimeError):
+    """torch.profiler reported none of the device operations asked for, pass after pass."""
 
-    for _ in range(warmup):
-        fn()
+
+# idle seconds inside a profiler window before and after the work: the profiler drops device records
+# whose timestamps, converted to the host's clock, fall outside its window, and on the card's machine
+# they land up to tens of ms off (scripts/profiler_window_probe.py counts what an unpadded pass misses)
+PROFILER_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def padded_profile(activities, pad=PROFILER_PAD_S, **kwargs):
+    """torch.profiler over the block, the block's device work synchronised and
+    ``pad`` seconds of idle before and after it inside the window."""
+    from torch.profiler import profile
+
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities, **kwargs) as prof:
+        time.sleep(pad)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad)
+
+
+def profiled(fn, iters, read, what="any device operation", attempts=6):
+    """read(prof) of the first profiler pass over ``iters`` calls of fn (CUDA
+    activity, a window padded on both sides by ``padded_profile``) for which
+    read does not return None. A pass it rejects is repeated with twice the
+    padding, up to ``attempts`` times, each retry noted on stderr."""
+    from torch.profiler import ProfilerActivity
+
+    for attempt in range(attempts):
+        if attempt:
+            print(f"chip_smoke: profiler pass {attempt} of {attempts} missed {what}; retrying", file=sys.stderr,
+                  flush=True)
+        with padded_profile([ProfilerActivity.CUDA], PROFILER_PAD_S * 2 ** attempt) as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+        result = read(prof)
+        if result is not None:
+            return result
+    raise ProfilerMiss(f"chip_smoke: the profiler missed {what} in {attempts} passes")
+
+
+def device_kernels(fn, iters, warmup=2, names=()):
+    """Every device operation fn runs, from torch.profiler (``profiled``):
+    (device ms per call of fn, operations (kernels, memsets, copies) per call,
+    {name: device ms per call}); a pass must show some operation, and one
+    whose name contains each of ``names``. A pass can also miss a launch or
+    two (9 of 10 seen): each operation counts as its mean time a launch times
+    its launches a call rounded to a whole number."""
+
+    def read(prof):
         averages = prof.key_averages()
         key = "self_device_time_total" if len(averages) and hasattr(averages[0], "self_device_time_total") \
             else "self_cuda_time_total"
-        ops = [e for e in averages if getattr(e, key) > 0]
+        ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, key) > 0]
         per_call = {e.key: max(1, round(e.count / iters)) for e in ops}
         found = {e.key: getattr(e, key) / 1000 / e.count * per_call[e.key] for e in ops}
         if ops and all(any(n in k for k in found) for n in names):
             return sum(found.values()), sum(per_call.values()), found
-    raise RuntimeError(f"chip_smoke: the profiler saw no device time for some of {names or 'the operations'} in "
-                       f"{attempts} passes")
+        return None
+
+    for _ in range(warmup):
+        fn()
+    return profiled(fn, iters, read, names or "any device operation")
+
+
+def device_busy_span(fn, iters):
+    """Per call of fn: (the sum of its device operations' durations, the time at least one of
+    them runs, the span of the window's device work: first operation's start to the last one's
+    end), all on the profiler's clock (``profiled``), so their ratios do not move with how that
+    clock's rate differs from the CUDA events' (its stamps are converted to the host's clock; see
+    PROFILER_PAD_S). The sum can exceed the span: device operations overlap (in YOLOv3's f32 step
+    on an NVIDIA H100 80GB HBM3 at 700 W the sum came to 374.237 ms against a 372.074 ms span)."""
+
+    def read(prof):
+        ops = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not ops:
+            return None
+        busy = sum(end - start for start, end in ops)
+        union, (run_start, run_end) = 0, ops[0]
+        for start, end in ops[1:]:
+            if start > run_end:
+                union += run_end - run_start
+                run_start = start
+            run_end = max(run_end, end)
+        union += run_end - run_start
+        span = run_end - ops[0][0]
+        return busy / 1000 / iters, union / 1000 / iters, span / 1000 / iters
+
+    return profiled(fn, iters, read)
 
 
 def device_ms(fn, iters, names, warmup=2):
@@ -567,7 +651,10 @@ def _nms_split(boxes, valid, t):
     kernel and of the sweep, from the profiler."""
     from basedet_tpu_torch.ops.nms_kernel import nms_keep
 
-    dev = device_ms(lambda: nms_keep(boxes, valid, t), 10, ("nms_mask_kernel", "nms_sweep_kernel"))
+    try:
+        dev = device_ms(lambda: nms_keep(boxes, valid, t), 10, ("nms_mask_kernel", "nms_sweep_kernel"))
+    except ProfilerMiss as e:  # the split is read, not held: the call's own time is measured with events
+        return f"device split not measured ({e})"
     return (f"device: mask kernel {dev['nms_mask_kernel']:.4f} ms, sweep {dev['nms_sweep_kernel']:.4f} ms "
             f"(profiler)")
 
@@ -1701,14 +1788,14 @@ def phase_profile(card, out_dir, runs):
     unprofiled ms): device kernel time per call against the profiled wall
     time, and against the unprofiled time of the timing phases (the profiler
     slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     os.makedirs(out_dir, exist_ok=True)
     for name, label, fn, iters, unprofiled in runs:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with padded_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -2470,7 +2557,7 @@ def frcnn_backward_report(model, batch, noise, card):
     dF-sized (B, 256, H_l, W_l) tensor, and the device kernels that run in
     NHWC (a name containing "nhwc": cuDNN's NHWC convolution gradients and
     its layout conversions), each with its count and device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.models.det.faster_rcnn import FasterRCNNModule
@@ -2491,8 +2578,7 @@ def frcnn_backward_report(model, batch, noise, card):
         with full_f32():
             loss = model.get_losses(batch, noise=noise)[0]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof, \
-                full_f32():
+        with padded_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof, full_f32():
             loss.backward()
             torch.cuda.synchronize()
         averages = prof.key_averages(group_by_input_shape=True)
@@ -3784,7 +3870,7 @@ def _loop_timing(out_dir, workers, dummy, steps=12, warmup=3):
     every ``steps`` steps only (the host runs ahead), from the real loader over the synthetic set
     or from DummyLoader: (ms per step, idle share of the device over the timed steps, the median
     data_time)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from basedet_tpu_torch import build_trainer
     from basedet_tpu_torch.tools import import_config
@@ -3804,7 +3890,7 @@ def _loop_timing(out_dir, workers, dummy, steps=12, warmup=3):
             trainer.train_one_iter(data_iter)
         torch.cuda.synchronize()
         times = []
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with padded_profile([ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
                 trainer.progress.inner_iter = warmup + i + 1
@@ -5041,9 +5127,9 @@ def _amp_setup(name, weights, device, amp, batch=None, image=None, extra=()):
 def phase_amp_timing(out_dir, name, card):
     """``name``'s train step in f32 and under the bf16 policy, the same weights and batch: events ms
     (mean of AMP_REPS), peak memory above what was held before the model was built, and the device's
-    idle share (1 - the profiler's device time over the events time of the same AMP_REPS profiled
-    steps; the phase fails if the device time exceeds it). Returns {dtype: (ms, peak GiB, idle
-    share)}."""
+    idle share (1 - the time at least one device operation runs over the span of the device work
+    of the same AMP_REPS profiled steps, both on the profiler's clock). Returns {dtype: (ms, peak
+    GiB, idle share)}."""
     out = {}
     for amp in (False, True):
         gc.collect()
@@ -5055,27 +5141,19 @@ def phase_amp_timing(out_dir, name, card):
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: step(state, batch), reps=AMP_REPS, warmup=0)
         peak = (torch.cuda.max_memory_allocated() - before) / 2**30
-        marks = []
-
-        def marked_step():
-            marks.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
-            marks[-1][0].record()
-            step(state, batch)
-            marks[-1][1].record()
-
-        busy = device_kernels(marked_step, AMP_REPS, warmup=0)[0]
-        torch.cuda.synchronize()
-        wall = sum(a.elapsed_time(b) for a, b in marks[-AMP_REPS:]) / AMP_REPS  # the profiled steps' own
-        check(busy <= wall, f"{name}: {busy:.3f} ms of device time in a step of {wall:.3f} ms")
-        out["bf16" if amp else "f32"] = (ms, peak, 1 - busy / wall)
+        busy, union, span = device_busy_span(lambda: step(state, batch), AMP_REPS)
+        check(0 < union <= span, f"{name}: the device busy {union:.3f} ms of a {span:.3f} ms span a step")
+        out["bf16" if amp else "f32"] = (ms, peak, 1 - union / span, busy - union)
         del model, state, step, batch
-    (f_ms, f_peak, f_idle), (b_ms, b_peak, b_idle) = out["f32"], out["bf16"]
+    (f_ms, f_peak, f_idle, f_lap), (b_ms, b_peak, b_idle, b_lap) = out["f32"], out["bf16"]
     b, img = AMP_FAMILIES[name][1:3]
     log(f"[amp-timing] {name} train step, batch {b} of {img[0]}x{img[1]}: bf16 {b_ms:.3f} ms ({1000 * b / b_ms:.2f} "
         f"img/s), peak {b_peak:.2f} GiB, device idle share {b_idle:.3f}; f32 {f_ms:.3f} ms ({1000 * b / f_ms:.2f} img/s), "
         f"peak {f_peak:.2f} GiB, idle {f_idle:.3f}; bf16 at {b_ms / f_ms:.3f} of the f32 step (events, means of "
-        f"{AMP_REPS}; idle share over {AMP_REPS} profiled steps) | {card}")
-    return out
+        f"{AMP_REPS}; idle share: the time no device operation runs over the span of {AMP_REPS} profiled steps' "
+        f"device work; the operations' durations beyond that busy time, a step: bf16 {b_lap:.3f} ms, f32 "
+        f"{f_lap:.3f} ms) | {card}")
+    return {k: v[:3] for k, v in out.items()}
 
 
 def _flat_grads(module):
@@ -5226,12 +5304,386 @@ def phase_amp_families(out_dir, card):
     return errs
 
 
+# Data-parallel training (phases 43-44). Each phase launches `python -m torch.distributed.run` with this
+# script as the worker (``--dp-worker``): every rank drives det_train --multi-host and writes its per-step
+# losses and wall times, its kernel counts (zeroed just before the run, read just after), its gloo probes
+# and its state_dict to a file under the phase's directory, which the phase reads.
+DP_TIMEOUT = 420  # seconds for one torchrun launch, its ranks' start-up included
+DP_GLOO_PROBES = ("all_reduce float32", "all_reduce float64", "all_reduce int64", "broadcast float32",
+                  "all_gather float32", "reduce_scatter float32", "barrier")
+# Two ranks against one process on the global batch, on every parameter and BN buffer after 2 steps:
+# the JAX DP test's tolerance (tests/parallel/test_dp_equivalence.py), DP_RTOL and DP_ATOL, for Faster
+# R-CNN (FrozenBN). Train-mode YOLOX-S with spread random weights does not hold it, and no run of it
+# can: its gradients pass through BN backwards whose results are small differences of large terms (as
+# CenterNet's, PERF.md §7), so any other order of the same sums moves them. Two ranks put the stem's
+# weights 2.6e-5-3.1e-5 from one process's after 2 steps (16x DP_RTOL), tensor by tensor 1.4-6.8% of
+# each tensor's own change; world size 1 over NCCL, where only the BN's sums change, up to 14% after 4
+# steps with SimOTA's moved anchors; Faster R-CNN's largest deviation was 0.0099-0.040 of its
+# tolerance (NVIDIA H100 80GB HBM3, 700.00 W). The BN buffers inherit it: the stem's running mean at
+# step 2 is a mean of the stem's outputs at parameters that already differ (6.3x DP_RTOL). So YOLOX-S is
+# held as a whole: its parameters' update over the steps, |two ranks' - one process's| / |one process's
+# update| over all parameters, and its BN buffers' likewise, each to DP_UPDATE_RTOL (measured 0.0133 and
+# 9.6e-7; at world size 1 over NCCL, with the moved anchors, 0.145 after 4 steps)
+DP_RTOL, DP_ATOL, DP_UPDATE_RTOL = 1e-4, 1e-6, 0.1
+# Each step's losses against one process's on the same batches. The first step starts from the same
+# parameters and differs only in the order of sums (the cross-rank BN's float64 statistics against
+# cuDNN's; the ranks' partial sums): measured 1.4e-6-1.5e-6. The second starts from parameters that
+# differ by that (3.5e-5-3.7e-5). Then SimOTA's near-ties move a few of the ~10^2 foreground anchors:
+# phase 43's steps 3-4 measured 1.8e-3-1.5e-2 off in three chip runs, while two runs of the plain
+# det_train agreed to 1e-5 (NVIDIA H100 80GB HBM3, 700.00 W). Tolerances of steps 1, 2 and later:
+DP_LOSS_RTOLS = (1e-4, 1e-3, 5e-2)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_cuda_probes(device):
+    """Which gloo collectives take CUDA tensors on this torch: each run once on this rank's card."""
+    import torch.distributed as dist
+
+    def run(name):
+        op, dtype = (name.split() + ["float32"])[:2]
+        t = torch.ones(8, dtype=getattr(torch, dtype), device=device)
+        w = dist.get_world_size()
+        if op == "all_reduce":
+            dist.all_reduce(t)
+            ok = bool((t == w).all())
+        elif op == "broadcast":
+            dist.broadcast(t, 0)
+            ok = bool((t == 1).all())
+        elif op == "all_gather":
+            out = [torch.zeros_like(t) for _ in range(w)]
+            dist.all_gather(out, t)
+            ok = all(bool((o == 1).all()) for o in out)
+        elif op == "reduce_scatter":
+            out = torch.zeros_like(t)
+            dist.reduce_scatter(out, [t.clone() for _ in range(w)])
+            ok = bool((out == w).all())
+        else:
+            dist.barrier()
+            ok = True
+        torch.cuda.synchronize()
+        return "ok" if ok else "wrong result"
+
+    probes = {}
+    for name in DP_GLOO_PROBES:
+        try:
+            probes[name] = run(name)
+        except Exception as e:  # a collective the backend lacks for CUDA tensors: recorded, not fatal
+            probes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return probes
+
+
+def dp_worker(out_dir, tag, runs):
+    """One rank under torchrun: for each (name, det_train arguments) of ``runs``, det_train (with
+    --multi-host in its arguments) with the kernel counts zeroed just before and read just after,
+    the cross-rank BN and gradient all-reduce calls counted, each step's wall time and global
+    losses kept; then ``out_dir/<tag>_<name>_rank<r>.pt``. A second run takes its own port
+    (``DP_SECOND_PORTS``), as det_train ends its process group."""
+    from basedet_tpu_torch import parallel
+    from basedet_tpu_torch.engine.trainer import DetTrainer
+    from basedet_tpu_torch.layers.common import blocks
+    from basedet_tpu_torch.tools import det_train
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU")
+    rank = int(os.environ["RANK"])
+    ports = os.environ.get("DP_SECOND_PORTS", "").split(",")
+    probes = {}
+    init = parallel.init_from_env
+
+    def init_and_probe(device, backend=None):
+        device = init(device, backend)
+        if not probes and torch.distributed.get_backend() == "gloo":
+            probes.update(_gloo_cuda_probes(device))
+        return device
+
+    parallel.init_from_env = init_and_probe
+    for i, (name, args) in enumerate(runs):
+        if i:  # a store of its own on a new port: torchrun's agent store serves the first group only
+            os.environ["MASTER_PORT"] = ports[i - 1]
+            os.environ["TORCHELASTIC_USE_AGENT_STORE"] = "False"
+        steps, fn = [], DetTrainer.train_one_iter
+
+        def one_iter(self, data_iter, fn=fn, steps=steps):
+            t0 = time.perf_counter()
+            fn(self, data_iter)  # GLOBAL.LOG_INTERVAL 1: it ends by reading the losses
+            steps.append({"ms": (time.perf_counter() - t0 - self.meters["data_time"].latest) * 1e3,
+                          "losses": {k: m.latest for k, m in self.meters.items() if "loss" in k}})
+
+        DetTrainer.train_one_iter = one_iter
+        path = f"{tag} {name} rank {rank}"
+        try:
+            with recording(blocks.CrossRankBatchNorm, "apply", lambda a, o: None) as bn_calls, \
+                    recording(parallel, "all_reduce_grads", lambda a, o: None) as grad_reductions, \
+                    kernel_counts(path):
+                trainer = det_train.main(args)
+                torch.cuda.synchronize()
+        finally:
+            DetTrainer.train_one_iter = fn
+        torch.save({"steps": steps, "counts": DATA_COUNTS[path], "bn_calls": len(bn_calls),
+                    "grad_reductions": len(grad_reductions), "probes": dict(probes),
+                    "world": trainer.world_size, "global_batch": trainer.global_batch_size,
+                    "state": {k: v.detach().cpu() for k, v in trainer.model.module.state_dict().items()}},
+                   os.path.join(out_dir, f"{tag}_{name}_rank{rank}.pt"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _torchrun(nproc, out_dir, tag, runs):
+    """``runs`` ([(name, det_train arguments)]) under torchrun with ``nproc`` ranks on this card →
+    {name: [rank 0's results, rank 1's, ...]}; its output into ``out_dir/<tag>.log``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, "DP_SECOND_PORTS": ",".join(str(_free_port()) for _ in runs[1:]), "OMP_NUM_THREADS": "2"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc), "--master-addr",
+           "127.0.0.1", "--master-port", str(_free_port()), os.path.abspath(__file__), "--dp-worker", out_dir,
+           "--dp-tag", tag, "--dp-runs", json.dumps(runs)]
+    log_path = os.path.join(out_dir, f"{tag}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            log(f.read()[-8000:])
+        check(False, f"torchrun {tag} exited {rc}")
+    return {name: [torch.load(os.path.join(out_dir, f"{tag}_{name}_rank{r}.pt"), weights_only=False)
+                   for r in range(nproc)] for name, _ in runs}, seconds
+
+
+def _dp_plain(args, path):
+    """The plain det_train (no process group) on ``args``, as the workers run it → (per step wall ms
+    and losses, its state_dict on the CPU)."""
+    from basedet_tpu_torch.engine.trainer import DetTrainer
+    from basedet_tpu_torch.tools import det_train
+
+    steps, fn = [], DetTrainer.train_one_iter
+
+    def one_iter(self, data_iter):
+        t0 = time.perf_counter()
+        fn(self, data_iter)
+        steps.append({"ms": (time.perf_counter() - t0 - self.meters["data_time"].latest) * 1e3,
+                      "losses": {k: m.latest for k, m in self.meters.items() if "loss" in k}})
+
+    DetTrainer.train_one_iter = one_iter
+    try:
+        with kernel_counts(path):
+            trainer = det_train.main(args)
+            torch.cuda.synchronize()
+    finally:
+        DetTrainer.train_one_iter = fn
+    state = {k: v.detach().cpu() for k, v in trainer.model.module.state_dict().items()}
+    del trainer
+    return steps, state
+
+
+def _median_ms(steps):
+    """The median wall time of the steps after the first (which warms up), and a printable range."""
+    ms = sorted(s["ms"] for s in steps[1:])
+    return ms[len(ms) // 2], f"{ms[len(ms) // 2]:.1f} ms (range {ms[0]:.1f}-{ms[-1]:.1f}, steps 2-{len(steps)})"
+
+
+def _check_losses(name, got, want):
+    """Each step's losses against ``want``'s, held to DP_LOSS_RTOLS. Returns the largest relative
+    error of each step."""
+    worst = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g["losses"].keys() == w["losses"].keys(), f"{name} step {i + 1}: losses {sorted(g['losses'])}")
+        rtol = DP_LOSS_RTOLS[min(i, len(DP_LOSS_RTOLS) - 1)]
+        worst.append(0.0)
+        for k, v in w["losses"].items():
+            err = abs(g["losses"][k] - v) / max(abs(v), 1e-12)
+            worst[-1] = max(worst[-1], err)
+            check(math.isfinite(g["losses"][k]) and err <= rtol,
+                  f"{name} step {i + 1}: {k} {g['losses'][k]!r} against {v!r} (rtol {rtol})")
+    return "/".join(f"{e:.2e}" for e in worst)
+
+
+def _yolox_dp_args(out_dir, weights, multi_host, per_rank, images, backend=None):
+    opts = _train_opts(out_dir, weights)
+    opts[opts.index("MODEL.BATCHSIZE") + 1] = str(per_rank)
+    opts[opts.index("SOLVER.NUM_IMAGE_PER_EPOCH") + 1] = str(images)
+    flags = (["--multi-host"] + (["--dist-backend", backend] if backend else [])) if multi_host else []
+    return ["-f", CONFIG, "--device", "cuda", *flags, *opts]
+
+
+def _frcnn_dp_args(out_dir, weights, multi_host, per_rank, images, backend=None):
+    opts = _frcnn_train_opts(out_dir, weights)
+    opts[opts.index("MODEL.BATCHSIZE") + 1] = str(per_rank)
+    opts[opts.index("SOLVER.NUM_IMAGE_PER_EPOCH") + 1] = str(images)
+    flags = (["--multi-host"] + (["--dist-backend", backend] if backend else [])) if multi_host else []
+    return ["-f", FRCNN_CONFIG, "--device", "cuda", *flags, *opts]
+
+
+def phase_dp_nccl(out_dir, weights, card):
+    """43. Data-parallel det_train at world size 1 over NCCL: full-width YOLOX-S, batch 8 of 640x640
+    (resized to 832x832), f32 with TF32 off, 4 steps, through ``torchrun --nproc-per-node 1 ...
+    det_train --multi-host``; under a process group the cross-rank BN and the gradient all-reduce
+    run even at world size 1. Held to the plain det_train on the same batches (each step's losses,
+    ``_check_losses``; the state after the 4 steps reported), timed beside it (median step wall time
+    of steps 2-4 without the loader's batch, losses read each step); #2 and #10 once a step, plain 0.
+    Returns {path: launches} of #2 and #10."""
+    dp_dir = os.path.join(out_dir, "dp_nccl")
+    os.makedirs(dp_dir, exist_ok=True)
+    plain_path = "YOLOX-S det_train, plain beside the DP run"
+    plain, plain_state = _dp_plain(_yolox_dp_args(os.path.join(dp_dir, "plain"), weights, False, 8, 32),
+                                   plain_path)
+    runs, seconds = _torchrun(1, dp_dir, "nccl1", [("yolox", _yolox_dp_args(
+        os.path.join(dp_dir, "dp"), weights, True, 8, 32))])
+    res = runs["yolox"][0]
+    check(res["world"] == 1 and res["global_batch"] == 8 and len(res["steps"]) == 4 == len(plain),
+          f"the NCCL run took {len(res['steps'])} steps at world {res['world']}")
+    check(res["bn_calls"] > 0 and res["grad_reductions"] == 4,
+          f"the cross-rank BN ran {res['bn_calls']} times and the gradient all-reduce {res['grad_reductions']}")
+    path = "YOLOX-S det_train --multi-host (NCCL, world size 1)"
+    counts = res["counts"]
+    for name, (launches, plain_calls) in counts.items():
+        want = 4 if name in ("dynamic_k_matching", "box_iou") else 0
+        check(launches == want and plain_calls == 0, f"{path}: {name} launched {launches} times, plain {plain_calls}")
+    check_counts(plain_path, {"dynamic_k_matching": 4, "box_iou": 4})
+    worst = _check_losses(path, res["steps"], plain)
+    update = _update_deviation(res["state"], plain_state, torch.load(weights, map_location="cpu"))
+    dp_ms, dp_text = _median_ms(res["steps"])
+    plain_ms, plain_text = _median_ms(plain)
+    log(f"[dp-nccl] {path}: 4 steps of 8 at 832x832 in a torchrun launch of {seconds:.1f} s; cross-rank BN "
+        f"calls {res['bn_calls']} ({res['bn_calls'] // 4} a step), gradient all-reduces {res['grad_reductions']}; "
+        f"kernel launches #2 {counts['dynamic_k_matching'][0]}, #10 {counts['box_iou'][0]}, plain 0; losses "
+        f"within {worst} relative of the plain det_train's, step by step (rtol {DP_LOSS_RTOLS[0]}, "
+        f"{DP_LOSS_RTOLS[1]}, then "
+        f"{DP_LOSS_RTOLS[-1]}); the parameters' update over the 4 steps {update:.4g} of its norm off the plain run's "
+        f"(not held: SimOTA moved anchors at steps 3-4); step wall time without the loader's batch {dp_text} against "
+        f"the plain step {plain_text}: {dp_ms / plain_ms:.3f}x | {card}")
+    return {path: counts["dynamic_k_matching"][0]}, {path: counts["box_iou"][0]}
+
+
+_BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _state_deviation(got, want, init):
+    """[(the share used of DP_ATOL + DP_RTOL·|want|, name, largest |got - want|, largest |want|,
+    largest change from ``init``)] of every floating tensor, the largest share first; integer
+    tensors must be equal."""
+    rows = []
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{k} differs")
+            continue
+        err = (g - w).abs()
+        rows.append((float((err / (DP_ATOL + DP_RTOL * w.abs())).max()), k, float(err.max()),
+                     float(w.abs().max()), float((w - init[k].to(w.dtype)).abs().max())))
+    return sorted(rows, reverse=True)
+
+
+def _update_deviation(got, want, init, buffers=False):
+    """|got - want| / |want - init| over every parameter (with ``buffers``, over every floating BN
+    buffer instead), in float64: how far the update over the steps lies from one process's, as a
+    share of it."""
+    keys = [k for k in want if k.endswith(_BN_BUFFERS) == buffers and want[k].is_floating_point()]
+    diff = math.sqrt(sum(float(((got[k] - want[k]).double() ** 2).sum()) for k in keys))
+    change = math.sqrt(sum(float(((want[k] - init[k].to(want[k].dtype)).double() ** 2).sum()) for k in keys))
+    return diff / change
+
+
+def _state_report(rows):
+    return "; ".join(f"{k} {share:.3g} of it (|diff| {err:.3g}, max|value| {mag:.3g}, largest change {change:.3g})"
+                     for share, k, err, mag, change in rows[:3])
+
+
+def phase_dp_gloo(out_dir, weights, frcnn_weights, card):
+    """44. Two ranks sharing the card over gloo (``torchrun --nproc-per-node 2 ... --multi-host
+    --dist-backend gloo``; not a multi-GPU figure): full-width YOLOX-S at 4 a rank against the plain
+    det_train at 8, and Faster R-CNN R50-FPN at 1 a rank against 2 (the sampling draws and the
+    RoIAlign kernels across ranks), 2 steps each. Rank 0's parameters and BN buffers to rtol 1e-4,
+    atol 1e-6 of the plain run's (YOLOX-S: its update as a whole to DP_UPDATE_RTOL), both
+    ranks' state_dicts bit-equal, each step's losses as ``_check_losses`` holds them; per rank #2
+    and #10 once a step (YOLOX-S), RoIAlign forward, backward and NMS once a step and #10 twice
+    (Faster R-CNN), plain 0; which gloo collectives take CUDA tensors; each step's wall time (the
+    first warms up). Returns {kernel: {path: launches}}."""
+    dp_dir = os.path.join(out_dir, "dp_gloo")
+    os.makedirs(dp_dir, exist_ok=True)
+    plain_yolox, yolox_state = _dp_plain(_yolox_dp_args(os.path.join(dp_dir, "plain_yolox"), weights, False, 8, 16),
+                                         "YOLOX-S det_train, plain beside the 2-rank run")
+    plain_frcnn, frcnn_state = _dp_plain(
+        _frcnn_dp_args(os.path.join(dp_dir, "plain_frcnn"), frcnn_weights, False, 2, 4),
+        "Faster R-CNN det_train, plain beside the 2-rank run")
+    runs, seconds = _torchrun(2, dp_dir, "gloo2", [
+        ("yolox", _yolox_dp_args(os.path.join(dp_dir, "yolox"), weights, True, 4, 16, "gloo")),
+        ("frcnn", _frcnn_dp_args(os.path.join(dp_dir, "frcnn"), frcnn_weights, True, 1, 4, "gloo"))])
+    expected = {"yolox": {"dynamic_k_matching": 2, "box_iou": 2},
+                "frcnn": {"multilevel_roi_align": 2, "multilevel_roi_align_backward": 2, "nms_keep": 2, "box_iou": 4}}
+    labels = {"yolox": "YOLOX-S det_train --multi-host, 2 ranks over gloo",
+              "frcnn": "Faster R-CNN det_train --multi-host, 2 ranks over gloo"}
+    launches, lines = {}, []
+    inits = {"yolox": torch.load(weights, map_location="cpu"), "frcnn": torch.load(frcnn_weights, map_location="cpu")}
+    for name, plain, state in (("yolox", plain_yolox, yolox_state), ("frcnn", plain_frcnn, frcnn_state)):
+        ranks = runs[name]
+        check(all(r["world"] == 2 and len(r["steps"]) == 2 for r in ranks), f"{name}: not 2 steps at world size 2")
+        for k, v in ranks[0]["state"].items():
+            check(torch.equal(v, ranks[1]["state"][k]), f"{labels[name]}: the ranks' {k} differ")
+        for r, res in enumerate(ranks):
+            for kernel, (n, plain_calls) in res["counts"].items():
+                want = expected[name].get(kernel, 0)
+                check(n == want and plain_calls == 0, f"{labels[name]} rank {r}: {kernel} launched {n} times, "
+                                                      f"not {want}; plain {plain_calls}")
+                if n:
+                    launches.setdefault(kernel, {})[f"{labels[name]} (rank {r})"] = n
+        update = _update_deviation(ranks[0]["state"], state, inits[name])
+        rows = _state_deviation(ranks[0]["state"], state, inits[name])
+        if name == "yolox":  # see DP_UPDATE_RTOL: held as a whole
+            buffers = _update_deviation(ranks[0]["state"], state, inits[name], buffers=True)
+            check(update <= DP_UPDATE_RTOL and buffers <= DP_UPDATE_RTOL,
+                  f"{labels[name]}: the update of its parameters {update:.4g} and of its BN buffers {buffers:.4g} "
+                  f"of its norm off one process's (DP_UPDATE_RTOL {DP_UPDATE_RTOL}); most off: {_state_report(rows)}")
+            held = (f"the update of its parameters {update:.4g} and of its BN buffers {buffers:.4g} of its norm off "
+                    f"one process's (DP_UPDATE_RTOL {DP_UPDATE_RTOL}); per tensor, against rtol {DP_RTOL}, atol "
+                    f"{DP_ATOL} (not held): {_state_report(rows)}")
+        else:
+            check(rows[0][0] <= 1, f"{labels[name]}: rank 0's state off by more than rtol {DP_RTOL}, atol {DP_ATOL}: "
+                                   f"{_state_report(rows)}")
+            held = (f"every tensor within rtol {DP_RTOL}, atol {DP_ATOL} ({_state_report(rows)}); the update of its "
+                    f"parameters {update:.4g} of its norm off one process's")
+        worst_loss = _check_losses(labels[name], ranks[0]["steps"], plain)
+        check(ranks[0]["bn_calls"] > 0 or name == "frcnn", f"{name}: the cross-rank BN never ran")
+        ms = lambda steps: "/".join(f"{s['ms']:.1f}" for s in steps)
+        lines.append(f"{labels[name]}: rank 0's state: {held}; the ranks bit-equal, losses within "
+                     f"{worst_loss} relative by step; per rank launches "
+                     f"{', '.join(f'{k} {v[0]}' for k, v in ranks[0]['counts'].items() if v[0])}, plain 0; cross-rank "
+                     f"BN calls {ranks[0]['bn_calls']}; step wall time without the loader's batch, steps 1/2: rank 0 "
+                     f"{ms(ranks[0]['steps'])} ms, rank 1 {ms(ranks[1]['steps'])} ms, against the plain step at the "
+                     f"global batch {ms(plain)} ms")
+    probes = runs["yolox"][0]["probes"]
+    log(f"[dp-gloo] two ranks sharing the card over gloo (torchrun launch of {seconds:.1f} s, YOLOX-S 2 steps of "
+        f"4 a rank at 832x832, Faster R-CNN 2 steps of 1 a rank at 800x1333): " + "; ".join(lines)
+        + f"; gloo collectives on CUDA tensors: {probes} | {card}")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
     parser.add_argument("--parent-iou", metavar="IOU_CU", help="also build another tree's csrc/iou.cu and time it "
                         "beside this one's, in turns")
+    parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)  # one rank of phases 43-44
+    parser.add_argument("--dp-tag", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-runs", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dp_worker:
+        dp_worker(args.dp_worker, args.dp_tag, json.loads(args.dp_runs))
+        return
     card = phase_device()
     phase_build()
     kernel = phase_kernel(card)
@@ -5287,6 +5739,10 @@ def main():
         phase_last_families(out_dir, card)
         for report, err in zip((roi_bf16, roi_bwd_bf16), phase_amp_families(out_dir, card)):
             report["max_abs_err"] = max(report["max_abs_err"], err)
+        dp_match, dp_iou = phase_dp_nccl(out_dir, weights, card)
+        dp_launches = phase_dp_gloo(out_dir, weights, frcnn_weights, card)
+        for name, paths in (("dynamic_k_matching", dp_match), ("box_iou", dp_iou)):
+            dp_launches.setdefault(name, {}).update(paths)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -5306,10 +5762,11 @@ def main():
 
     def by_path(kernel, named):
         """{main path: launches} of one kernel: the paths counted by name here, then those that
-        ``kernel_counts`` counted."""
-        return {**named, **{path: counts[kernel][0] for path, counts in DATA_COUNTS.items() if counts[kernel][0]}}
+        ``kernel_counts`` counted, then the data-parallel ranks' (phases 43-44)."""
+        return {**named, **{path: counts[kernel][0] for path, counts in DATA_COUNTS.items() if counts[kernel][0]},
+                **dp_launches.get(kernel, {})}
 
-    iou_by_path = {path: launches for path, (launches, _) in IOU_COUNTS.items()}
+    iou_by_path = {**{path: launches for path, (launches, _) in IOU_COUNTS.items()}, **dp_launches["box_iou"]}
     nms_by_path = by_path("nms_keep", {
         "YOLOX-S det_test": launches, "YOLOX-S det_test of the --amp run": amp_nms,
         "Faster R-CNN det_train": train_nms, "Faster R-CNN det_test": frcnn_nms_launches,
