@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from basedet_tpu_torch import parallel
+from basedet_tpu_torch.parallel.tp import all_reduce_model_grads, tp_context
 from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.precision import policy_from_cfg, precision_policy
 from basedet_tpu_torch.layers.remat import mode_from_cfg, remat_policy
@@ -73,7 +74,16 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     (``parallel.all_reduce_grads``) after the backward and before the
     clipping, so every rank takes the same update; the metrics stay the
     rank's own (the trainer averages them at its log interval). The fused
-    CSP chain is refused there."""
+    CSP chain is refused there.
+
+    With ``TRAINER.TP_SIZE`` above 1 (``parallel.mesh.init_grid``) the step
+    runs forward and backward inside ``tp_context`` of this rank's model
+    group, where DETR's FFNs split their hidden width; after the backward
+    the FFN gradients that each model rank holds only a slice of
+    (``tp_sharded_parameters``) are summed over the model group and the
+    others, computed alike on every model rank, averaged over it
+    (``tp.all_reduce_model_grads``, one all-reduce); then the mean over the
+    data group, then the clipping, on whole gradients."""
     dtype, fused_bn = policy_from_cfg(cfg)
     if fused_bn and parallel.is_active():
         raise NotImplementedError("TRAINER.AMP.FUSED_BN takes the BN statistics inside the fused kernels over one "
@@ -88,13 +98,18 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     seed = cfg.get("SEED", 42)
     draws = getattr(model, "draws_per_step", False)
 
+    sharded = [p for m in model.module.modules() if hasattr(m, "tp_sharded_parameters")
+               for p in m.tp_sharded_parameters()]
+
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        with full_f32():
+        group = parallel.model_group()
+        with full_f32(), tp_context(group):
             randomness = {"seed": seed, "step": state.step} if draws else {}
             with precision_policy(dtype, fused_bn), remat_policy(remat):
                 total, loss_dict = model.get_losses(batch, **randomness)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
+        all_reduce_model_grads(params, sharded, group)
         parallel.all_reduce_grads(params)
         solver.clip_grads(params)
         lr = solver.lr_schedule(state.step)

@@ -1,6 +1,8 @@
 """DetTrainer: the training loop around the train step (counterpart of
-``basedet_tpu/engine/trainer.py``). The world size is the process group's
-(``basedet_tpu_torch/parallel``; 1 without one): each rank steps
+``basedet_tpu/engine/trainer.py``). The world size is the data-parallel
+one (``basedet_tpu_torch/parallel``: the data group's size, 1 without a
+process group; with ``TRAINER.TP_SIZE`` the ranks of a model group count
+once, as the JAX trainer's ``mesh.shape["data"]``): each data rank steps
 ``MODEL.BATCHSIZE`` rows of a global batch of ``MODEL.BATCHSIZE`` times the
 world size, from the same state, which ``init_state`` broadcasts from rank
 0; the logged losses are averaged over ranks.

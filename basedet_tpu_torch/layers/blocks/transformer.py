@@ -10,8 +10,18 @@ Its ``query``, ``key``, ``value`` and ``out`` projections are ``nn.Linear``
 layers under flax's names (``utils/weights.py`` maps the ``DenseGeneral``
 kernels onto them); ``nn.LayerNorm`` takes flax's eps, 1e-6. Every dropout
 draws from the ``generator`` handed to ``forward``: None (or eval mode)
-means none. The JAX package's tensor-parallel ``tp_shard`` hints are no-ops
-on one device and are left out.
+means none.
+
+Tensor parallelism: where the JAX package constrains the FFN's hidden
+activations to its mesh's ``model`` axis (``tp_shard``), the FFN here splits
+its hidden width F over the model group that ``parallel/tp.py`` installs
+(``TRAINER.TP_SIZE``, inside the train step). Weights stay replicated, so
+checkpoints do not change: model rank m uses columns ``[m·F/tp,
+(m+1)·F/tp)`` of ``linear1`` and the same rows of ``linear2``'s input, sums
+the partial products over the model group and adds ``linear2``'s bias once.
+The FFN's dropout mask is drawn at the full (B, L, F) shape and sliced, so
+every model rank draws the same stream. The attention and the norms run
+whole on every model rank. Without a model group the FFN is the plain one.
 """
 from __future__ import annotations
 
@@ -22,7 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from basedet_tpu_torch.layers.blocks.drop import dropout, keep_mask
+from basedet_tpu_torch.layers.blocks.drop import batch_keep_mask, dropout, keep_mask
+from basedet_tpu_torch.parallel.tp import copy_to_model, reduce_from_model, tp_rank, tp_size
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's
 
@@ -118,7 +129,26 @@ class _Layer(nn.Module):
             self.add_module(f"norm{i + 1}", nn.LayerNorm(dim, eps=LN_EPS, device=device))
 
     def ffn(self, x, g):
-        return self.linear2(dropout(F.relu(self.linear1(x)), self.rate, g))
+        tp = tp_size()
+        if tp == 1:
+            return self.linear2(dropout(F.relu(self.linear1(x)), self.rate, g))
+        width = self.linear1.out_features
+        if width % tp:
+            raise ValueError(f"the FFN's width {width} does not split over TRAINER.TP_SIZE {tp}")
+        m = tp_rank()
+        cols = slice(m * width // tp, (m + 1) * width // tp)
+        h = F.relu(F.linear(copy_to_model(x), self.linear1.weight[cols], self.linear1.bias[cols]))
+        if g is not None and self.rate > 0.0:
+            keep = 1.0 - self.rate
+            mask = batch_keep_mask((*h.shape[:-1], width), keep, g, h.device)[..., cols]
+            h = torch.where(mask, h / keep, 0.0)
+        return reduce_from_model(F.linear(h, self.linear2.weight[:, cols])) + self.linear2.bias
+
+    def tp_sharded_parameters(self):
+        """The parameters whose gradient a model rank holds only its slice of
+        under tensor parallelism: ``linear1``'s weight and bias and
+        ``linear2``'s weight (``linear2``'s bias is whole on every rank)."""
+        return [self.linear1.weight, self.linear1.bias, self.linear2.weight]
 
     def residual(self, x, i, fn, g):
         """Post-norm ``norm(x + drop(fn(x)))`` or pre-norm ``x + drop(fn(norm(x)))``."""

@@ -15,12 +15,14 @@ mode). A model is built in eval mode.
 """
 from __future__ import annotations
 
+import inspect
 import pickle
 import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.common.pre_processing import data_to_input, to_device
 from basedet_tpu_torch.utils.checkpoint import load_matched_weights
 from basedet_tpu_torch.utils.convert_weights import convert_reference_detector_state
@@ -105,3 +107,58 @@ class BaseNet:
         logger.info(f"loaded {weight_path} by matching: {stats['matched']} matched, "
                     f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")
         return stats
+
+    def example_inputs(self, image_size: Tuple[int, int] = (640, 640)) -> Tuple[torch.Tensor, ...]:
+        """The arguments of the module's eval forward for one zero image of
+        ``image_size`` (a multiple of 32, as ``pre_process`` pads): the image
+        (1, 3, H, W), then ``img_info`` (1, 5) or the pixel ``mask`` (1, H, W)
+        where the family's forward takes one."""
+        H, W = image_size
+        args = [torch.zeros((1, 3, H, W), device=self.device)]
+        params = inspect.signature(self.module.forward).parameters
+        if "img_info" in params:
+            args.append(torch.tensor([[H, W, H, W, 0.0]], device=self.device))
+        if "mask" in params:
+            args.append(torch.ones((1, H, W), device=self.device))
+        return tuple(args)
+
+    def dump_static_graph(self, path: str, image_size: Tuple[int, int] = (640, 640)):
+        """Export the module's eval forward with ``torch.export.export`` at
+        :meth:`example_inputs` and save it to ``path`` with
+        ``torch.export.save`` (counterpart of the JAX package's StableHLO
+        export). The NMS and RoIAlign kernels appear in the program as the
+        custom ops ``basedet::nms_keep`` and ``basedet::roi_align``; a process
+        that loads it (:func:`load_static_graph`) registers them by importing
+        ``basedet_tpu_torch.ops``. Returns the exported program."""
+        training = self.module.training
+        self.module.eval()
+        try:
+            with torch.no_grad():
+                program = torch.export.export(self.module, self.example_inputs(image_size))
+        finally:
+            self.module.train(training)
+        torch.export.save(program, path)
+        logger.info(f"dumped the exported program to {path}")
+        return program
+
+
+class StaticGraph(torch.nn.Module):
+    """A reloaded exported program, called in IEEE f32 (``full_f32``): the
+    models' forwards set that around themselves, which a program does not
+    record, and on a card PyTorch's default would let cuDNN use TF32."""
+
+    def __init__(self, program: torch.nn.Module):
+        super().__init__()
+        self.program = program
+
+    def forward(self, *args):
+        with full_f32():
+            return self.program(*args)
+
+
+def load_static_graph(path: str) -> StaticGraph:
+    """The module of a program that :meth:`BaseNet.dump_static_graph` saved,
+    its custom ops registered first."""
+    import basedet_tpu_torch.ops  # noqa: F401  (registers basedet::nms_keep and basedet::roi_align)
+
+    return StaticGraph(torch.export.load(path).module())

@@ -15,7 +15,9 @@ registers, then the block ORs the kept rows into ``removed``, one block per
 image. See ``csrc/nms.cu``.
 
 The kernel is built from the repository's source at first use and bound with
-``ctypes`` (``ops/_build.py``).
+``ctypes`` (``ops/_build.py``). It is reached through one registered custom op,
+``torch.ops.basedet.nms_keep``, so that ``torch.export`` records a call to it as
+one node and an exported program launches it as the eager module does.
 """
 from __future__ import annotations
 
@@ -69,13 +71,28 @@ def nms_keep(sorted_boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> 
     """Greedy-NMS keep mask: sorted_boxes (B, K, 4) f32 xyxy in descending
     score order, valid (B, K) bool → keep (B, K) bool.
 
-    A CUDA tensor goes through the kernel (``nms_keep.launches`` counts its
-    launches); a CPU tensor goes through :func:`nms_keep_plain`."""
+    Calls the custom op ``basedet::nms_keep``: a CUDA tensor goes through the
+    kernel (``nms_keep.launches`` counts its launches); a CPU tensor goes
+    through :func:`nms_keep_plain`."""
     _check(sorted_boxes, valid)
+    if sorted_boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no NMS kernel for device {sorted_boxes.device}")
+    return torch.ops.basedet.nms_keep(sorted_boxes, valid, float(thresh))
+
+
+@torch.library.custom_op("basedet::nms_keep", mutates_args=())
+def _nms_keep_op(sorted_boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     if sorted_boxes.device.type == "cpu":
         return nms_keep_plain(sorted_boxes, valid, thresh)
-    if sorted_boxes.device.type != "cuda":
-        raise ValueError(f"no NMS kernel for device {sorted_boxes.device}")
+    return _nms_keep_cuda(sorted_boxes, valid, thresh)
+
+
+@_nms_keep_op.register_fake
+def _(sorted_boxes, valid, thresh):
+    return torch.empty_like(valid)
+
+
+def _nms_keep_cuda(sorted_boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     if not (sorted_boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep needs contiguous sorted_boxes and valid")
     if sorted_boxes.data_ptr() % 16:

@@ -38,7 +38,11 @@ version. ``multilevel_roi_align.launches`` and
 ``.launches_bf16`` the bf16 ones.
 
 The kernels are built from the repository's source at first use and bound
-with ``ctypes`` (``ops/_build.py``).
+with ``ctypes`` (``ops/_build.py``). The forward is reached through one
+registered custom op, ``torch.ops.basedet.roi_align``, whose gradient is the
+backward kernel's (``torch.library.register_autograd``), so that
+``torch.export`` records a pooling as one node and an exported program
+launches the forward kernel as the eager module does.
 """
 from __future__ import annotations
 
@@ -282,23 +286,34 @@ def tile_gather_model(
     return out, lists
 
 
-class _RoIAlignOnCard(torch.autograd.Function):
-    """The forward launch and, for features that require grad, the backward
-    launch. Saves the rois, the level ids and the levels' sizes."""
+@torch.library.custom_op("basedet::roi_align", mutates_args=())
+def _roi_align_op(features: List[torch.Tensor], rois: torch.Tensor, levels: torch.Tensor, strides: List[int],
+                  output_size: List[int]) -> torch.Tensor:
+    if rois.device.type == "cpu":
+        return multilevel_roi_align_plain(features, rois, levels, strides, tuple(output_size))
+    return _launch_forward(features, rois, levels, strides, tuple(output_size))
 
-    @staticmethod
-    def forward(ctx, rois, levels, strides, output_size, *features):
-        ctx.save_for_backward(rois, levels)
-        ctx.strides = tuple(strides)
-        ctx.sizes = [tuple(f.shape[-2:]) for f in features]
-        return _launch_forward(features, rois, levels, strides, output_size)
 
-    @staticmethod
-    def backward(ctx, grad):
-        rois, levels = ctx.saved_tensors
-        # autograd hands g in the output's dtype, the features'
-        grads = multilevel_roi_align_backward(grad, rois, levels, ctx.strides, ctx.sizes)
-        return (None, None, None, None, *grads)
+@_roi_align_op.register_fake
+def _(features, rois, levels, strides, output_size):
+    B, R = levels.shape
+    return features[0].new_empty((B, R, *output_size, features[0].shape[1]))
+
+
+def _roi_align_setup(ctx, inputs, output):
+    features, rois, levels, strides, _ = inputs
+    ctx.save_for_backward(rois, levels)
+    ctx.strides = tuple(strides)
+    ctx.sizes = [tuple(f.shape[-2:]) for f in features]
+
+
+def _roi_align_grad(ctx, grad):
+    rois, levels = ctx.saved_tensors
+    # autograd hands g in the output's dtype, the features'
+    return multilevel_roi_align_backward(grad, rois, levels, ctx.strides, ctx.sizes), None, None, None, None
+
+
+torch.library.register_autograd("basedet::roi_align", _roi_align_grad, setup_context=_roi_align_setup)
 
 
 def multilevel_roi_align(
@@ -313,17 +328,20 @@ def multilevel_roi_align(
     pw, C) in the features' dtype, differentiable in the features (dF in
     their dtype).
 
-    A CUDA tensor goes through the kernel of its dtype
-    (``multilevel_roi_align.launches`` counts the f32 launches,
-    ``.launches_bf16`` the bf16 ones) and, on the way back, through the
-    backward kernel (:func:`multilevel_roi_align_backward`). A CPU tensor
-    goes through the plain version, whose gradient is autograd's own."""
+    Calls the custom op ``basedet::roi_align``: a CUDA tensor goes through
+    the kernel of its dtype (``multilevel_roi_align.launches`` counts the f32
+    launches, ``.launches_bf16`` the bf16 ones) and, on the way back, through
+    the backward kernel (:func:`multilevel_roi_align_backward`). A CPU tensor
+    goes through the plain version: inside the op without autograd
+    (inference, ``torch.export``), or, where a feature requires grad, called
+    directly, so that its gradient stays autograd's own."""
     _check(features, rois, levels, strides)
-    if rois.device.type == "cpu":
-        return multilevel_roi_align_plain(features, rois, levels, strides, output_size)
-    if rois.device.type != "cuda":
+    if rois.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no RoIAlign kernel for device {rois.device}")
-    return _RoIAlignOnCard.apply(rois, levels, strides, output_size, *features)
+    if rois.device.type == "cpu" and torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return multilevel_roi_align_plain(features, rois, levels, strides, output_size)
+    return torch.ops.basedet.roi_align(list(features), rois, levels, [int(s) for s in strides],
+                                       [int(s) for s in output_size])
 
 
 multilevel_roi_align.launches = 0

@@ -24,6 +24,14 @@ port's: ``cuda`` gives the rank ``cuda:LOCAL_RANK`` and never the CPU. NCCL
 takes one card a rank; gloo, asked for by name, may run ranks that share a
 card (``cuda:LOCAL_RANK`` modulo the visible cards). Nothing falls back to
 another backend or device.
+
+With ``TRAINER.TP_SIZE`` above 1 (``mesh.init_grid``) the ranks form a
+(data × model) grid: the ranks of one model group hold the same rows and
+split DETR's FFN between them (``parallel/tp.py``). Every function here then
+works over this rank's data group: :func:`world_size` and :func:`rank` are
+the data-parallel size and index, the rows, sums, normalisers, gradient
+means, metrics and BN statistics are the data group's. Without a grid the
+data group is the whole process group.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from basedet_tpu_torch.parallel import mesh
+from basedet_tpu_torch.parallel.mesh import data_group, init_grid, model_group
+
 BUCKET_BYTES = 25 << 20  # the gradient all-reduce's bucket size, as DDP's default
 
 
@@ -43,15 +54,22 @@ def is_active() -> bool:
 
 
 def world_size() -> int:
-    return dist.get_world_size() if is_active() else 1
+    """The number of data-parallel ranks: the data group's size."""
+    return dist.get_world_size(data_group()) if is_active() else 1
 
 
 def rank() -> int:
+    """This rank's index in its data group: which rows of a global batch it holds."""
+    return dist.get_rank(data_group()) if is_active() else 0
+
+
+def global_rank() -> int:
     return dist.get_rank() if is_active() else 0
 
 
 def is_main_process() -> bool:
-    return rank() == 0
+    """Rank 0 of the whole process group: the one that writes and evaluates."""
+    return global_rank() == 0
 
 
 def default_backend(device_type: str) -> str:
@@ -92,6 +110,7 @@ def init_from_env(device: torch.device, backend: Optional[str] = None) -> torch.
 
 def shutdown() -> None:
     if is_active():
+        mesh.reset_grid()
         dist.destroy_process_group()
 
 
@@ -121,9 +140,9 @@ def shard_batch(batch: Mapping) -> Dict:
 
 
 def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over ranks, in place."""
+    """``t`` summed over the data group, in place."""
     if is_active():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=data_group())
     return t
 
 
@@ -172,7 +191,7 @@ def _buckets(params: List[torch.nn.Parameter], bucket_bytes: int) -> List[List[i
 
 @torch.no_grad()
 def all_reduce_grads(params: Iterable[torch.nn.Parameter], bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Replace each trainable parameter's gradient by its mean over ranks,
+    """Replace each trainable parameter's gradient by its mean over the data group,
     flattened into buckets of at most ``bucket_bytes`` of one dtype (one
     all-reduce a bucket). A parameter without a gradient counts as zeros and
     leaves with the mean, as the JAX package gives every parameter a
@@ -184,7 +203,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], bucket_bytes: int = B
     for idx in _buckets(params, bucket_bytes) if params else ():
         flat = torch.cat([params[i].grad.reshape(-1) if params[i].grad is not None
                           else params[i].new_zeros(params[i].numel()) for i in idx])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=data_group())
         flat.div_(w)
         offset = 0
         for i in idx:
@@ -198,7 +217,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], bucket_bytes: int = B
 
 
 def reduce_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The mean over ranks of each tensor metric (one all-reduce); the others
+    """The mean over the data group of each tensor metric (one all-reduce); the others
     (the LR) as they are."""
     if not is_active():
         return dict(metrics)
@@ -206,6 +225,6 @@ def reduce_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
     if not names:
         return dict(metrics)
     stacked = torch.stack([metrics[k].detach().float().reshape(()) for k in names])
-    dist.all_reduce(stacked)
+    dist.all_reduce(stacked, group=data_group())
     stacked.div_(world_size())
     return {**metrics, **dict(zip(names, stacked.unbind()))}

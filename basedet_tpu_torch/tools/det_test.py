@@ -14,11 +14,9 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 from basedet_tpu_torch.data.build import build_test_dataloader
 from basedet_tpu_torch.engine.tester import BaseTester
-from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config
+from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config, resolve_device
 from basedet_tpu_torch.utils.logger import logger, setup_logger
 from basedet_tpu_torch.utils.registry import build_evaluator, build_model
 
@@ -28,9 +26,7 @@ def main(args=None):
     parser.add_argument("--device", default="cuda", help="torch device to run on")
     parser.add_argument("--eval-ema", action="store_true")
     args = parser.parse_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but CUDA is not available; pass --device cpu explicitly")
+    device = resolve_device(args.device)
 
     cfg = import_config(args.file)
     apply_common_flags(cfg, args)

@@ -26,6 +26,12 @@ and ``gloo`` on ``cpu`` unless ``--dist-backend`` names one; ``gloo`` on
 ``--multi-host`` raises (it would train unrelated copies), as does ``nccl``
 with more ranks than visible cards; nothing falls back to another backend
 or device.
+
+``TRAINER.TP_SIZE N`` (N above 1, dividing the world size) lays the ranks
+out as a (W/N data × N model) grid (``parallel/mesh.py``): the N consecutive
+ranks of a model group step the same rows, DETR's FFNs split their hidden
+width between them (``parallel/tp.py``), and the world size of the schedule
+and the batch is W/N. It needs ``--multi-host`` and raises without it.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import os
 import torch
 
 from basedet_tpu_torch import parallel
-from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config
+from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config, resolve_device
 from basedet_tpu_torch.utils.logger import logger, setup_logger
 from basedet_tpu_torch.utils.registry import build_trainer
 
@@ -42,9 +48,16 @@ from basedet_tpu_torch.utils.registry import build_trainer
 def _train_one(config_file: str, args, device: torch.device):
     cfg = import_config(config_file)
     apply_common_flags(cfg, args)
-    rank = parallel.rank()
+    tp = int(cfg.TRAINER.get("TP_SIZE", 1))
+    if tp > 1 and not args.multi_host:
+        raise ValueError(f"TRAINER.TP_SIZE {tp} needs --multi-host under torchrun: the model group's ranks are "
+                         "processes")
+    if args.multi_host:
+        parallel.init_grid(tp)
+    rank = parallel.global_rank()
     setup_logger(cfg.GLOBAL.OUTPUT_DIR if rank == 0 else None, rank=rank)
-    logger.info(f"training config: {config_file} on {device}, world size {parallel.world_size()}")
+    logger.info(f"training config: {config_file} on {device}, data-parallel world size {parallel.world_size()}, "
+                f"TP_SIZE {tp}")
 
     trainer = build_trainer(cfg, device)
     trainer.init_state()
@@ -68,9 +81,7 @@ def main(args=None):
                            "copies; pass --multi-host")
     if args.dist_backend and not args.multi_host:
         raise ValueError("--dist-backend needs --multi-host")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but CUDA is not available; pass --device cpu explicitly")
+    device = resolve_device(args.device)
     if args.multi_host:
         device = parallel.init_from_env(device, args.dist_backend)
     try:

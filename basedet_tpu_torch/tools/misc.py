@@ -9,6 +9,8 @@ import importlib.util
 import os
 import sys
 
+import torch
+
 
 def import_config(config_file: str, class_name: str = "Cfg"):
     """Import ``config_file`` and instantiate its ``Cfg`` class (the user
@@ -62,3 +64,12 @@ def apply_common_flags(cfg, args) -> None:
         cfg.TRAINER.EMA.ENABLE = True
     if getattr(args, "tb", False):
         cfg.GLOBAL.TENSORBOARD.ENABLE = True
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point's ``--device`` names; ``cuda`` without CUDA
+    raises, as the entry points never swap it for the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but CUDA is not available; pass --device cpu explicitly")
+    return device

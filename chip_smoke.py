@@ -306,7 +306,23 @@ Run from the root of the repository. Phases, each of which raises on failure:
      bit-equal, each step's losses by DP_LOSS_RTOLS, each kernel's launches
      per rank, which gloo collectives take CUDA tensors; each rank writes its
      results to a file under the phase's directory, which the phase reads;
- 45. print the kernel report (ten kernels in six sources, the bf16
+ 45. tensor parallelism: full-width DETR R50, 2 steps of 2 images of
+     800x1333, through ``det_train --multi-host TRAINER.TP_SIZE 2`` on two
+     ranks sharing the card over gloo (data 1 x model 2: every FFN split over
+     them), against the plain det_train on the same weights and batches
+     (losses by DP_LOSS_RTOLS, the state as a whole to TP_UPDATE_RTOL and
+     reported tensor by tensor), the ranks bit-equal, the step time beside
+     the plain step's;
+ 46. trace_net (torch.export) on full-width YOLOX-S at 640x640 and Faster
+     R-CNN R50-FPN at 800x1344, each program reloaded and run beside the
+     eager module (outputs within EXPORT_RTOL, discrete outputs and
+     post_process's detections equal); Faster R-CNN's program holds NMS and
+     RoIAlign as custom ops and launches their kernels as the eager module
+     does (the profiler's counts by kernel name, the wrappers' counts);
+ 47. profile_net on YOLOX-S training, batch 8 of 640x640, 3 steps: the
+     Chrome trace parses and holds #2 and #10 once a step;
+ 48. analyze_net on the ten families' configs: parameters and FLOPs;
+ 49. print the kernel report (ten kernels in six sources, the bf16
      RoIAlign variants apart; every kernel's launches path by path, the new
      paths and each data-parallel rank included), the card, and the result
      line.
@@ -5382,12 +5398,15 @@ def _gloo_cuda_probes(device):
 def dp_worker(out_dir, tag, runs):
     """One rank under torchrun: for each (name, det_train arguments) of ``runs``, det_train (with
     --multi-host in its arguments) with the kernel counts zeroed just before and read just after,
-    the cross-rank BN and gradient all-reduce calls counted, each step's wall time and global
+    the cross-rank BN and gradient all-reduce calls counted, the model-group width of each of DETR's
+    FFN calls recorded (phase 45), each step's wall time and global
     losses kept; then ``out_dir/<tag>_<name>_rank<r>.pt``. A second run takes its own port
     (``DP_SECOND_PORTS``), as det_train ends its process group."""
     from basedet_tpu_torch import parallel
     from basedet_tpu_torch.engine.trainer import DetTrainer
+    from basedet_tpu_torch.layers.blocks import transformer
     from basedet_tpu_torch.layers.common import blocks
+    from basedet_tpu_torch.parallel import tp
     from basedet_tpu_torch.tools import det_train
 
     if not torch.cuda.is_available():
@@ -5421,13 +5440,14 @@ def dp_worker(out_dir, tag, runs):
         try:
             with recording(blocks.CrossRankBatchNorm, "apply", lambda a, o: None) as bn_calls, \
                     recording(parallel, "all_reduce_grads", lambda a, o: None) as grad_reductions, \
+                    recording(transformer, "reduce_from_model", lambda a, o: tp.tp_size()) as ffn_splits, \
                     kernel_counts(path):
                 trainer = det_train.main(args)
                 torch.cuda.synchronize()
         finally:
             DetTrainer.train_one_iter = fn
         torch.save({"steps": steps, "counts": DATA_COUNTS[path], "bn_calls": len(bn_calls),
-                    "grad_reductions": len(grad_reductions), "probes": dict(probes),
+                    "grad_reductions": len(grad_reductions), "ffn_splits": ffn_splits, "probes": dict(probes),
                     "world": trainer.world_size, "global_batch": trainer.global_batch_size,
                     "state": {k: v.detach().cpu() for k, v in trainer.model.module.state_dict().items()}},
                    os.path.join(out_dir, f"{tag}_{name}_rank{rank}.pt"))
@@ -5672,6 +5692,244 @@ def phase_dp_gloo(out_dir, weights, frcnn_weights, card):
     return launches
 
 
+# -- tensor parallelism (TRAINER.TP_SIZE) and the tools: trace, profile, analyze -------------------
+
+TP_SIZE = 2
+# The two TP ranks against one process on the same weights and batches: the two differ in the order of
+# the FFN's sums (two partial products of 1024 hidden columns, summed over gloo, against one product of
+# 2048) and in cuDNN's non-deterministic weight gradients (which the model group's average makes the
+# ranks share). The losses are held as the data-parallel runs' (DP_LOSS_RTOLS; measured 1.0e-7 and
+# 2.0e-7). The state is held as a whole, the parameters' update over the 2 steps within TP_UPDATE_RTOL of
+# its norm (measured 3.2e-4), and reported tensor by tensor against DP_RTOL, DP_ATOL, which it does not
+# hold: AdamW moves an element by about the LR whatever its gradient's size, so an element whose gradient
+# is near 0 takes the sign of the rounding (encoder_4.linear1.weight 1.21e-5 off, one step's LR of
+# 1.25e-5, at 3.3x that tolerance; NVIDIA H100 80GB HBM3, 700.00 W)
+TP_UPDATE_RTOL = 1e-2
+EXPORT_RTOL = 1e-5  # a reloaded program against the eager module, of max(1, max|output|): the same ATen ops
+ANALYZE = {  # family: (config, image the phases run it at)
+    "YOLOX-S": (CONFIG, (640, 640)), "Faster R-CNN": (FRCNN_CONFIG, (800, 1344)),
+    "CenterNet": (CNET_CONFIG, CNET_IMAGE), "RetinaNet": (RETINA_CONFIG, (800, 1344)),
+    **{name: (NEW_MODELS[name][0], (800, 1344)) for name in ("FCOS", "ATSS", "OTA", "FreeAnchor")},
+    "YOLOv3": (YOLOV3_CONFIG, (800, 1344)), "DETR": (DETR_CONFIG, (800, 1344)),
+}
+
+
+def phase_tp(out_dir, card):
+    """45. Tensor parallelism: full-width DETR R50 (6 + 6 layers, FFN 2048, 100 queries), 2 steps of 2
+    images of 800x1333, dropout 0.1, through ``torchrun --nproc-per-node 2 ... det_train --multi-host
+    --dist-backend gloo TRAINER.TP_SIZE 2`` (data 1 x model 2: both ranks share the card and step the
+    same rows, each FFN split over them) against the plain det_train on the same weights and batches:
+    each step's losses, the state after the steps, the ranks bit-equal, every FFN call of the ranks
+    split two ways, no kernel launched (DETR runs none) and no plain version; the step wall time beside
+    the plain step's. NCCL at TP_SIZE 2 needs two cards: not run here."""
+    tp_dir = os.path.join(out_dir, "tp")
+    os.makedirs(tp_dir, exist_ok=True)
+    weights = _amp_weights(out_dir, "DETR")
+
+    def args(sub, multi_host):
+        flags = ["--multi-host", "--dist-backend", "gloo"] if multi_host else []
+        opts = _last_train_opts(os.path.join(tp_dir, sub), "DETR", weights, DETR_B)
+        return ["-f", DETR_CONFIG, "--device", "cuda", *flags, *opts,
+                *(["TRAINER.TP_SIZE", str(TP_SIZE)] if multi_host else [])]
+
+    plain, state = _dp_plain(args("plain", False), "DETR det_train, plain beside the TP run")
+    runs, seconds = _torchrun(TP_SIZE, tp_dir, "tp2", [("detr", args("tp", True))])
+    ranks = runs["detr"]
+    label = f"DETR det_train --multi-host TRAINER.TP_SIZE {TP_SIZE}, 2 ranks over gloo"
+    layers = 6 + 6
+    for r, res in enumerate(ranks):
+        check(res["world"] == 1 and res["global_batch"] == DETR_B and len(res["steps"]) == LAST_STEPS,
+              f"{label} rank {r}: {len(res['steps'])} steps at data-parallel world {res['world']}, global batch "
+              f"{res['global_batch']}")
+        check(res["ffn_splits"] == [TP_SIZE] * (layers * LAST_STEPS),
+              f"{label} rank {r}: FFN calls split {res['ffn_splits']}")
+        for kernel, (n, plain_calls) in res["counts"].items():
+            check(n == 0 and plain_calls == 0, f"{label} rank {r}: {kernel} launched {n} times, plain {plain_calls}")
+    for k, v in ranks[0]["state"].items():
+        check(torch.equal(v, ranks[1]["state"][k]), f"{label}: the ranks' {k} differ")
+    init = torch.load(weights, map_location="cpu")
+    worst_loss = _check_losses(label, ranks[0]["steps"], plain)
+    update = _update_deviation(ranks[0]["state"], state, init)
+    rows = _state_deviation(ranks[0]["state"], state, init)
+    check(update <= TP_UPDATE_RTOL, f"{label}: the update of its parameters {update:.4g} of its norm off one "
+                                    f"process's (TP_UPDATE_RTOL {TP_UPDATE_RTOL}); most off: {_state_report(rows)}")
+    tp_ms, tp_text = _median_ms(ranks[0]["steps"])
+    plain_ms, plain_text = _median_ms(plain)
+    ms = lambda steps: "/".join(f"{s['ms']:.1f}" for s in steps)
+    log(f"[tp] {label} (data 1 x model {TP_SIZE}, a torchrun launch of {seconds:.1f} s; 2 steps of {DETR_B} at "
+        f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}, dropout 0.1): every one of the {layers} FFN calls a step split "
+        f"{TP_SIZE} ways on each rank; the ranks bit-equal; losses within {worst_loss} relative of the plain "
+        f"det_train's by step; the update of its parameters {update:.4g} of its norm off one process's "
+        f"(TP_UPDATE_RTOL {TP_UPDATE_RTOL}); per tensor, against rtol {DP_RTOL}, atol {DP_ATOL}"
+        f"{' (held)' if rows[0][0] <= 1 else ' (not held)'}: {_state_report(rows)}; no kernel launch, plain 0; step "
+        f"wall time, steps 1/2: rank 0 {ms(ranks[0]['steps'])} ms, rank 1 {ms(ranks[1]['steps'])} ms, plain "
+        f"{ms(plain)} ms; step 2: {tp_text} against {plain_text}, {tp_ms / plain_ms:.3f}x | {card}")
+
+
+def kernel_launches(fn, iters, names):
+    """Launches per call of fn of the device kernels whose names contain each of ``names``, from
+    torch.profiler (``profiled``: a pass must show every name)."""
+
+    def read(prof):
+        ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        found = {n: sum(e.count for e in ops if n in e.key) for n in names}
+        return {n: c / iters for n, c in found.items()} if all(found.values()) else None
+
+    return profiled(fn, iters, read, f"kernels named {names}")
+
+
+def _flat_tensors(out):
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat_tensors(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_tensors(o)]
+    return [out]
+
+
+def _compare_outputs(what, got, want):
+    """Continuous outputs within EXPORT_RTOL of max(1, max|want|), discrete (bool, integer) equal.
+    Returns the largest error, printable."""
+    got, want = _flat_tensors(got), _flat_tensors(want)
+    check(len(got) == len(want), f"{what}: {len(got)} outputs against {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: {g.dtype} {tuple(g.shape)} against {w.dtype} "
+                                                         f"{tuple(w.shape)}")
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{what}: a discrete output differs")
+            continue
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite outputs")
+        err = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+        check(err <= EXPORT_RTOL, f"{what}: off by {err:.3g} of max(1, max|output|) (EXPORT_RTOL {EXPORT_RTOL})")
+        worst = max(worst, err)
+    return f"{worst:.3g}"
+
+
+def phase_trace(out_dir, weights, frcnn_weights, card):
+    """46. trace_net (``torch.export``) on full-width YOLOX-S at 640x640 and Faster R-CNN R50-FPN at
+    800x1344, each with the earlier phases' random weights (``-w``); each program reloaded
+    (``load_static_graph``) and run on a seeded image beside the eager module: outputs within
+    EXPORT_RTOL, discrete outputs equal, the detections of post_process on both equal; Faster R-CNN's
+    program holds NMS and RoIAlign as one custom-op node each and launches their kernels (the
+    profiler's count by kernel name, and the wrappers' counts) as often as the eager module does, its
+    plain versions never. Export and reload times printed."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.models.base_net import load_static_graph
+    from basedet_tpu_torch.tools import import_config, trace_net
+    from basedet_tpu_torch.utils.dummy import DummyLoader
+
+    for name, config, w, image, size in (("YOLOX-S", CONFIG, weights, (640, 640), (640, 640)),
+                                         ("Faster R-CNN", FRCNN_CONFIG, frcnn_weights, FRCNN_IMAGE, (800, 1344))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = os.path.join(out_dir, f"{name.replace(' ', '_').lower()}.pt2")
+        t0 = time.perf_counter()
+        program = trace_net.main(["-f", config, "-w", w, "--device", "cuda", "--height", str(size[0]), "--width",
+                                  str(size[1]), "--out", path, "GLOBAL.OUTPUT_DIR", out_dir])
+        export_s = time.perf_counter() - t0
+        ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        custom = {op: ops.count(op) for op in sorted(set(ops)) if op.startswith("basedet.")}
+        want_custom = {"basedet.nms_keep.default": 1, "basedet.roi_align.default": 1} if name == "Faster R-CNN" else {}
+        check(custom == want_custom, f"{name}'s program calls the custom ops {custom}, not {want_custom}")
+        del program
+        t0 = time.perf_counter()
+        reloaded = load_static_graph(path)
+        load_s = time.perf_counter() - t0
+        cfg = import_config(config)
+        cfg.merge(["DATA.TEST.name", "dummy", "GLOBAL.OUTPUT_DIR", out_dir])
+        model = build_model(cfg, "cuda")
+        model.load_weights(w)
+        model.eval()
+        batch = DummyLoader(batch_size=1, image_size=image, max_instances=cfg.DATA.MAX_INSTANCES).make_batch()
+        inputs = model.pre_process(batch)
+        check(tuple(inputs["image"].shape[2:]) == size, f"{name}: the image pads to {tuple(inputs['image'].shape)}")
+        args = (inputs["image"], inputs["img_info"]) if name == "Faster R-CNN" else (inputs["image"],)
+        outputs, counts = {}, {}
+        for tag, fn in (("eager module", model.module), ("exported program, reloaded", reloaded)):
+            path_name = f"{name} {tag} (trace_net)"
+            with torch.no_grad(), kernel_counts(path_name):
+                out = fn(*args)
+                dets = model.post_process(*out, inputs["img_info"])
+                torch.cuda.synchronize()
+            outputs[tag] = (out, dets)
+            counts[tag] = {k: v for k, v in DATA_COUNTS[path_name].items() if v != (0, 0)}
+        err = _compare_outputs(f"{name}'s reloaded program", outputs["exported program, reloaded"][0],
+                               outputs["eager module"][0])
+        det_err = _compare_outputs(f"{name}'s detections from the reloaded program",
+                                   outputs["exported program, reloaded"][1], outputs["eager module"][1])
+        check(counts["exported program, reloaded"] == counts["eager module"],
+              f"{name}: launches {counts['exported program, reloaded']} reloaded, {counts['eager module']} eager")
+        check(all(plain == 0 for _, plain in counts["eager module"].values()), f"{name}: a plain version ran")
+        extra = ""
+        if name == "Faster R-CNN":
+            check(counts["eager module"].get("nms_keep") == (2, 0) and
+                  counts["eager module"].get("multilevel_roi_align") == (1, 0),
+                  f"Faster R-CNN's request launched {counts['eager module']}")
+            names = ("nms_mask_kernel", "nms_sweep_kernel", "roi_align_fwd_kernel")
+            with torch.no_grad():
+                profiled_counts = {tag: kernel_launches(lambda fn=fn: fn(*args), 3, names)
+                                   for tag, fn in (("eager", model.module), ("reloaded", reloaded))}
+            check(profiled_counts["eager"] == profiled_counts["reloaded"],
+                  f"Faster R-CNN's kernels by the profiler: {profiled_counts}")
+            extra = f"; the profiler's launches a forward, eager | reloaded: {profiled_counts}"
+        log(f"[trace] {name} at {size[0]}x{size[1]}: torch.export and save in {export_s:.1f} s, reload in "
+            f"{load_s:.1f} s; custom-op nodes {custom or 'none'}; the reloaded program's outputs within {err} of "
+            f"max(1, max|output|) of the eager module's (EXPORT_RTOL {EXPORT_RTOL}), discrete outputs equal; its "
+            f"detections (post_process, NMS included) within {det_err}, labels and validity equal; kernel launches "
+            f"and plain calls of the forward and post_process, eager | reloaded: {counts['eager module']} | "
+            f"{counts['exported program, reloaded']}{extra} | {card}")
+        del reloaded, model, outputs
+
+
+def phase_profile_tool(out_dir, card):
+    """47. profile_net on full-width YOLOX-S training, batch 8 of 640x640 (DummyLoader's, random weights
+    from seed 0), 3 steps traced after a warm one: the Chrome trace parses as JSON and holds kernels #2
+    (``match_kernel``) and #10 (``iou_kernel``) once a step; the wrappers launch them 4 times (with
+    the warm step), the plain versions never."""
+    from basedet_tpu_torch.tools import profile_net
+
+    trace_dir = os.path.join(out_dir, "profile_net")
+    path_name = "YOLOX-S profile_net (warm step + 3 traced)"
+    t0 = time.perf_counter()
+    with kernel_counts(path_name):
+        trace = profile_net.main(["-f", CONFIG, "--device", "cuda", "--iters", "3", "--trace-dir", trace_dir,
+                                  "MODEL.BATCHSIZE", "8", "DATA.DUMMY_IMAGE_SIZE", "(640,640)",
+                                  "GLOBAL.OUTPUT_DIR", trace_dir])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = check_counts(path_name, {"dynamic_k_matching": 4, "box_iou": 4})
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {n: sum(n in e.get("name", "") for e in kernels) for n in ("match_kernel", "iou_kernel")}
+    check(found == {"match_kernel": 3, "iou_kernel": 3}, f"profile_net's trace holds {found} of #2 and #10")
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3 / 3
+    log(f"[profile] profile_net YOLOX-S train, batch 8 of 640x640, 3 steps traced: {trace} parses, "
+        f"{len(events)} events, {len(kernels)} kernel events ({len(kernels) / 3:.0f} a step, their durations "
+        f"{busy:.3f} ms a step), #2 and #10 once a step; wrappers' launches with the warm step {counts}; "
+        f"the tool's run {seconds:.1f} s | {card}")
+
+
+def phase_analyze(card):
+    """48. analyze_net on each of the ten families' configs at the image the phases run them at:
+    parameters (the JAX package's ``params`` collection; the CPU tests hold it to the JAX tool) and
+    FlopCounterMode's forward GFLOPs (convolutions and matrix products)."""
+    from basedet_tpu_torch.tools import analyze_net, import_config
+
+    rows = []
+    t0 = time.perf_counter()
+    for name, (config, size) in ANALYZE.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats = analyze_net.analyze(import_config(config), size, "cuda")
+        check(stats["params"] > 0 and stats["forward_gflops"] > 0 and math.isfinite(stats["forward_gflops"]),
+              f"analyze_net {name}: {stats}")
+        rows.append(f"{name} {stats['params']} parameters ({stats['params_M']} M), {stats['forward_gflops']} GFLOPs "
+                    f"at {size[0]}x{size[1]}")
+    log(f"[analyze] analyze_net over the ten families in {time.perf_counter() - t0:.1f} s: " + "; ".join(rows)
+        + f" | {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -5743,6 +6001,10 @@ def main():
         dp_launches = phase_dp_gloo(out_dir, weights, frcnn_weights, card)
         for name, paths in (("dynamic_k_matching", dp_match), ("box_iou", dp_iou)):
             dp_launches.setdefault(name, {}).update(paths)
+        phase_tp(out_dir, card)
+        phase_trace(out_dir, weights, frcnn_weights, card)
+        phase_profile_tool(out_dir, card)
+        phase_analyze(card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}

@@ -4,7 +4,8 @@ its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN (also with
 ``--amp --remat``), tiny CenterNet and
 tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
-synthetic PNG set through the data slice)
+synthetic PNG set through the data slice), and its tools (trace_net,
+analyze_net and dump_cfg on tiny YOLOX-S, parity_eval --rehearse)
 run in a subprocess that cannot import any of them, nor Pillow, which only
 JPEG needs. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
@@ -117,6 +118,26 @@ from basedet_tpu_torch.tools import det_test
 results = det_test.main(["-f", {config!r}, "-w", {out!r} + "/ckpt/dumped_model.pt", "--device", "cpu", *opts,
                          "TEST.CLS_THRESHOLD", "0.0"])
 print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+_TOOLS_SCRIPT = _BLOCK + r"""
+from basedet_tpu_torch.models.base_net import load_static_graph
+from basedet_tpu_torch.tools import analyze_net, dump_cfg, parity_eval, trace_net
+
+opts = ["MODEL.WIDTH_FACTOR", "0.25", "MODEL.DEPTH_FACTOR", "0.33", "GLOBAL.OUTPUT_DIR", {out!r}]
+size = ["--height", "64", "--width", "64"]
+trace_net.main(["-f", {config!r}, "--device", "cpu", *size, "--out", {out!r} + "/m.pt2", *opts])
+import torch
+
+outputs = load_static_graph({out!r} + "/m.pt2")(torch.zeros(1, 3, 64, 64))
+stats = analyze_net.main(["-f", {config!r}, "--device", "cpu", *size, *opts])
+dumped = dump_cfg.main(["-f", {config!r}, "-o", {out!r} + "/dumped.py"])
+_, rehearsal = parity_eval.main(["--rehearse", "--rehearse-images", "2", "--device", "cpu",
+                                 "--out-dir", {out!r} + "/parity"])
+print(json.dumps({{"levels": len(outputs), "params": stats["params"], "dumped": dumped,
+                   "missing": len(rehearsal["missing"]), "unused": len(rehearsal["unused"]),
+                   "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
 
 
@@ -261,27 +282,46 @@ def test_faster_rcnn_det_train_amp_remat_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "faster_rcnn", flags=["--amp", "--remat"])
 
 
+def test_tools_run_without_jax(tmp_path):
+    """trace_net (and the reload of its program), analyze_net and dump_cfg on
+    tiny YOLOX-S, and parity_eval's rehearsal, blocked."""
+    out = _run_blocked(_TOOLS_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=YOLOX))
+    assert out["leaked"] == []
+    assert out["levels"] == 3 and out["params"] > 0
+    assert os.path.exists(out["dumped"]) and out["missing"] == out["unused"] == 0
+
+
 def test_port_sources_never_import_jax():
     """No file of the port (its configs included) and not chip_smoke.py
     imports JAX or the JAX package."""
     pattern = re.compile(r"^\s*(import|from)\s+(basedet_tpu|jax|jaxlib|flax|optax|cv2)\b", re.M)
     sources = [*(REPO / "basedet_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    scanned = {str(p.relative_to(REPO)) for p in sources}
+    assert {f"basedet_tpu_torch/{m}.py" for m in (
+        "parallel/mesh", "parallel/tp", "tools/trace_net", "tools/profile_net", "tools/analyze_net",
+        "tools/dump_cfg", "tools/parity_diff", "tools/parity_eval", "layers/common/module_inspector",
+        "layers/common/module_utils", "layers/blocks/pool", "evaluators/visualize")} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from basedet_tpu.utils import logger")
     assert not pattern.search("from basedet_tpu_torch.utils import logger")
 
 
-@pytest.mark.parametrize("tool", ["det_train", "det_test"])
+@pytest.mark.parametrize("tool", ["det_train", "det_test", "trace_net", "analyze_net", "profile_net", "parity_eval",
+                                  "parity_diff"])
 def test_tools_default_to_cuda_and_raise_without_it(tool, monkeypatch, tmp_path):
-    """det_train and det_test run on the card unless the caller asks for the
-    CPU: with no --device and no CUDA they raise, naming --device cpu,
-    before they build anything."""
+    """The entry points run on the card unless the caller asks for the CPU:
+    with no --device and no CUDA they raise, naming --device cpu, before
+    they build anything."""
     import importlib
 
     import torch
 
     main = importlib.import_module(f"basedet_tpu_torch.tools.{tool}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = {"parity_eval": ["--rehearse", "--out-dir", str(tmp_path)],
+            "parity_diff": ["dump", "-o", str(tmp_path / "d.pkl")]}.get(tool, ["-f", YOLOX, "GLOBAL.OUTPUT_DIR",
+                                                                             str(tmp_path)])
     with pytest.raises(RuntimeError, match="--device cpu"):
-        main(["-f", YOLOX, "GLOBAL.OUTPUT_DIR", str(tmp_path)])
+        main(args)
+    assert not any(tmp_path.iterdir())
