@@ -11,8 +11,12 @@ spinning; ``close()`` stops the workers.
 
 Under a process group each rank's loader walks the global batch sampler and
 decodes its own rows of each batch (``RankBatchSampler``). A rank pads its
-rows to their own size (or bucket), where the JAX package pads the global
-batch to one: with images of varying size the padded shapes can differ.
+rows to their own size (or bucket); the trainer then pads every rank's batch
+to the data group's largest canvas (``engine/trainer.py::pad_to_group``),
+which is the canvas one process pads the global batch to, as the JAX package
+does, because the buckets commute with the maximum
+(``collators/pad_collator.py::check_group_buckets``, checked here for
+``DATA.SIZE_BUCKETS`` when the world size is above 1).
 
 Workers are forked, persist across passes, and each seeds its copy of the
 dataset's ``DataRNG`` from (seed, pass, stream) in ``worker_init_fn``, the
@@ -32,7 +36,7 @@ import torch
 from torch.utils.data import DataLoader
 
 from basedet_tpu_torch.data.collators.pack import CanvasRing, pin_batch
-from basedet_tpu_torch.data.collators.pad_collator import DetectionPadCollator
+from basedet_tpu_torch.data.collators.pad_collator import DetectionPadCollator, check_group_buckets
 from basedet_tpu_torch.data.datasets.coco import COCODataset
 from basedet_tpu_torch.data.datasets.info import resolve_dataset
 from basedet_tpu_torch.data.datasets.mosaic_dataset import MosaicDataset
@@ -159,6 +163,8 @@ def _seed(cfg) -> int:
 def _train_loader(cfg, dataset, batch_sampler, collator, ring) -> TrainLoader:
     """The rank's loader over ``batch_sampler``'s global batches."""
     workers = cfg.DATA.get("NUM_WORKERS", 0)
+    if world_size() > 1:
+        check_group_buckets(collator.size_buckets)
     return TrainLoader(dataset, RankBatchSampler(batch_sampler, rank(), world_size()), collator,
                        num_workers=workers, seed=_seed(cfg), ring=ring, first_stream=rank() * max(1, workers))
 

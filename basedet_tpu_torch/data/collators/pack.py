@@ -1,9 +1,12 @@
-"""The batch pack and its canvases (counterpart of the numpy form of
+"""The batch pack and its canvases (counterpart of
 ``basedet_tpu/native/pack.py``).
 
 ``pack_images`` copies variable-size HWC images into one (B, H, W, C)
-canvas, top-left, padded with ``pad``; uint8 stays uint8 (the model casts on
-the card). ``CanvasRing`` reuses canvases; with ``pin`` they are page-locked,
+canvas, top-left, padded with ``pad``, through the host library
+(``basedet_tpu_torch/native``: one pass over the canvas, OpenMP threads in
+the main process), with DETR's valid-pixel mask in the same pass where one
+is asked for; ``pack_numpy`` is its plain version. uint8 stays uint8 (the
+model casts on the card). ``CanvasRing`` reuses canvases; with ``pin`` they are page-locked,
 so that the copy to the card runs without blocking the host
 (``layers.common.pre_processing.to_device``). Each pinned slot carries a
 CUDA event, ``copy_done``, which ``to_device`` records after the slot's copy;
@@ -12,10 +15,12 @@ never rewritten while its copy is queued.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from basedet_tpu_torch.native.pack import pack_into
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
 
@@ -65,20 +70,29 @@ def new_canvas(shape: Sequence[int], dtype: torch.dtype, ring: "CanvasRing | Non
     return ring.get(shape, dtype) if ring is not None else torch.empty(tuple(shape), dtype=dtype)
 
 
+def pack_numpy(images: Sequence[np.ndarray], pad: float, out: np.ndarray, mask: Optional[np.ndarray] = None) -> None:
+    """The plain version of ``native.pack.pack_into``: the same canvas and
+    mask, image by image in numpy."""
+    for b, img in enumerate(images):
+        h, w = img.shape[:2]
+        out[b, :h, :w] = img
+        out[b, :h, w:] = pad
+        out[b, h:] = pad
+        if mask is not None:
+            mask[b] = 0
+            mask[b, :h, :w] = 1
+
+
 def pack_images(images: List[np.ndarray], H: int, W: int, pad: float = 0.0,
-                ring: "CanvasRing | None" = None) -> torch.Tensor:
+                ring: "CanvasRing | None" = None, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, H, W, C) canvas of the images, each at its top left, the rest
-    ``pad``."""
+    ``pad``; ``mask`` (B, H, W) uint8, where given, is filled with 1 on each
+    image's pixels and 0 elsewhere in the same pass."""
     if not images:
         return torch.zeros((0, H, W, 3), dtype=torch.float32)
     dtype = canvas_dtype(images, pad)
     out = new_canvas((len(images), H, W, images[0].shape[2]), _TORCH_DTYPES[dtype], ring)
-    canvas = out.numpy()
-    for b, img in enumerate(images):
-        h, w = img.shape[:2]
-        canvas[b, :h, :w] = img
-        canvas[b, :h, w:] = pad
-        canvas[b, h:] = pad
+    pack_into(images, pad, out.numpy(), None if mask is None else mask.numpy())
     return out
 
 

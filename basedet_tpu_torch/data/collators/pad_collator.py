@@ -9,6 +9,8 @@ num_instances], all CPU tensors, and ``image_id`` (B,) numpy; with
 ``with_mask`` (``DETRPadCollator``) also ``mask`` (B, H, W) uint8, 1 on each
 image's pixels and 0 on the padding.
 
+The image canvas and the mask are filled in one pass of the host library's
+pack (``data/collators/pack.py``), as the JAX package's collator packs.
 In the main process the canvases come from ``ring`` (pinned on the card's
 path); in a DataLoader worker they are fresh tensors, which the loader moves
 through shared memory and pins in the main process. A worker keeps no ring:
@@ -37,6 +39,31 @@ def pick_bucket(h: int, w: int, buckets: Optional[Sequence[Tuple[int, int]]]) ->
     return _round32(h), _round32(w)
 
 
+def check_group_buckets(buckets: Optional[Sequence[Tuple[int, int]]]) -> None:
+    """Raise unless ``pick_bucket`` commutes with the maximum: for any two
+    sets of rows, the larger in each dimension of their two canvases must be
+    the canvas of their union. Each rank of a data group pads its rows to
+    its own canvas and the trainer then pads every rank to the group's
+    largest; that equals the canvas of the global batch only where this
+    holds. Multiples of 32 (no buckets) always commute; a bucket ladder does
+    where, for every pair of sizes, the buckets picked do. ``pick_bucket``
+    is constant between consecutive bucket edges, so the edges themselves
+    are the only sizes to try."""
+    if not buckets:
+        return
+    hs, ws = sorted({b[0] for b in buckets}), sorted({b[1] for b in buckets})
+    sizes = [(h, w) for h in hs for w in ws]
+    for h1, w1 in sizes:
+        a = pick_bucket(h1, w1, buckets)
+        for h2, w2 in sizes:
+            b = pick_bucket(h2, w2, buckets)
+            union = pick_bucket(max(h1, h2), max(w1, w2), buckets)
+            if (max(a[0], b[0]), max(a[1], b[1])) != tuple(union):
+                raise ValueError(f"size buckets {list(buckets)} do not commute with the maximum: rows of at most "
+                                 f"{(h1, w1)} pad to {a}, rows of at most {(h2, w2)} to {b}, both together to "
+                                 f"{union}; ranks would pad the global batch to another canvas than one process")
+
+
 class DetectionPadCollator:
     def __init__(self, max_instances: int = 100, size_buckets: Optional[Sequence[Tuple[int, int]]] = None,
                  pad_value: float = 0.0, ring: Optional[CanvasRing] = None, with_mask: bool = False):
@@ -51,7 +78,8 @@ class DetectionPadCollator:
         B, K = len(records), self.max_instances
         H, W = pick_bucket(max(r["image"].shape[0] for r in records),
                            max(r["image"].shape[1] for r in records), self.size_buckets)
-        data = pack_images([np.asarray(r["image"]) for r in records], H, W, self.pad_value, ring)
+        mask_t = new_canvas((B, H, W), torch.uint8, ring) if self.with_mask else None
+        data = pack_images([np.asarray(r["image"]) for r in records], H, W, self.pad_value, ring, mask_t)
         gt_t, info_t = new_canvas((B, K, 5), torch.float32, ring), new_canvas((B, 5), torch.float32, ring)
         gt, info = gt_t.numpy(), info_t.numpy()
         gt[...] = 0
@@ -68,13 +96,7 @@ class DetectionPadCollator:
             info[b] = [h, w, oh, ow, n]
             image_ids.append(r.get("image_id", b))
         batch = {"data": data, "gt_boxes": gt_t, "im_info": info_t, "image_id": np.asarray(image_ids)}
-        if self.with_mask:
-            mask_t = new_canvas((B, H, W), torch.uint8, ring)
-            mask = mask_t.numpy()
-            mask[...] = 0
-            for b, r in enumerate(records):
-                h, w = r["image"].shape[:2]
-                mask[b, :h, :w] = 1
+        if mask_t is not None:
             batch["mask"] = mask_t
         return batch
 

@@ -1,34 +1,37 @@
 """Hook lists (counterpart of ``basedet_tpu/engine/build.py``)."""
 from __future__ import annotations
 
+import os
+
 from basedet_tpu_torch.utils.logger import logger
-from basedet_tpu_torch.engine.hooks import (BaseHook, CheckpointHook, EvalHook, LoggerHook, LRSchedulerHook,
-                                            ResumeHook)
+from basedet_tpu_torch.engine.hooks import (AsyncCheckpointHook, BaseHook, CheckpointHook, EvalHook, LoggerHook,
+                                            LRSchedulerHook, ResumeHook, TBDetectionImageHook, TensorboardHook)
 from basedet_tpu_torch.utils.registry import registers
 
 
 @registers.hooks.register()
 class SimpleHookList:
-    """Resume → LR → logger → checkpoint → eval, as the JAX package orders
-    them. Refuses what it cannot run: TensorBoard and orbax checkpoints."""
+    """Resume → LR → logger (+ TensorBoard) → checkpoint → eval, as the JAX
+    package orders them. ``GLOBAL.CKPT_BACKEND "orbax"`` takes
+    ``AsyncCheckpointHook``, which resumes by itself, in place of
+    ``ResumeHook`` and ``CheckpointHook``; ``GLOBAL.TENSORBOARD.ENABLE``
+    adds the scalars and ``LOG_IMAGES`` the detection images, both under
+    ``GLOBAL.OUTPUT_DIR/tb``."""
 
     @classmethod
     def build(cls, cfg):
-        refused = {
-            "GLOBAL.TENSORBOARD.ENABLE": cfg.GLOBAL.TENSORBOARD.get("ENABLE", False),
-            "GLOBAL.CKPT_BACKEND orbax": cfg.GLOBAL.get("CKPT_BACKEND", "pickle") == "orbax",
-        }
-        asked = [k for k, v in refused.items() if v]
-        if asked:
-            raise NotImplementedError(f"{', '.join(asked)}: not ported to basedet_tpu_torch yet")
         ckpt_dir = cfg.GLOBAL.get("CKPT_SAVE_DIR", "logs/ckpt")
-        return [
-            ResumeHook(ckpt_dir, enable=cfg.TRAINER.get("RESUME", False)),
-            LRSchedulerHook(),
-            LoggerHook(log_interval=cfg.GLOBAL.get("LOG_INTERVAL", 20)),
-            CheckpointHook(ckpt_dir),
-            EvalHook(cfg.TEST.get("EVAL_EPOCH_INTERVAL", None)),
-        ]
+        orbax = cfg.GLOBAL.get("CKPT_BACKEND", "pickle") == "orbax"
+        hooks = [] if orbax else [ResumeHook(ckpt_dir, enable=cfg.TRAINER.get("RESUME", False))]
+        hooks += [LRSchedulerHook(), LoggerHook(log_interval=cfg.GLOBAL.get("LOG_INTERVAL", 20))]
+        if cfg.GLOBAL.TENSORBOARD.get("ENABLE", False):
+            tb_dir = os.path.join(cfg.GLOBAL.OUTPUT_DIR, "tb")
+            hooks.append(TensorboardHook(tb_dir))
+            if cfg.GLOBAL.TENSORBOARD.get("LOG_IMAGES", False):
+                hooks.append(TBDetectionImageHook(tb_dir))
+        hooks.append(AsyncCheckpointHook(ckpt_dir) if orbax else CheckpointHook(ckpt_dir))
+        hooks.append(EvalHook(cfg.TEST.get("EVAL_EPOCH_INTERVAL", None)))
+        return hooks
 
 
 class YoloxNoAugHook(BaseHook):

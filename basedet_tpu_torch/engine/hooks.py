@@ -1,24 +1,30 @@
 """Training hooks (counterpart of ``basedet_tpu/engine/hooks.py``): host code
-run between steps. Ported: logging, the LR hook, checkpoints, resume and
-evaluation. TensorBoard and orbax checkpoints are not ported;
-``engine/build.py`` refuses the configs that ask for them.
+run between steps: logging, the LR hook, checkpoints (blocking pickles of
+``torch.save``, or ``AsyncCheckpointHook``, the counterpart of the JAX
+package's orbax hook), resume, evaluation, and TensorBoard scalars and
+detection images (through ``utils/tb_writer.py``, which writes the event
+files itself).
 
-Under a process group, rank 0 alone writes the checkpoints and runs the
-evaluation, over the whole split, as the JAX package's one process does; the
-other ranks wait for it at a barrier. Every rank resumes from the same file,
-then takes rank 0's state."""
+Under a process group, rank 0 alone writes the checkpoints and the event
+files and runs the evaluation, over the whole split, as the JAX package's one
+process does; the other ranks wait for it at a barrier. Every rank resumes
+from the same file, then takes rank 0's state."""
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import os
+import re
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from basedet_tpu_torch import parallel
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.registry import registers
+from basedet_tpu_torch.utils.tb_writer import SummaryWriter
 
 
 class BaseHook:
@@ -99,16 +105,9 @@ class CheckpointHook(BaseHook):
         parallel.barrier()
 
     def _write(self, name: str):
-        t = self.trainer
         os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, name)
-        torch.save({
-            "model": t.model.module.state_dict(),
-            "optimizer": t.state.optimizer.state_dict(),
-            "ema": t.state.ema_params,
-            "step": t.state.step,
-            "progress": t.progress.state_dict(),
-        }, path)
+        torch.save(checkpoint_payload(self.trainer), path)
         with open(os.path.join(self.save_dir, "last_checkpoint"), "w") as f:
             f.write(name)
         logger.info(f"saved checkpoint to {path}")
@@ -150,22 +149,152 @@ class ResumeHook(BaseHook):
             logger.info(f"no checkpoint at {path}; training from scratch")
             return
         t = self.trainer
-        ckpt = torch.load(path, map_location=t.model.device, weights_only=True)
-        t.model.module.load_state_dict(ckpt["model"], strict=True)
-        t.state.optimizer.load_state_dict(ckpt["optimizer"])
-        if t.state.ema_params is not None:
-            if ckpt["ema"] is None:
-                raise ValueError(f"{path} was trained without EMA; TRAINER.EMA.ENABLE asks for it")
-            with torch.no_grad():
-                for name, value in ckpt["ema"].items():
-                    t.state.ema_params[name].copy_(value)
-        parallel.broadcast_module(t.model.module)
-        parallel.broadcast_tensors((t.state.ema_params or {}).values())
-        t.state.step = ckpt["step"]
+        ckpt = restore_checkpoint(t, path)
         t.progress.epoch = ckpt["progress"]["epoch"]
         t.progress.inner_iter = ckpt["progress"]["inner_iter"]
         t.progress.epoch_done()
         logger.info(f"resumed from {path}: step {t.state.step}, epoch {t.progress.epoch}")
+
+
+def checkpoint_payload(t) -> dict:
+    """What a training checkpoint holds: the module's state_dict, the
+    optimizer, the EMA parameters, the step and the progress."""
+    return {
+        "model": t.model.module.state_dict(),
+        "optimizer": t.state.optimizer.state_dict(),
+        "ema": t.state.ema_params,
+        "step": t.state.step,
+        "progress": t.progress.state_dict(),
+    }
+
+
+def restore_checkpoint(t, path: str) -> dict:
+    """Load a training checkpoint into the trainer ``t``: the module's
+    parameters and buffers, the optimizer, the EMA parameters and the step;
+    then rank 0's parameters, buffers and EMA parameters to every rank.
+    Returns the checkpoint."""
+    ckpt = torch.load(path, map_location=t.model.device, weights_only=True)
+    t.model.module.load_state_dict(ckpt["model"], strict=True)
+    t.state.optimizer.load_state_dict(ckpt["optimizer"])
+    if t.state.ema_params is not None:
+        if ckpt["ema"] is None:
+            raise ValueError(f"{path} was trained without EMA; TRAINER.EMA.ENABLE asks for it")
+        with torch.no_grad():
+            for name, value in ckpt["ema"].items():
+                t.state.ema_params[name].copy_(value)
+    parallel.broadcast_module(t.model.module)
+    parallel.broadcast_tensors((t.state.ema_params or {}).values())
+    t.state.step = ckpt["step"]
+    return ckpt
+
+
+@registers.hooks.register()
+class AsyncCheckpointHook(BaseHook):
+    """Checkpoints that do not hold the loop up while they are written
+    (``GLOBAL.CKPT_BACKEND "orbax"``; the JAX package's
+    ``OrbaxCheckpointHook``): at every epoch's end ``<save_dir>/<epoch>.pt``
+    with what ``CheckpointHook`` writes, the newest ``max_to_keep`` kept;
+    under ``TRAINER.RESUME`` the newest restored before training, which goes
+    on at the epoch after it; ``after_train`` waits for the writes.
+
+    At an epoch's end every tensor of the checkpoint is copied into pinned
+    host memory (kept from one epoch to the next) with ``non_blocking`` on
+    the current stream, and an event is recorded after the copies. The next
+    optimizer step, which updates the parameters in place, is queued behind
+    the copies on the same stream, so it cannot overtake them. A writer
+    thread waits on the event, writes ``<epoch>.pt.tmp``, syncs it to disk
+    and renames it to ``<epoch>.pt``: only renamed files count, so a run
+    stopped mid-write leaves a ``.tmp`` that resume ignores. Rank 0 writes;
+    every rank restores the same file, then takes rank 0's state."""
+
+    _NAME = re.compile(r"^(\d+)\.pt$")
+
+    def __init__(self, save_dir: str, max_to_keep: int = 3):
+        self.save_dir = os.path.abspath(save_dir)
+        self.max_to_keep = max_to_keep
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None  # the writer thread
+        self._pending: Optional[concurrent.futures.Future] = None
+        self._host = {}  # path in the checkpoint's tree -> its host copy, reused every epoch
+
+    def steps(self):
+        """The steps of the complete checkpoints in ``save_dir``, oldest first."""
+        names = os.listdir(self.save_dir) if os.path.isdir(self.save_dir) else []
+        return sorted(int(m.group(1)) for m in map(self._NAME.match, names) if m)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.save_dir, f"{step}.pt")
+
+    def before_train(self):
+        t = self.trainer
+        if not t.cfg.TRAINER.get("RESUME", False):
+            return
+        parallel.barrier()
+        steps = self.steps()
+        if not steps:
+            logger.info(f"no checkpoint in {self.save_dir}; training from scratch")
+            return
+        restore_checkpoint(t, self.path(steps[-1]))
+        t.progress.epoch, t.progress.inner_iter = steps[-1] + 1, 1
+        logger.info(f"resumed from {self.path(steps[-1])}: step {t.state.step}, epoch {t.progress.epoch}")
+
+    def _copy(self, tree, key=()):
+        if isinstance(tree, torch.Tensor):
+            host = self._host.get(key)
+            if host is None or host.shape != tree.shape or host.dtype != tree.dtype:
+                host = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=tree.is_cuda)
+                self._host[key] = host
+            host.copy_(tree.detach(), non_blocking=tree.is_cuda)
+            return host
+        if isinstance(tree, dict):
+            return {k: self._copy(v, key + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._copy(v, key + (i,)) for i, v in enumerate(tree))
+        return tree
+
+    def after_epoch(self):
+        if not parallel.is_main_process():
+            return
+        self.wait()  # the host copies of the last epoch are free again
+        step = self.trainer.progress.epoch
+        payload = self._copy(checkpoint_payload(self.trainer))
+        done = None
+        if self.trainer.model.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending = self._pool.submit(self._write, step, payload, done)
+
+    def _write(self, step: int, payload: dict, done) -> None:
+        if done is not None:
+            done.synchronize()
+        os.makedirs(self.save_dir, exist_ok=True)
+        path = self.path(step)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+        logger.info(f"saved checkpoint to {path}")
+
+    def wait(self) -> None:
+        """Block until the last write has finished; its error, if any, is
+        raised here."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def after_train(self):
+        try:
+            self.wait()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
+        parallel.barrier()
 
 
 @registers.hooks.register()
@@ -218,3 +347,90 @@ class EvalHook(BaseHook):
         self._run_eval(ema=False)
         if self.trainer.state.ema_params is not None:
             self._run_eval(ema=True)
+
+
+@registers.hooks.register()
+class TensorboardHook(BaseHook):
+    """Every ``write_interval`` steps, each meter's latest value as a scalar
+    at the trainer's 1-based iteration (``GLOBAL.TENSORBOARD.ENABLE``,
+    ``--tb``), on rank 0."""
+
+    def __init__(self, log_dir: str, write_interval: int = 20):
+        self.log_dir = log_dir
+        self.write_interval = write_interval
+        self.writer = None
+
+    def before_train(self):
+        if parallel.is_main_process():
+            self.writer = SummaryWriter(self.log_dir)
+
+    def after_iter(self):
+        step = self.trainer.progress.current_iter
+        if step % self.write_interval != 0 or self.writer is None:
+            return
+        for k, m in self.trainer.meters.items():
+            self.writer.add_scalar(k, m.latest, step)
+        self.writer.flush()
+
+    def after_train(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+@registers.hooks.register()
+class TBDetectionImageHook(BaseHook):
+    """At every epoch's end, the live model's detections on the first
+    ``max_images`` images of the last training batch, drawn by
+    ``evaluators/visualize.py`` on the padded canvas and written as images
+    (``GLOBAL.TENSORBOARD.LOG_IMAGES``), on rank 0."""
+
+    def __init__(self, log_dir: str, max_images: int = 2, score_threshold: float = 0.3):
+        self.log_dir = log_dir
+        self.max_images = max_images
+        self.score_threshold = score_threshold
+        self.writer = None
+
+    def before_train(self):
+        if parallel.is_main_process():
+            self.writer = SummaryWriter(self.log_dir)
+
+    def after_epoch(self):
+        from basedet_tpu_torch.evaluators.visualize import visualize_detection
+
+        t = self.trainer
+        batch = getattr(t, "last_batch", None)
+        if batch is None or self.writer is None:
+            return
+        n = min(self.max_images, int(batch["data"].shape[0]))
+        small = {k: batch[k][:n] for k in ("data", "im_info")}
+        was_training = t.model.module.training
+        t.model.eval()
+        try:
+            with torch.no_grad():
+                dets = t.model.inference(small)
+        finally:
+            if was_training:
+                t.model.train()
+        boxes, scores, labels = (np.asarray(torch.as_tensor(dets[k]).cpu()) for k in ("boxes", "box_scores",
+                                                                                     "box_labels"))
+        valid = np.asarray(torch.as_tensor(dets["valid"]).cpu()) if "valid" in dets else scores > 0
+        images, infos = np.asarray(small["data"].cpu()), np.asarray(small["im_info"].cpu(), np.float64)
+        step = t.progress.current_iter
+        for b in range(n):
+            img = images[b]
+            if img.dtype != np.uint8:
+                img = np.clip(img, 0, 255).astype(np.uint8)
+            keep = valid[b].astype(bool)
+            rows = np.concatenate([boxes[b][keep], scores[b][keep, None], labels[b][keep, None]], axis=1)
+            # detections are in original-image coordinates; the canvas is the padded training image
+            info = infos[b]
+            if info[2] > 0 and info[3] > 0:
+                s = [info[1] / info[3], info[0] / info[2]]
+                rows[:, :4] *= np.asarray([s[0], s[1], s[0], s[1]])
+            rendered = visualize_detection(img, rows, score_threshold=self.score_threshold)
+            self.writer.add_image(f"detections/img{b}", rendered[..., ::-1], step, dataformats="HWC")
+        self.writer.flush()
+
+    def after_train(self):
+        if self.writer is not None:
+            self.writer.close()

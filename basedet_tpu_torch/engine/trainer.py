@@ -7,6 +7,14 @@ once, as the JAX trainer's ``mesh.shape["data"]``): each data rank steps
 world size, from the same state, which ``init_state`` broadcasts from rank
 0; the logged losses are averaged over ranks.
 
+Each step moves the rank's batch to the model's device first. Under a
+process group of more than one data rank it then pads the batch's images at
+the bottom and right to the data group's largest canvas (``pad_to_group``),
+so that every rank's anchors and points, and DETR's mask, are those one
+process has on the global batch. ``last_batch`` keeps the step's batch on
+the device (the loader reuses its pinned slots) for the hooks that read it
+(``TBDetectionImageHook``).
+
 Where ``TEST.EVAL_EPOCH_INTERVAL`` is set or ``DATA.TEST.name`` is not
 ``dummy``, the trainer builds the evaluator and the test loader for
 ``EvalHook``. The JAX package logs a failure to build them and trains on;
@@ -16,8 +24,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
 from basedet_tpu_torch import parallel
 from basedet_tpu_torch.data.build import build_test_dataloader
+from basedet_tpu_torch.layers.common.pre_processing import to_device
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.meters import MeterBuffer
 from basedet_tpu_torch.engine.progress import Progress
@@ -44,6 +57,7 @@ class DetTrainer:
         # the step alone, so every rank resizes alike)
         self.batch_mapper = getattr(model, "train_batch_mapper", None)
         self.state: Optional[TrainState] = None
+        self.last_batch: Optional[Dict] = None
         self._last_fence = None
         self.evaluator = None
         self.test_dataloader = None
@@ -93,8 +107,13 @@ class DetTrainer:
         t0 = time.perf_counter()
         batch = dict(next(data_iter))
         batch.pop("image_id", None)
+        batch = {k: to_device(v, self.model.device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
+                 for k, v in batch.items()}
+        if self.world_size > 1:
+            batch = self.pad_to_group(batch)
         if self.batch_mapper is not None:
             batch = self.batch_mapper(batch, self.progress.current_iter)  # 1-based
+        self.last_batch = batch
         t1 = time.perf_counter()
         metrics = self.train_step(self.state, batch)
         # reading the losses waits for the device: only at the log interval
@@ -107,6 +126,21 @@ class DetTrainer:
             self.meters.update(metrics)
             self.meters.update(getattr(self.model, "extra_meter", None) or {})
         self.meters.update(data_time=t1 - t0)
+
+    def pad_to_group(self, batch: Dict) -> Dict:
+        """The batch with its images padded at the bottom and right, with the
+        collator's pad value, and DETR's mask with zeros, to the data group's
+        largest (H, W) (one all-reduce of two integers); ``im_info`` and the
+        gts as they are."""
+        h, w = batch["data"].shape[1:3]
+        H, W = parallel.group_max((h, w))
+        if (H, W) == (h, w):
+            return batch
+        pad_value = getattr(getattr(self.dataloader, "collator", None), "pad_value", 0.0)
+        out = dict(batch, data=F.pad(batch["data"], (0, 0, 0, W - w, 0, H - h), value=pad_value))
+        if "mask" in batch:
+            out["mask"] = F.pad(batch["mask"], (0, W - w, 0, H - h), value=0)
+        return out
 
     def _call_hooks(self, phase: str):
         for h in self.hooks:

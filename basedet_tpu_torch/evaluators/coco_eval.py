@@ -52,9 +52,10 @@ class COCOEvaluator:
             json.dump(records, f)
         logger.info(f"saved {len(records)} detections to {self.save_path}")
 
-    def evaluate_records(self, records: List[dict], dataset) -> Dict[str, float]:
+    def evaluate_records(self, records: List[dict], dataset, match=None) -> Dict[str, float]:
         """Evaluate result records against a dataset's annotations
-        (``items`` with boxes/labels/iscrowd, ``label_to_cat_id``)."""
+        (``items`` with boxes/labels/iscrowd, ``label_to_cat_id``);
+        ``match`` as ``evaluate_coco_map`` takes it."""
         gt_by, dt_by = {}, {}
         img_ids = []
         for item in dataset.items:
@@ -71,7 +72,7 @@ class COCOEvaluator:
             if label is None:
                 continue
             dt_by.setdefault((r["image_id"], label), []).append(dict(bbox=r["bbox"], score=r["score"]))
-        return evaluate_coco_map(gt_by, dt_by, img_ids, cat_labels)
+        return evaluate_coco_map(gt_by, dt_by, img_ids, cat_labels, match)
 
     def evaluate_model(self, model, dataloader) -> Dict[str, float]:
         """Inference over the test loader → records → metrics. A loader

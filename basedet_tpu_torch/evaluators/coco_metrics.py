@@ -1,6 +1,10 @@
-"""COCO bbox mAP evaluation in pure numpy (the port's own copy of
-``basedet_tpu/evaluators/coco_metrics.py``, without its optional C++ matcher:
-the Python matcher it falls back to is the same protocol).
+"""COCO bbox mAP evaluation (the port's own copy of
+``basedet_tpu/evaluators/coco_metrics.py``): numpy, with the greedy matching
+in the host library (``basedet_tpu_torch/native``). Every (image, class) pair
+and area range goes through ``coco_match_area``, one call an area for all
+pairs; where a pair holds more than 1024 gts (the library's capacity for
+that call) every pair takes the per-pair path, ``match_dets`` once a pair and
+area, as the JAX package does. ``_match_python`` is the plain version of both.
 
 pycocotools' COCOeval bbox protocol:
   * IoU thresholds 0.50:0.05:0.95 (10), areas all/small/medium/large,
@@ -12,9 +16,12 @@ pycocotools' COCOeval bbox protocol:
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from basedet_tpu_torch.native.build import check, load
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -49,8 +56,14 @@ def _iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
+MAX_BATCHED_GTS = 1024  # coco_match_area's gts a pair
+_F64P, _I64P = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)
+_I32P, _I8P = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int8)
+
+
 def _match_python(ious, g_ignore, iscrowd):
-    """Greedy per-threshold matching (pycocotools evaluateImg loop)."""
+    """Greedy per-threshold matching (pycocotools evaluateImg loop): the
+    plain version of the library's ``match_dets``."""
     T = len(IOU_THRS)
     D, G = ious.shape
     dt_m = np.zeros((T, D), np.int64)       # matched gt index + 1, 0 = unmatched
@@ -79,6 +92,24 @@ def _match_python(ious, g_ignore, iscrowd):
     return dt_m, gt_m, dt_ig
 
 
+def _match(ious, g_ignore, iscrowd):
+    """``_match_python``'s (dt_m, gt_m, dt_ig) through the library's
+    ``match_dets``."""
+    T = len(IOU_THRS)
+    D, G = ious.shape
+    dt_m = np.zeros((T, D), np.int64)
+    gt_m = np.zeros((T, G), np.int64)
+    dt_ig = np.zeros((T, D), np.int32)
+    ious_c = np.ascontiguousarray(ious, np.float64)
+    gi = np.ascontiguousarray(g_ignore, np.int32)
+    ic = np.ascontiguousarray(iscrowd, np.int32)
+    thrs = np.ascontiguousarray(IOU_THRS, np.float64)
+    check(load().match_dets(ious_c.ctypes.data_as(_F64P), gi.ctypes.data_as(_I32P), ic.ctypes.data_as(_I32P), D, G,
+                            thrs.ctypes.data_as(_F64P), T, dt_m.ctypes.data_as(_I64P), gt_m.ctypes.data_as(_I64P),
+                            dt_ig.ctypes.data_as(_I32P)), "match_dets")
+    return dt_m, gt_m, dt_ig
+
+
 def _prep_pair(dts: List[dict], gts: List[dict], max_det: int) -> Optional[dict]:
     """Area-independent work for one (image, category): score-sort dets,
     compute the crowd-adjusted IoU matrix ONCE (pycocotools computes IoU per
@@ -101,8 +132,9 @@ def _prep_pair(dts: List[dict], gts: List[dict], max_det: int) -> Optional[dict]
     )
 
 
-def _eval_prepped(p: Optional[dict], area_rng) -> Optional[dict]:
-    """Per-area matching over a prepped (image, category) pair."""
+def _eval_prepped(p: Optional[dict], area_rng, match=_match) -> Optional[dict]:
+    """Per-area matching over a prepped (image, category) pair, by ``match``
+    (the library's, or ``_match_python``)."""
     if p is None:
         return None
     g_ignore = (
@@ -116,7 +148,7 @@ def _eval_prepped(p: Optional[dict], area_rng) -> Optional[dict]:
     iscrowd = p["iscrowd"][g_order]
     ious = p["ious"][:, g_order] if g_order.size else p["ious"]
 
-    dt_m, gt_m, dt_ig = _match_python(ious, g_ignore, iscrowd)
+    dt_m, gt_m, dt_ig = match(ious, g_ignore, iscrowd)
 
     # unmatched detections outside the area range are ignored
     out_of_rng = (p["d_areas"] < area_rng[0]) | (p["d_areas"] > area_rng[1])
@@ -133,16 +165,73 @@ def _eval_prepped(p: Optional[dict], area_rng) -> Optional[dict]:
     )
 
 
+def _eval_img(dts: List[dict], gts: List[dict], area_rng, max_det: int, match=_match) -> Optional[dict]:
+    """Per-(image, category) matching for all IoU thresholds at once."""
+    return _eval_prepped(_prep_pair(dts, gts, max_det), area_rng, match)
+
+
+def _eval_areas_batched(keys, preps, area_names) -> Optional[Dict]:
+    """Every pair at every area in one ``coco_match_area`` call an area:
+    {(cat, area, img): the per-pair result}. None where there are no pairs
+    or a pair holds more than ``MAX_BATCHED_GTS`` gts; the caller then takes
+    the per-pair path."""
+    if not preps:
+        return None
+    n = len(preps)
+    D = np.asarray([len(p["d_scores"]) for p in preps], np.int64)
+    G = np.asarray([len(p["g_areas"]) for p in preps], np.int64)
+    if int(G.max(initial=0)) > MAX_BATCHED_GTS:
+        return None
+    lib = load()
+    d_off, g_off, iou_off = np.zeros(n, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int64)
+    np.cumsum(D[:-1], out=d_off[1:])
+    np.cumsum(G[:-1], out=g_off[1:])
+    np.cumsum((D * G)[:-1], out=iou_off[1:])
+    ious = np.concatenate([p["ious"].reshape(-1) for p in preps]).astype(np.float64, copy=False)
+    d_areas = np.concatenate([p["d_areas"] for p in preps]).astype(np.float64)
+    g_areas = np.concatenate([p["g_areas"] for p in preps]).astype(np.float64)
+    iscrowd = np.concatenate([p["iscrowd"] for p in preps]).astype(np.int32)
+    thrs = np.ascontiguousarray(IOU_THRS, np.float64)
+    T = len(IOU_THRS)
+    total_d = int(D.sum())
+    out: Dict = {}
+    for a_name in area_names:
+        lo, hi = AREA_RANGES[a_name]
+        dt_matched = np.empty(T * total_d, np.int8)
+        dt_ignore = np.empty(T * total_d, np.int8)
+        num_gt = np.empty(n, np.int64)
+        check(lib.coco_match_area(
+            n, D.ctypes.data_as(_I64P), G.ctypes.data_as(_I64P), iou_off.ctypes.data_as(_I64P),
+            d_off.ctypes.data_as(_I64P), g_off.ctypes.data_as(_I64P), ious.ctypes.data_as(_F64P),
+            d_areas.ctypes.data_as(_F64P), g_areas.ctypes.data_as(_F64P), iscrowd.ctypes.data_as(_I32P),
+            float(lo), float(hi), thrs.ctypes.data_as(_F64P), T, dt_matched.ctypes.data_as(_I8P),
+            dt_ignore.ctypes.data_as(_I8P), num_gt.ctypes.data_as(_I64P)), "coco_match_area")
+        if (num_gt < 0).any():
+            raise RuntimeError("coco_match_area refused a pair within its capacity")
+        for i, (cat, img) in enumerate(keys):
+            d_n, s = int(D[i]), T * int(d_off[i])
+            out[(cat, a_name, img)] = dict(
+                dt_scores=preps[i]["d_scores"],
+                dt_matches=dt_matched[s:s + T * d_n].reshape(T, d_n),
+                dt_ignore=dt_ignore[s:s + T * d_n].reshape(T, d_n),
+                num_gt=int(num_gt[i]),
+            )
+    return out
+
+
 def evaluate_coco_map(
     gt_by_img_cat: Dict,
     dt_by_img_cat: Dict,
     img_ids: Sequence,
     cat_labels: Sequence[int],
+    match=None,
 ) -> Dict[str, float]:
     """Compute the standard COCO bbox metrics.
 
     gt_by_img_cat / dt_by_img_cat: {(image_id, label): [dict(bbox=xywh,
-    score?, area, iscrowd)]}.
+    score?, area, iscrowd)]}. ``match`` (for example ``_match_python``)
+    sends every pair through the per-pair path with that matcher; by default
+    the library's batched matcher serves them.
     Returns the 12 standard metrics (AP, AP50, AP75, APs/m/l, AR@1/10/100,
     ARs/m/l).
     """
@@ -166,9 +255,13 @@ def evaluate_coco_map(
         (cat, a_name, img): None
         for cat in cat_labels for a_name in area_names for img in img_ids
     }
-    for (cat, img), p in zip(keys, preps):
-        for a_name in area_names:
-            eval_imgs[(cat, a_name, img)] = _eval_prepped(p, AREA_RANGES[a_name])
+    batched = None if match is not None else _eval_areas_batched(keys, preps, area_names)
+    if batched is not None:
+        eval_imgs.update(batched)
+    else:
+        for (cat, img), p in zip(keys, preps):
+            for a_name in area_names:
+                eval_imgs[(cat, a_name, img)] = _eval_prepped(p, AREA_RANGES[a_name], match or _match)
 
     def accumulate(a_name: str, max_det: int):
         """precision (T, R, K) and recall (T, K) for this slice."""

@@ -13,7 +13,9 @@ rows of the global batch, and those reductions are made explicit:
   (``layers/common/blocks.py``);
 - ``shard_rows`` / ``shard_batch``: the rank's rows of a global tensor or
   batch (the loaders, the sampling noise, DETR's dropout masks);
-- ``broadcast_module``: rank 0's parameters and buffers to every rank.
+- ``broadcast_module``: rank 0's parameters and buffers to every rank;
+- ``group_max``: the data group's largest canvas, which every rank pads
+  its rows to (``engine/trainer.py``), as one process pads the global batch.
 
 The collectives run wherever a process group is initialised, even at world
 size 1 (``torchrun --nproc-per-node 1 ... --multi-host``); without one every
@@ -36,7 +38,7 @@ data group is the whole process group.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, List, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -214,6 +216,19 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], bucket_bytes: int = B
                 p.grad = view.clone()
             else:
                 p.grad.copy_(view)
+
+
+def group_max(values: Sequence[int]) -> List[int]:
+    """The elementwise maximum of a few integers over the data group, in one
+    all-reduce (on the card under NCCL, which takes device tensors only; on
+    the host under gloo); the values as they are without a process group."""
+    if not is_active():
+        return list(values)
+    nccl = dist.get_backend(data_group()) == "nccl"
+    t = torch.tensor(list(values), dtype=torch.int64,
+                     device=torch.device("cuda", torch.cuda.current_device()) if nccl else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=data_group())
+    return t.tolist()
 
 
 def reduce_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

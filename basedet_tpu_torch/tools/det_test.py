@@ -8,7 +8,8 @@ state_dict (``det_train``'s ``dumped_model.pt``), a training checkpoint, or a
 pickle of the JAX variable tree with numpy leaves; without it, the checkpoint
 that ``GLOBAL.CKPT_SAVE_DIR/last_checkpoint`` names. ``--eval-ema`` evaluates
 a training checkpoint's EMA weights too, after its live ones. The device
-defaults to ``cuda`` and is never swapped for another.
+defaults to ``cuda`` and is never swapped for another. ``--debug`` as in
+``det_train``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import os
 
 from basedet_tpu_torch.data.build import build_test_dataloader
 from basedet_tpu_torch.engine.tester import BaseTester
-from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config, resolve_device
+from basedet_tpu_torch.tools.misc import (apply_common_flags, default_parser, disable_debug, enable_debug,
+                                          import_config, resolve_device)
 from basedet_tpu_torch.utils.logger import logger, setup_logger
 from basedet_tpu_torch.utils.registry import build_evaluator, build_model
 
@@ -26,8 +28,17 @@ def main(args=None):
     parser.add_argument("--device", default="cuda", help="torch device to run on")
     parser.add_argument("--eval-ema", action="store_true")
     args = parser.parse_args(args)
-    device = resolve_device(args.device)
+    if args.debug:
+        enable_debug()  # before CUDA starts
+    try:
+        return _test(args)
+    finally:
+        if args.debug:
+            disable_debug()
 
+
+def _test(args):
+    device = resolve_device(args.device)
     cfg = import_config(args.file)
     apply_common_flags(cfg, args)
     cfg.MODEL.BATCHSIZE = 1  # as the reference's det_test

@@ -15,7 +15,13 @@ the epoch after it. ``--amp`` trains any model under the bf16 policy
 (``TRAINER.AMP.FUSED_BN True`` adds YOLOX's fused CSP chain); ``--remat``
 recomputes the network's activations in the backward (``TRAINER.REMAT``,
 also ``"selective"``). ``-d DIR`` trains every ``*.py`` config of ``DIR`` in
-sorted order. ``--tb`` and ``--debug`` are refused: they are not ported yet.
+sorted order. ``--tb`` writes TensorBoard scalars under
+``GLOBAL.OUTPUT_DIR/tb`` (``GLOBAL.TENSORBOARD.LOG_IMAGES True`` adds each
+epoch's detections on the last batch); ``GLOBAL.CKPT_BACKEND orbax`` saves
+``GLOBAL.CKPT_SAVE_DIR/<epoch>.pt`` without blocking the loop, keeps the
+newest 3 and resumes from the newest with ``--resume``. ``--debug``
+launches kernels synchronously and raises at the first non-finite module
+output or gradient, naming it (``tools/misc.py::enable_debug``).
 
 ``--multi-host`` trains data-parallel over the process group that torchrun's
 environment describes (``basedet_tpu_torch/parallel``): each rank steps
@@ -40,7 +46,8 @@ import os
 import torch
 
 from basedet_tpu_torch import parallel
-from basedet_tpu_torch.tools.misc import apply_common_flags, default_parser, import_config, resolve_device
+from basedet_tpu_torch.tools.misc import (apply_common_flags, default_parser, disable_debug, enable_debug,
+                                          import_config, resolve_device)
 from basedet_tpu_torch.utils.logger import logger, setup_logger
 from basedet_tpu_torch.utils.registry import build_trainer
 
@@ -81,6 +88,16 @@ def main(args=None):
                            "copies; pass --multi-host")
     if args.dist_backend and not args.multi_host:
         raise ValueError("--dist-backend needs --multi-host")
+    if args.debug:
+        enable_debug()  # before CUDA starts
+    try:
+        return _run(args)
+    finally:
+        if args.debug:
+            disable_debug()
+
+
+def _run(args):
     device = resolve_device(args.device)
     if args.multi_host:
         device = parallel.init_from_env(device, args.dist_backend)

@@ -322,7 +322,26 @@ Run from the root of the repository. Phases, each of which raises on failure:
  47. profile_net on YOLOX-S training, batch 8 of 640x640, 3 steps: the
      Chrome trace parses and holds #2 and #10 once a step;
  48. analyze_net on the ten families' configs: parameters and FLOPs;
- 49. print the kernel report (ten kernels in six sources, the bf16
+ 49. full-width YOLOX-M (depth 0.67, width 0.75; random weights from SEED)
+     through a long run's machinery: its card forward against the CPU's
+     (heads 1e-3); det_train over the synthetic set with --tb
+     (GLOBAL.TENSORBOARD.LOG_IMAGES True), GLOBAL.CKPT_BACKEND orbax and an
+     evaluation every epoch, 2 epochs of 10 steps of 8 (#2 and #10 once a
+     step, NMS once per val request and TensorBoard image batch, plain 0),
+     the event files read back by the port's reader (every CRC-32C, the
+     tags, the PNGs decoded by Pillow at the canvas's size); the loop's
+     block at an epoch end, async hook against pickle hook on the same
+     state; a truncated 3.pt.tmp dropped into the checkpoint directory, then
+     --resume to a third epoch, which must restore 2.pt exactly and go on;
+     det_test of 3.pt, its 12 metrics equal through the native matcher and
+     _match_python, both timed there and on 500 COCO-like images; the same
+     det_train under --amp TRAINER.AMP.FUSED_BN True (#3/#4 as often
+     forward as backward every step, w streamed on dark5's N = 768, the
+     kernels held to their plain versions on the first call of each of the
+     run's shapes); the f32 and bf16 fused steps timed with peak memory and
+     idle share; det_train --debug with one NaN weight must raise naming
+     the module;
+ 50. print the kernel report (ten kernels in six sources, the bf16
      RoIAlign variants apart; every kernel's launches path by path, the new
      paths and each data-parallel rank included), the card, and the result
      line.
@@ -999,7 +1018,7 @@ def phase_slice(out_dir, cfg, weights, path="YOLOX-S det_test"):
     return launches
 
 
-def phase_card_vs_cpu(cfg, model, weights):
+def phase_card_vs_cpu(cfg, model, weights, name="YOLOX-S"):
     from basedet_tpu_torch import build_model
     from basedet_tpu_torch.data import build_test_dataloader
     from basedet_tpu_torch.utils.compare import match_detections
@@ -1019,7 +1038,7 @@ def phase_card_vs_cpu(cfg, model, weights):
     frac = match_detections(ref, gpu)
     check(np.isfinite(gpu["boxes"]).all() and gpu["valid"].any(), "card detections empty or non-finite")
     check(frac >= 0.95, f"only {frac:.3f} of the CPU's detections matched on the card")
-    log(f"[parity] card vs CPU, f32, one 640x640 image: head max |diff| {err:.3e} (tol {HEAD_ATOL}); "
+    log(f"[parity] {name} card vs CPU, f32, one 640x640 image: head max |diff| {err:.3e} (tol {HEAD_ATOL}); "
         f"{int(ref['valid'].sum())} CPU / {int(gpu['valid'].sum())} card detections, "
         f"{frac:.4f} matched (label, IoU >= 0.999, |dscore| <= 1e-4)")
 
@@ -1028,18 +1047,19 @@ AMP_OPTS = {None: [], "bf16": ["TRAINER.AMP.ENABLE", "True"],
             "fused": ["TRAINER.AMP.ENABLE", "True", "TRAINER.AMP.FUSED_BN", "True"]}
 
 
-def _train_setup(weights, device, batch_size, amp=None):
-    """YOLOX-S in train mode with ``weights``, its solver, state and step
-    (f32, or under the bf16 policy with ``amp`` "bf16" or "fused"), the first
-    synthetic batch of ``batch_size`` 640x640 images and the config."""
+def _train_setup(weights, device, batch_size, amp=None, config=CONFIG, extra=()):
+    """YOLOX-S (or the YOLOX ``config``, with ``extra`` overrides) in train
+    mode with ``weights``, its solver, state and step (f32, or under the bf16
+    policy with ``amp`` "bf16" or "fused"), the first synthetic batch of
+    ``batch_size`` 640x640 images and the config."""
     from basedet_tpu_torch import build_model
     from basedet_tpu_torch.data import build_train_dataloader
     from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
     from basedet_tpu_torch.solver import YOLOXSolver
     from basedet_tpu_torch.tools import import_config
 
-    cfg = import_config(CONFIG)
-    cfg.merge(["DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(batch_size), *AMP_OPTS[amp]])
+    cfg = import_config(config)
+    cfg.merge(["DATA.TRAIN.name", "dummy", "MODEL.BATCHSIZE", str(batch_size), *AMP_OPTS[amp], *extra])
     model = build_model(cfg, device)
     model.load_weights(weights)
     model.train()
@@ -5930,6 +5950,371 @@ def phase_analyze(card):
         + f" | {card}")
 
 
+# -- phase 49: YOLOX-M over a long run's machinery: TensorBoard, async checkpoints, the native matcher, --debug ---
+
+YOLOX_M_CONFIG = "basedet_tpu_torch/playground/yolox_m/config.py"
+YOLOX_M_STEPS = 10  # iterations per epoch: TensorboardHook writes every 20 steps, so 2 epochs give one write
+YOLOX_M_REPS = 5
+EVAL_IMAGES, EVAL_CLASSES = 500, 80  # the COCO-like evaluation the native matcher is timed on
+
+
+def make_yolox_m_weights(out_dir):
+    """Full-width YOLOX-M (3 classes, the synthetic set's) on the card with random weights from SEED,
+    spread by ``randomise``, saved as a state_dict. Returns (cfg for det_test, model, path)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import import_config
+
+    cfg = import_config(YOLOX_M_CONFIG)
+    cfg.merge(["DATA.NUM_CLASSES", "3", "DATA.TEST.name", "dummy", "DATA.DUMMY_IMAGE_SIZE", "(640,640)",
+               "GLOBAL.OUTPUT_DIR", out_dir])
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise(model.module, generator)
+    weights = os.path.join(out_dir, "yolox_m_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    return cfg, model, weights
+
+
+def _yolox_m_args(run_dir, weights, epochs, flags=(), extra=()):
+    workers = str(min(8, os.cpu_count() or 1))
+    return ["-f", YOLOX_M_CONFIG, "--device", "cuda", "--tb", *flags,
+            "DATA.TRAIN.name", "smoke_synth_train", "DATA.TEST.name", "smoke_synth_val", "DATA.NUM_CLASSES", "3",
+            "DATA.NUM_WORKERS", workers, "MODEL.BATCHSIZE", "8", "SOLVER.MAX_EPOCH", str(epochs),
+            "SOLVER.NUM_IMAGE_PER_EPOCH", str(8 * YOLOX_M_STEPS), "GLOBAL.LOG_INTERVAL", "1",
+            "GLOBAL.TENSORBOARD.LOG_IMAGES", "True", "GLOBAL.CKPT_BACKEND", "orbax", "TEST.EVAL_EPOCH_INTERVAL", "1",
+            "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR", run_dir, "GLOBAL.CKPT_SAVE_DIR",
+            os.path.join(run_dir, "ckpt"), *extra]
+
+
+def _evals(trainer, epochs):
+    """EvalHook's evaluations in a run of ``epochs`` epochs (every epoch but the last, then the live and
+    the EMA weights after training)."""
+    return (epochs - 1) + 1 + int(trainer.ema_enabled)
+
+
+@contextlib.contextmanager
+def _hook_times(cls, name):
+    """Host seconds of each call of ``cls.name`` in the body."""
+    fn, times = getattr(cls, name), []
+
+    def wrapper(self, *args):
+        t0 = time.perf_counter()
+        out = fn(self, *args)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield times
+    finally:
+        setattr(cls, name, fn)
+
+
+def _check_events(tb_dir, epochs, canvas_sizes):
+    """The run's event files parse with the script's own reader (every CRC checked): the version event
+    first in each file, the meters' scalars at step 20, and per epoch two detection images whose PNG
+    decodes with Pillow to the last batch's canvas. Returns a summary."""
+    import glob
+    import io
+
+    from PIL import Image
+
+    from basedet_tpu_torch.utils.tb_writer import read_events
+
+    paths = sorted(glob.glob(os.path.join(tb_dir, "events.out.tfevents.*")))
+    check(len(paths) == 2, f"{tb_dir} holds {len(paths)} event files, not 2 (scalars, images)")
+    scalars, images = {}, {}
+    for path in paths:
+        events = read_events(path)
+        check(events[0].get("file_version") == "brain.Event:2", f"{path}: no version event first")
+        for e in events[1:]:
+            for v in e["values"]:
+                if "simple_value" in v:
+                    scalars.setdefault(v["tag"], []).append((e["step"], v["simple_value"]))
+                else:
+                    images.setdefault(v["tag"], []).append((e["step"], v["image"]))
+    check({"total_loss", "lr", "data_time"} <= set(scalars) and all(
+        [s for s, _ in series] == [2 * YOLOX_M_STEPS] for series in scalars.values()),
+        f"scalars {sorted(scalars)} at steps {[[s for s, _ in v] for v in scalars.values()][:3]}")
+    check(all(math.isfinite(v) for series in scalars.values() for _, v in series), "non-finite scalars")
+    check(sorted(images) == ["detections/img0", "detections/img1"], f"image tags {sorted(images)}")
+    for tag, series in images.items():
+        check([s for s, _ in series] == [YOLOX_M_STEPS * e for e in range(1, epochs + 1)], f"{tag} at "
+              f"{[s for s, _ in series]}")
+        for (step, img), size in zip(series, canvas_sizes):
+            pixels = np.asarray(Image.open(io.BytesIO(img["png"])))
+            check(pixels.shape == (size, size, 3) == (img["height"], img["width"], img["colorspace"]),
+                  f"{tag} step {step}: a {pixels.shape} PNG for a {size}x{size} canvas")
+    return (f"{len(paths)} event files, {sum(len(v) for v in scalars.values())} scalars ({len(scalars)} tags at step "
+            f"{2 * YOLOX_M_STEPS}), {sum(len(v) for v in images.values())} PNG images decoded by Pillow, every "
+            f"CRC-32C checked")
+
+
+def _coco_like_records(rng):
+    """EVAL_IMAGES COCO-like images: 1-14 gts each over EVAL_CLASSES classes, 100 detections each
+    (jittered copies of gts and random boxes, scores uniform), as {(image, class): [records]}."""
+    gt_by, dt_by = {}, {}
+    for img in range(EVAL_IMAGES):
+        n = int(rng.randint(1, 15))
+        xy, wh = rng.uniform(0, 500, (n, 2)), rng.uniform(4, 200, (n, 2))
+        labels = rng.randint(1, EVAL_CLASSES + 1, n)
+        for box, label in zip(np.concatenate([xy, wh], 1), labels):
+            gt_by.setdefault((img, int(label)), []).append(
+                dict(bbox=list(box), area=float(box[2] * box[3]), iscrowd=int(rng.uniform() < 0.02)))
+        src = rng.randint(0, n, 100)
+        boxes = np.concatenate([xy, wh], 1)[src] + rng.normal(0, 8, (100, 4)) * [1, 1, 0.5, 0.5]
+        boxes[50:] = np.concatenate([rng.uniform(0, 500, (50, 2)), rng.uniform(4, 200, (50, 2))], 1)
+        boxes[:, 2:] = np.abs(boxes[:, 2:]) + 1
+        det_labels = np.where(np.arange(100) < 50, labels[src], rng.randint(1, EVAL_CLASSES + 1, 100))
+        for box, label, score in zip(boxes, det_labels, rng.uniform(0, 1, 100)):
+            dt_by.setdefault((img, int(label)), []).append(dict(bbox=list(box), score=float(score)))
+    return gt_by, dt_by, list(range(EVAL_IMAGES)), list(range(1, EVAL_CLASSES + 1))
+
+
+def phase_yolox_m_eval(out_dir, ckpt, card):
+    """det_test of YOLOX-M's last async checkpoint on the 40 val images; the AP through the native
+    matcher must equal the AP through ``_match_python`` on the same detections, every metric. Then
+    both timed on those detections and on a COCO-like evaluation of EVAL_IMAGES images."""
+    from basedet_tpu_torch.data import build_test_dataloader
+    from basedet_tpu_torch.evaluators.coco_eval import COCOEvaluator
+    from basedet_tpu_torch.evaluators.coco_metrics import _match_python, evaluate_coco_map
+    from basedet_tpu_torch.tools import det_test, import_config
+
+    run_dir = os.path.join(out_dir, "yolox_m_test")
+    opts = ["DATA.TEST.name", "smoke_synth_val", "DATA.NUM_CLASSES", "3", "GLOBAL.OUTPUT_DIR", run_dir]
+    with kernel_counts("YOLOX-M det_test, synthetic set"):
+        results = det_test.main(["-f", YOLOX_M_CONFIG, "-w", ckpt, "--device", "cuda", *opts])
+    counts = check_counts("YOLOX-M det_test, synthetic set", {"nms_keep": DATA_VAL})
+    cfg = import_config(YOLOX_M_CONFIG)
+    cfg.merge(opts)
+    dataset = build_test_dataloader(cfg).dataset
+    with open(os.path.join(run_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    evaluator = COCOEvaluator(cfg)
+    times = {}
+    for name, match in (("native", None), ("python", _match_python)):
+        t0 = time.perf_counter()
+        times[name] = evaluator.evaluate_records(records, dataset, match)
+        times[name + "_s"] = time.perf_counter() - t0
+    check(times["native"] == times["python"] == results, f"the native matcher's metrics {times['native']} differ "
+          f"from the Python matcher's {times['python']} or det_test's {results}")
+    args = _coco_like_records(np.random.RandomState(SEED))
+    big = {}
+    for name, match in (("native", None), ("python", _match_python), ("native again", None)):
+        t0 = time.perf_counter()
+        big[name] = evaluate_coco_map(*args, match=match)
+        big[name + "_s"] = time.perf_counter() - t0
+    check(big["native"] == big["python"] == big["native again"], "the COCO-like evaluation's metrics differ between "
+                                                                 "the native and the Python matcher")
+    log(f"[yolox-m-eval] det_test YOLOX-M, the async checkpoint {os.path.basename(ckpt)}, {DATA_VAL} val requests: "
+        f"AP {results['AP']:.4f}, AP50 {results['AP50']:.4f}; kernel launches {counts}; all 12 metrics equal through "
+        f"the native matcher and _match_python; evaluate_records on its {len(records)} detections: native "
+        f"{times['native_s']:.3f} s, Python {times['python_s']:.3f} s | {card}")
+    log(f"[yolox-m-eval] COCO evaluation of {EVAL_IMAGES} COCO-like images ({EVAL_CLASSES} classes, 1-14 gts and 100 "
+        f"detections each) on the host, os.cpu_count() {os.cpu_count()}: native matcher "
+        f"{big['native_s']:.3f} s and {big['native again_s']:.3f} s, Python matcher {big['python_s']:.3f} s "
+        f"({big['python_s'] / big['native again_s']:.2f}x); AP {big['native']['AP']:.4f} in all three | {card}")
+
+
+def phase_yolox_m_train(out_dir, weights, card):
+    """det_train on full-width YOLOX-M over the synthetic set with --tb, LOG_IMAGES, async checkpoints
+    and an evaluation every epoch: 2 epochs of YOLOX_M_STEPS steps of 8 (640x640, then the multiscale
+    resize); a truncated 3.pt.tmp dropped into the checkpoint directory; --resume to a third epoch,
+    which must restore epoch 2's file and go on at epoch 3. Kernel counts per run; the event files
+    parse; the loop's block at an epoch end, async against the pickle hook on the same state. Returns
+    the checkpoint of epoch 3."""
+    from basedet_tpu_torch.engine.hooks import AsyncCheckpointHook, CheckpointHook
+    from basedet_tpu_torch.models.det.yolox import YOLOX
+    from basedet_tpu_torch.tools import det_train
+
+    run_dir = os.path.join(out_dir, "yolox_m")
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    sizes = []
+    keep_size = lambda args, out: out["data"].shape[1]
+    path = "YOLOX-M det_train --tb, async checkpoints, synthetic set"
+    with kernel_counts(path), recording(YOLOX, "train_batch_mapper", keep_size) as sizes, \
+            _hook_times(AsyncCheckpointHook, "after_epoch") as blocked, \
+            _hook_times(AsyncCheckpointHook, "_write") as written:
+        t0 = time.perf_counter()
+        trainer = det_train.main(_yolox_m_args(run_dir, weights, 2))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    check(steps == 2 * YOLOX_M_STEPS, f"det_train YOLOX-M took {steps} steps")
+    counts = check_counts(path, {"dynamic_k_matching": steps, "box_iou": steps,
+                                 "nms_keep": _evals(trainer, 2) * DATA_VAL + 2})
+    check(sorted(os.listdir(ckpt_dir)) == ["1.pt", "2.pt"], f"async checkpoints {sorted(os.listdir(ckpt_dir))}")
+    check(all(math.isfinite(m.latest) for k, m in trainer.meters.items() if "loss" in k), "non-finite losses")
+    events = _check_events(os.path.join(run_dir, "tb"), 2, [sizes[YOLOX_M_STEPS - 1], sizes[-1]])
+    log(f"[yolox-m-train] det_train YOLOX-M (25.3 M parameters), {steps} steps of 8 images of 640x640 "
+        f"(multiscale sizes {sorted(set(sizes))}), --tb with LOG_IMAGES, CKPT_BACKEND orbax, an evaluation every "
+        f"epoch, in {seconds:.2f} s; kernel launches {counts}; {events}; the async hook's after_epoch "
+        f"{', '.join(f'{1000 * t:.1f}' for t in blocked)} ms, its writes {', '.join(f'{t:.2f}' for t in written)} s "
+        f"on the writer thread | {card}")
+
+    # the loop's block at an epoch end on this state: the async hook against the pickle one, in turns
+    hooks = {"async": AsyncCheckpointHook(os.path.join(out_dir, "block_async")),
+             "pickle": CheckpointHook(os.path.join(out_dir, "block_pickle"))}
+    block = {k: [] for k in hooks}
+    for hook in hooks.values():
+        hook.trainer = trainer
+    for _ in range(3):
+        for name, hook in hooks.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hook.after_epoch()
+            block[name].append(time.perf_counter() - t0)
+            if name == "async":
+                t1 = time.perf_counter()
+                hook.wait()
+                block["async write"] = block.get("async write", []) + [time.perf_counter() - t1]
+    size = os.path.getsize(hooks["async"].path(trainer.progress.epoch)) / 2**20
+    log(f"[yolox-m-ckpt] the loop blocked at an epoch end, YOLOX-M ({size:.1f} MiB a checkpoint: module, SGD "
+        f"momentum, EMA): async hook {', '.join(f'{1000 * t:.1f}' for t in block['async'])} ms (pinned copies "
+        f"queued, the write then {', '.join(f'{t:.3f}' for t in block['async write'])} s on its thread); pickle hook "
+        f"(torch.save of latest.pt and epoch_<n>.pt) {', '.join(f'{1000 * t:.1f}' for t in block['pickle'])} ms; "
+        f"three turns each, host clock | {card}")
+
+    ckpt2 = torch.load(os.path.join(ckpt_dir, "2.pt"), map_location="cpu", weights_only=True)
+    with open(os.path.join(ckpt_dir, "2.pt"), "rb") as f:
+        head = f.read(4096)
+    with open(os.path.join(ckpt_dir, "3.pt.tmp"), "wb") as f:  # a write cut short by a preemption
+        f.write(head)
+    restored = {}
+    original = AsyncCheckpointHook.before_train
+
+    def spy(self):
+        original(self)
+        t = self.trainer
+        restored.update(step=t.state.step, epoch=t.progress.epoch,
+                        model={k: v.detach().cpu().clone() for k, v in t.model.module.state_dict().items()},
+                        ema={k: v.detach().cpu().clone() for k, v in t.state.ema_params.items()})
+
+    path = "YOLOX-M det_train --resume, async checkpoints"
+    AsyncCheckpointHook.before_train = spy
+    try:
+        with kernel_counts(path):
+            resumed = det_train.main(_yolox_m_args(run_dir, weights, 3, flags=["--resume"]))
+    finally:
+        AsyncCheckpointHook.before_train = original
+    check(restored["step"] == 2 * YOLOX_M_STEPS and restored["epoch"] == 3, f"the resume restored step "
+          f"{restored['step']}, epoch {restored['epoch']}")
+    check(all(torch.equal(restored["model"][k], v) for k, v in ckpt2["model"].items())
+          and all(torch.equal(restored["ema"][k], v) for k, v in ckpt2["ema"].items()),
+          "the restored parameters differ from epoch 2's checkpoint")
+    check(resumed.state.step == 3 * YOLOX_M_STEPS and resumed.progress.epoch == 3, "the resumed run did not go on")
+    check(sorted(os.listdir(ckpt_dir)) == ["1.pt", "2.pt", "3.pt"], f"after the resume {sorted(os.listdir(ckpt_dir))}")
+    counts = check_counts(path, {"dynamic_k_matching": YOLOX_M_STEPS, "box_iou": YOLOX_M_STEPS,
+                                 "nms_keep": (_evals(resumed, 3) - 2) * DATA_VAL + 1})
+    log(f"[yolox-m-resume] a truncated 3.pt.tmp ({len(head)} bytes) left in the directory; --resume restored 2.pt "
+        f"(step {restored['step']}, parameters and EMA equal to the file's), trained epoch {resumed.progress.epoch} to "
+        f"step {resumed.state.step}, wrote 3.pt over the .tmp; kernel launches {counts} | {card}")
+    return os.path.join(ckpt_dir, "3.pt")
+
+
+def phase_yolox_m_amp(out_dir, weights, card):
+    """The run of phase 49 under --amp TRAINER.AMP.FUSED_BN True (2 epochs): the fused kernels launched
+    as often forward as backward, every step, plain versions never; the backward's calls where w
+    streams (N past 640: dark5 at N = 768) counted; kernels #3 and #4 held to their plain versions
+    on the first call of each distinct shape, with the step's own inputs and cotangents. Returns the
+    largest |kernel - plain| per output."""
+    from basedet_tpu_torch.ops.fused_bn_kernel import MAX_SMEM, backward_smem
+    from basedet_tpu_torch.tools import det_train
+
+    run_dir = os.path.join(out_dir, "yolox_m_amp")
+    path = "YOLOX-M det_train --amp, fused chain"
+    with kernel_counts(path), fused_backward_calls(first_per_shape=True) as backward:
+        t0 = time.perf_counter()
+        trainer = det_train.main(_yolox_m_args(run_dir, weights, 2, flags=["--amp"],
+                                               extra=["TRAINER.AMP.FUSED_BN", "True"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    steps = trainer.state.step
+    fwd, bwd = DATA_COUNTS[path]["fused_gemm_stats"][0], DATA_COUNTS[path]["fused_gemm_stats_backward"][0]
+    check(steps == 2 * YOLOX_M_STEPS and fwd == bwd > 0 and fwd % steps == 0, f"fused launches {fwd} forward, "
+          f"{bwd} backward in {steps} steps")
+    counts = check_counts(path, {"dynamic_k_matching": steps, "box_iou": steps, "fused_gemm_stats": fwd,
+                                 "fused_gemm_stats_backward": bwd, "nms_keep": _evals(trainer, 2) * DATA_VAL + 2})
+    streamed = sum(backward_smem(sig[3], sig[0], 2) > MAX_SMEM for sig, _, _ in backward)
+    check(streamed > 0 and streamed % steps == 0, f"{streamed} streamed-w backward calls in {steps} steps")
+    Ns = sorted({sig[3] for sig, _, _ in backward if backward_smem(sig[3], sig[0], 2) > MAX_SMEM})
+    log(f"[yolox-m-amp] det_train --amp TRAINER.AMP.FUSED_BN True, YOLOX-M, {steps} steps of 8, --tb, async "
+        f"checkpoints, in {seconds:.2f} s; kernel launches {counts} ({fwd // steps} fused calls a step each way); "
+        f"kernel #4 streamed w on {streamed // steps} calls a step (N = {Ns}) | {card}")
+    return check_fused_cases("yolox-m-fused", [(f"YOLOX-M det_train --amp {_case_name(sig)}", terms, cts)
+                                               for sig, terms, cts in backward if terms is not None])
+
+
+def phase_yolox_m_timing(weights, card):
+    """YOLOX-M's train step at batch 8 of 640x640, f32 and bf16 with the fused chain: events ms (mean of
+    YOLOX_M_REPS), peak memory above what was held before the model, the device's idle share over 3
+    profiled steps."""
+    out = {}
+    for amp in (None, "fused"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model, _, state, step, batch, _ = _train_setup(weights, "cuda", 8, amp, YOLOX_M_CONFIG,
+                                                       ["DATA.NUM_CLASSES", "3"])
+        batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), reps=YOLOX_M_REPS, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        _, union, span = device_busy_span(lambda: step(state, batch), 3)
+        out[AMP_LABELS[amp]] = (ms, peak, 1 - union / span)
+        del model, state, step, batch
+    log(f"[yolox-m-timing] YOLOX-M train step, batch 8 of 640x640 (input on the card): " + "; ".join(
+        f"{name} {ms:.3f} ms ({8000 / ms:.1f} img/s), peak {peak:.2f} GiB, device idle share {idle:.3f}"
+        for name, (ms, peak, idle) in out.items()) + f" (events, means of {YOLOX_M_REPS}; idle: the time no device "
+        f"operation runs over the span of 3 profiled steps' device work) | {card}")
+
+
+def phase_debug_nan(out_dir, card):
+    """det_train --debug on the YOLOX-M config with one NaN weight must raise FloatingPointError naming the
+    module whose output went non-finite first, and leave no global hook behind."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import det_train, import_config
+
+    bad = "backbone.dark4_csp.conv1.conv.weight"
+    cfg = import_config(YOLOX_M_CONFIG)
+    state = build_model(cfg, "cpu").module.state_dict()
+    state[bad].view(-1)[0] = float("nan")
+    weights = os.path.join(out_dir, "yolox_m_nan.pt")
+    torch.save(state, weights)
+    opts = ["DATA.TRAIN.name", "dummy", "DATA.TEST.name", "dummy", "MODEL.BATCHSIZE", "2", "SOLVER.MAX_EPOCH", "1",
+            "SOLVER.NUM_IMAGE_PER_EPOCH", "2", "MODEL.WEIGHTS", weights, "GLOBAL.OUTPUT_DIR",
+            os.path.join(out_dir, "debug"), "GLOBAL.CKPT_SAVE_DIR", os.path.join(out_dir, "debug", "ckpt")]
+    try:
+        det_train.main(["-f", YOLOX_M_CONFIG, "--device", "cuda", "--debug", *opts])
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    want = f"non-finite output of {bad.rsplit('.', 1)[0]} (Conv2d)"
+    check(raised is not None and want in raised, f"det_train --debug with a NaN in {bad} raised {raised!r}")
+    check(not torch.nn.modules.module._global_forward_hooks and not torch.is_anomaly_enabled(),
+          "--debug left its hooks behind")
+    log(f"[debug] det_train --debug, YOLOX-M with one NaN in {bad}: FloatingPointError({raised!r}) | {card}")
+
+
+def phase_yolox_m(out_dir, card):
+    """49. YOLOX-M (depth 0.67, width 0.75) at full width through what a long training run needs:
+    make_yolox_m_weights, card against CPU (heads 1e-3), phase_yolox_m_train (TensorBoard, async
+    checkpoints, resume), phase_yolox_m_eval (det_test, native matcher against Python),
+    phase_yolox_m_amp (the fused kernels, streamed w), the step timed, --debug on a NaN weight.
+    Returns the fused kernels' largest |kernel - plain| per output."""
+    cfg, model, weights = make_yolox_m_weights(out_dir)
+    phase_card_vs_cpu(cfg, model, weights, "YOLOX-M")
+    del model
+    ckpt = phase_yolox_m_train(out_dir, weights, card)
+    phase_yolox_m_eval(out_dir, ckpt, card)
+    worst = phase_yolox_m_amp(out_dir, weights, card)
+    phase_yolox_m_timing(weights, card)
+    phase_debug_nan(out_dir, card)
+    return worst
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -6005,6 +6390,8 @@ def main():
         phase_trace(out_dir, weights, frcnn_weights, card)
         phase_profile_tool(out_dir, card)
         phase_analyze(card)
+        for report, err in zip((fused_fwd, fused_bwd), _fused_errs(phase_yolox_m(out_dir, card))):
+            report["max_abs_err"] = max(report["max_abs_err"], err)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}

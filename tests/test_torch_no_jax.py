@@ -1,10 +1,11 @@
-"""basedet_tpu_torch runs where JAX, flax, optax and cv2 are absent, as on
-the GPU machine, and never imports the JAX package ``basedet_tpu``, not even
-its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
+"""basedet_tpu_torch runs where JAX, flax, optax, cv2, tensorboardX,
+tensorboard and orbax are absent, as on the GPU machine, and never imports
+the JAX package ``basedet_tpu``, not even its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN (also with
 ``--amp --remat``), tiny CenterNet and
 tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
-synthetic PNG set through the data slice), and its tools (trace_net,
+synthetic PNG set through the data slice, and tiny YOLOX-S with ``--tb``,
+async checkpoints and ``--debug``), and its tools (trace_net,
 analyze_net and dump_cfg on tiny YOLOX-S, parity_eval --rehearse)
 run in a subprocess that cannot import any of them, nor Pillow, which only
 JPEG needs. ``"basedet_tpu_torch"``'s
@@ -21,7 +22,7 @@ import pytest
 
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2", "PIL")
+BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2", "PIL", "tensorboardX", "tensorboard", "orbax")
 YOLOX = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
@@ -118,6 +119,26 @@ from basedet_tpu_torch.tools import det_test
 results = det_test.main(["-f", {config!r}, "-w", {out!r} + "/ckpt/dumped_model.pt", "--device", "cpu", *opts,
                          "TEST.CLS_THRESHOLD", "0.0"])
 print(json.dumps({{"results": results, "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+_LONG_RUN_SCRIPT = _BLOCK + r"""
+import glob, os
+from basedet_tpu_torch.tools import det_train
+from basedet_tpu_torch.utils.tb_writer import read_events
+
+# 20 steps an epoch: TensorboardHook writes every 20 steps, as the JAX package's
+opts = {opts!r} + ["MODEL.BATCHSIZE", "1", "DATA.MAX_INSTANCES", "8", "DATA.TRAIN.name", "dummy",
+                   "DATA.TEST.name", "dummy", "SOLVER.NUM_IMAGE_PER_EPOCH", "20", "GLOBAL.LOG_INTERVAL", "1",
+                   "GLOBAL.CKPT_BACKEND", "orbax", "GLOBAL.OUTPUT_DIR", {out!r},
+                   "GLOBAL.CKPT_SAVE_DIR", {out!r} + "/ckpt"]
+trainer = det_train.main(["-f", {config!r}, "--device", "cpu", "--tb", "--debug", *opts, "SOLVER.MAX_EPOCH", "1"])
+events = [e for path in sorted(glob.glob({out!r} + "/tb/events.out.tfevents.*")) for e in read_events(path)]
+steps = sorted({{e["step"] for e in events if e["values"]}})
+print(json.dumps({{"steps": trainer.state.step, "epoch": trainer.progress.epoch,
+                   "ckpts": sorted(os.listdir({out!r} + "/ckpt")),
+                   "tags": sorted({{v["tag"] for e in events for v in e["values"]}}), "tb_steps": steps,
+                   "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
 
 
@@ -282,6 +303,19 @@ def test_faster_rcnn_det_train_amp_remat_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "faster_rcnn", flags=["--amp", "--remat"])
 
 
+def test_det_train_tb_async_checkpoints_debug_run_without_jax(tmp_path):
+    """Tiny YOLOX-S ``det_train --tb --debug GLOBAL.CKPT_BACKEND orbax`` for
+    an epoch of 20 steps (``TensorboardHook`` writes every 20), with
+    tensorboardX, tensorboard and orbax blocked beside JAX: the event file
+    parses (``read_events`` checks every CRC), the async checkpoint is
+    written."""
+    config, opts = _TRAIN_OPTS["yolox_s"]
+    out = _run_blocked(_LONG_RUN_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts))
+    assert out["leaked"] == []
+    assert out["steps"] == 20 and out["epoch"] == 1 and out["ckpts"] == ["1.pt"]
+    assert {"total_loss", "lr", "data_time"} <= set(out["tags"]) and out["tb_steps"] == [20]
+
+
 def test_tools_run_without_jax(tmp_path):
     """trace_net (and the reload of its program), analyze_net and dump_cfg on
     tiny YOLOX-S, and parity_eval's rehearsal, blocked."""
@@ -293,18 +327,21 @@ def test_tools_run_without_jax(tmp_path):
 
 def test_port_sources_never_import_jax():
     """No file of the port (its configs included) and not chip_smoke.py
-    imports JAX or the JAX package."""
-    pattern = re.compile(r"^\s*(import|from)\s+(basedet_tpu|jax|jaxlib|flax|optax|cv2)\b", re.M)
+    imports JAX, the JAX package, cv2, tensorboardX, tensorboard or orbax."""
+    pattern = re.compile(r"^\s*(import|from)\s+(basedet_tpu|jax|jaxlib|flax|optax|cv2|tensorboardX|tensorboard|orbax)\b",
+                         re.M)
     sources = [*(REPO / "basedet_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     scanned = {str(p.relative_to(REPO)) for p in sources}
     assert {f"basedet_tpu_torch/{m}.py" for m in (
         "parallel/mesh", "parallel/tp", "tools/trace_net", "tools/profile_net", "tools/analyze_net",
         "tools/dump_cfg", "tools/parity_diff", "tools/parity_eval", "layers/common/module_inspector",
-        "layers/common/module_utils", "layers/blocks/pool", "evaluators/visualize")} <= scanned
+        "layers/common/module_utils", "layers/blocks/pool", "evaluators/visualize", "utils/tb_writer",
+        "native/build", "native/pack", "playground/yolox_m/config")} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from basedet_tpu.utils import logger")
     assert not pattern.search("from basedet_tpu_torch.utils import logger")
+    assert pattern.search("from tensorboardX import SummaryWriter") and pattern.search("import orbax.checkpoint")
 
 
 @pytest.mark.parametrize("tool", ["det_train", "det_test", "trace_net", "analyze_net", "profile_net", "parity_eval",
