@@ -10,6 +10,11 @@ import torch.nn as nn
 from basedet_tpu_torch.layers.blocks.yolo_block import CSPLayer, Focus, SPPBottleneck, make_conv
 
 
+def csp_darknet_feature_channels(width_factor: float = 1.0) -> Dict[str, int]:
+    base_c = int(width_factor * 64)
+    return {"stem": base_c, "dark2": base_c * 2, "dark3": base_c * 4, "dark4": base_c * 8, "dark5": base_c * 16}
+
+
 class CSPDarknet(nn.Module):
     def __init__(self, depth_factor=1.0, width_factor=1.0,
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5"),

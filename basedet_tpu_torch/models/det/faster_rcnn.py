@@ -1,6 +1,7 @@
 """Faster R-CNN in PyTorch (counterpart of ``basedet_tpu/models/det/faster_rcnn.py``).
 
-Inference: ResNet + FPN (P2-P6) → RPN head → per-level top-k, decode, clip,
+Inference: ResNet (or any backbone of ``layers/backbone/build.py``, sized
+by its ``feature_channels``) + FPN (P2-P6) → RPN head → per-level top-k, decode, clip,
 level-wise NMS (the NMS kernel) → multilevel RoIAlign over P2-P5 (the
 RoIAlign kernel) → 2-FC box predictor → softmax and class-specific decode →
 top-2000 → class-aware NMS (the NMS kernel) → rescaled detections.
@@ -27,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from basedet_tpu_torch.layers.backbone.build import make_backbone
+from basedet_tpu_torch.layers.backbone.build import feature_channels, make_backbone
 from basedet_tpu_torch.layers.backbone.fpn import FPN
 from basedet_tpu_torch.layers.common.anchor_generator import DefaultAnchorGenerator
 from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
@@ -37,7 +38,6 @@ from basedet_tpu_torch.layers.common.post_processing import post_processing
 from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise
 from basedet_tpu_torch.layers.head.rcnn import RCNNPredictor, rcnn_losses, rcnn_sample
 from basedet_tpu_torch.models.base_net import BaseNet
-from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
 from basedet_tpu_torch.models.det.rpn import (
     RPNHead,
     find_top_proposals,
@@ -64,7 +64,7 @@ class FasterRCNNModule(nn.Module):
         m = cfg.MODEL
         self.num_classes = cfg.DATA.NUM_CLASSES
         out_features = tuple(m.BACKBONE.OUT_FEATURES)
-        channels = resnet_feature_channels(m.BACKBONE.NAME)
+        channels = feature_channels(m.BACKBONE.NAME)
         self.bottom_up = make_backbone(m.BACKBONE.NAME, out_features, m.BACKBONE.NORM,
                                        m.BACKBONE.FREEZE_AT, device=device)
         self.fpn = FPN(out_features, [channels[f] for f in out_features],

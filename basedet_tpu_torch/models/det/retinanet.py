@@ -3,7 +3,11 @@
 ResNet (FrozenBN, ``FREEZE_AT`` 2) → FPN P3-P5 with the ``p6p7`` top block
 on ``res5`` → the RetinaNet head shared over P3-P7 → per level logits
 (N, H·W·A, C) and offsets (N, H·W·A, 4) in the anchor generator's order:
-grid-major, anchor-minor.
+grid-major, anchor-minor. ``MODEL.BACKBONE.NAME`` may name any backbone of
+``layers/backbone/build.py`` (``darknet21``/``53`` or ``csp_darknet`` with
+their ``dark*`` features, ``FPN.TOP_BLOCK_IN_FEATURE`` naming one of them),
+whose widths ``feature_channels`` gives the FPN, as in the JAX package;
+FCOS, ATSS, OTA and FreeAnchor build this module too.
 
 Training: every anchor of every level against the padded gts through the
 pairwise-IoU kernel (``ops/iou_kernel.py``), the IoU ``Matcher`` with
@@ -31,7 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from basedet_tpu_torch.layers.backbone.build import make_backbone
+from basedet_tpu_torch.layers.backbone.build import feature_channels, make_backbone
 from basedet_tpu_torch.layers.backbone.fpn import FPN
 from basedet_tpu_torch.layers.common.anchor_generator import DefaultAnchorGenerator
 from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
@@ -41,7 +45,6 @@ from basedet_tpu_torch.layers.common.post_processing import post_processing
 from basedet_tpu_torch.layers.head.retina_head import RetinaNetHead
 from basedet_tpu_torch.layers.losses import sigmoid_focal_loss, smooth_l1_loss
 from basedet_tpu_torch.models.base_net import BaseNet
-from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
 from basedet_tpu_torch.ops.iou_kernel import box_iou
 from basedet_tpu_torch.ops.nms import NEG_INF, gather_rows
 from basedet_tpu_torch.parallel import global_normaliser
@@ -59,7 +62,7 @@ class RetinaNetModule(nn.Module):
         super().__init__()
         m = cfg.MODEL
         out_features = tuple(m.BACKBONE.OUT_FEATURES)
-        channels = resnet_feature_channels(m.BACKBONE.NAME)
+        channels = feature_channels(m.BACKBONE.NAME)
         self.bottom_up = make_backbone(m.BACKBONE.NAME, out_features, m.BACKBONE.NORM,
                                        m.BACKBONE.FREEZE_AT, device=device)
         self.fpn = FPN(out_features, [channels[f] for f in out_features], m.FPN.STRIDES[:3],

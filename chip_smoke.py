@@ -341,7 +341,20 @@ Run from the root of the repository. Phases, each of which raises on failure:
      run's shapes); the f32 and bf16 fused steps timed with peak memory and
      idle share; det_train --debug with one NaN weight must raise naming
      the module;
- 50. print the kernel report (ten kernels in six sources, the bf16
+ 50. tools/benchmark.py on the card, its classes called directly so that any
+     failure fails the run: for each of its eleven names (RetinaNet, FCOS,
+     ATSS, FreeAnchor, FasterRCNN, YOLOX-S, YOLOX-M, YOLOv3, CenterNet, OTA,
+     DETR) a train row in f32 and one under --amp (batch 8 of 640x640) and an
+     eval row at batch 1, 3 warm-up and 10 timed steps or requests each:
+     every number finite and positive, the peak printed, each kernel's
+     launches on the row's path as BENCH_TRAIN and BENCH_EVAL say and its
+     plain version never; the host syncs of one f32 step and one request
+     named by source line (torch.cuda.set_sync_debug_mode); YOLOX-S's f32
+     step_ms within 5% of CUDA events around the same loop. Then Darknet-53
+     (train-mode BN) under full-width RetinaNet's FPN: det_train 2 steps of
+     2 images of 800x1333 (#10 once a step), det_test on its dump over 8
+     requests (#1 once a request), plain 0;
+ 51. print the kernel report (ten kernels in six sources, the bf16
      RoIAlign variants apart; every kernel's launches path by path, the new
      paths and each data-parallel rank included), the card, and the result
      line.
@@ -6315,6 +6328,203 @@ def phase_yolox_m(out_dir, card):
     return worst
 
 
+# -- phase 50: the benchmark tool's sweep over the eleven configs, and Darknet-53 under RetinaNet's FPN ---------
+
+BENCH_IMAGE, BENCH_B, BENCH_EVAL_B, BENCH_WARMUP, BENCH_ITERS = 640, 8, 1, 3, 10  # the JAX tool's shapes
+BENCH_EVENTS_RTOL = 0.05  # the tool's host-clock step_ms against CUDA events around the same loop
+# {model: {kernel: launches per train step}} on the tool's path in f32 (--amp: RoIAlign's bf16 kernels in
+# place of the f32 ones) and {model: {kernel: launches per request}} in eval; TRAINER.AMP.FUSED_BN is off
+BENCH_TRAIN = {
+    "RetinaNet": {"box_iou": 1}, "FCOS": {}, "ATSS": {"box_iou": 1}, "FreeAnchor": {"box_iou": 2},
+    "FasterRCNN": {"multilevel_roi_align": 1, "multilevel_roi_align_backward": 1, "nms_keep": 1, "box_iou": 2},
+    "YOLOX-S": {"dynamic_k_matching": 1, "box_iou": 1}, "YOLOX-M": {"dynamic_k_matching": 1, "box_iou": 1},
+    "YOLOv3": {"box_iou": YOLOV3_IOU_CALLS}, "CenterNet": {"scatter_rows": 3}, "OTA": {"dynamic_k_matching": 1},
+    "DETR": {},
+}
+BENCH_EVAL = {name: {"nms_keep": 1} for name in BENCH_TRAIN}
+BENCH_EVAL.update(FasterRCNN={"nms_keep": 2, "multilevel_roi_align": 1}, CenterNet={}, DETR={})
+DARKNET_RETINA = ["MODEL.BACKBONE.NAME", "darknet53", "MODEL.BACKBONE.OUT_FEATURES", "('dark3','dark4','dark5')",
+                  "MODEL.FPN.TOP_BLOCK_IN_FEATURE", "dark5"]
+
+
+@contextlib.contextmanager
+def sync_census(counts, call=1):
+    """Count the synchronizing CUDA operations (``torch.cuda.set_sync_debug_mode``) of the ``call``-th
+    (from 0) train step and inference call of every model built inside, into counts[the innermost
+    line of the repository's code on the stack when the operation ran]."""
+    import traceback
+    import warnings
+
+    from basedet_tpu_torch.engine import train_state
+    from basedet_tpu_torch.utils import registry
+
+    root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+
+    def seen_at(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if f.filename.startswith(root)
+                and not f.filename.endswith("chip_smoke.py")]
+        where = f"{ours[-1].filename[len(root):]}:{ours[-1].lineno}" if ours else \
+            f"{os.path.basename(filename)}:{lineno}"
+        counts[where] = counts.get(where, 0) + 1
+
+    def census(fn):
+        seen = []
+
+        def wrapper(*args, **kwargs):
+            seen.append(None)
+            if len(seen) != call + 1:
+                return fn(*args, **kwargs)
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = seen_at
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return wrapper
+
+    make_step, build = train_state.make_train_step, registry.build_model
+
+    def build_counted(*args, **kwargs):
+        model = build(*args, **kwargs)
+        model.inference = census(model.inference)
+        return model
+
+    train_state.make_train_step = lambda *args, **kwargs: census(make_step(*args, **kwargs))
+    registry.build_model = build_counted
+    try:
+        yield counts
+    finally:
+        train_state.make_train_step, registry.build_model = make_step, build
+
+
+def _check_row(row, keys):
+    numbers = {k: v for k, v in row.items() if k in keys}
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in numbers.values()),
+          f"benchmark row with a number not finite and positive: {row}")
+
+
+def phase_benchmark(out_dir, card):
+    """50. tools/benchmark.py on the card: TrainBenchmark in f32 and under --amp and EvalBenchmark at
+    batch 1, called directly (any failure fails the run), for the eleven names at 640x640 and batch 8,
+    BENCH_WARMUP + BENCH_ITERS steps or calls; each row's kernel launches counted (BENCH_TRAIN,
+    BENCH_EVAL; plain 0), its numbers finite and positive, its peak printed; the synchronizing CUDA
+    operations of one f32 step and one request named by source line; YOLOX-S's f32 step_ms against
+    CUDA events around the same loop. Then Darknet-53 under RetinaNet's FPN: det_train 2 steps of 2
+    at 800x1333 (#10 once a step), det_test over its 8 requests (#1 once a request)."""
+    from basedet_tpu_torch.tools import benchmark
+
+    class EventFenced(benchmark.TrainBenchmark):
+        """The tool's TrainBenchmark with a CUDA event recorded at each of its fences."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.events = []
+
+        def sync(self):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.events.append(event)
+            super().sync()
+
+    t0 = time.perf_counter()
+    syncs = {}
+    for name in benchmark.MODELS:
+        for mode, amp in (("train", False), ("train", True), ("eval", False)):
+            path = f"{name} benchmark {mode}{' --amp' if amp else ''}"
+            census = {}
+            with kernel_counts(path), sync_census(census):
+                if mode == "eval":
+                    bench = benchmark.EvalBenchmark(name, BENCH_IMAGE, BENCH_EVAL_B, BENCH_WARMUP, BENCH_ITERS)
+                else:
+                    cls = EventFenced if (name, amp) == ("YOLOX-S", False) else benchmark.TrainBenchmark
+                    bench = cls(name, BENCH_IMAGE, BENCH_B, BENCH_WARMUP, BENCH_ITERS, amp=amp)
+                row = bench.run()
+            calls = BENCH_WARMUP + BENCH_ITERS
+            per = BENCH_EVAL[name] if mode == "eval" else BENCH_TRAIN[name]
+            if amp and name == "FasterRCNN":
+                per = {("multilevel_roi_align_bf16" if k == "multilevel_roi_align" else
+                        "multilevel_roi_align_backward_bf16" if k == "multilevel_roi_align_backward" else k): v
+                       for k, v in per.items()}
+            counts = _new_counts(path, {k: v * calls for k, v in per.items()})
+            _check_row(row, ("images_per_sec", "step_ms", "warmup_s", "latency_ms"))
+            check(bench.peak_gib is not None and bench.peak_gib > 0, f"{path}: peak {bench.peak_gib}")
+            if mode == "train":
+                check(bench.steps == calls and math.isfinite(bench.loss), f"{path}: {bench.steps} steps, loss "
+                      f"{bench.loss}")
+            else:
+                check(all(torch.isfinite(v.float()).all() for v in bench.dets.values()), f"{path}: detections")
+            if census:
+                syncs[path] = census
+            log(f"[bench] {json.dumps(row)}")
+            log(f"[bench] {path}: peak {bench.peak_gib:.3f} GiB above what was held; launches {counts}; host syncs "
+                f"in one {'request' if mode == 'eval' else 'step'}: {census or 'none'}"
+                f"{'; warmup_s includes the nvcc build of ' + ', '.join(bench.built) if bench.built else ''} | {card}")
+            if isinstance(bench, EventFenced):
+                check(len(bench.events) == 3, f"the tool fenced {len(bench.events)} times, not 3")
+                events_ms = bench.events[1].elapsed_time(bench.events[2]) / BENCH_ITERS
+                check(abs(row["step_ms"] - events_ms) <= BENCH_EVENTS_RTOL * events_ms,
+                      f"YOLOX-S step_ms {row['step_ms']} against {events_ms:.3f} by CUDA events")
+                log(f"[bench] YOLOX-S f32: the tool's step_ms {row['step_ms']} against {events_ms:.3f} ms by CUDA "
+                    f"events around the same {BENCH_ITERS} steps (within {BENCH_EVENTS_RTOL:.0%})")
+            del bench
+    log(f"[bench] {len(benchmark.MODELS) * 3} rows in {time.perf_counter() - t0:.1f} s; the steps and requests "
+        f"that synchronize with the host: " + ("; ".join(f"{p}: {c}" for p, c in syncs.items()) or "none")
+        + f" | {card}")
+    phase_darknet_retina(out_dir, card)
+
+
+def phase_darknet_retina(out_dir, card):
+    """Darknet-53 (train-mode BN, dark3-dark5, p6p7 on dark5) under full-width RetinaNet's FPN and head:
+    det_train 2 steps of 2 images of 800x1333 (#10 once a step), det_test on its dump over 8 requests
+    (#1 once a request), plain 0, finite losses and detections."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import det_test, det_train, import_config
+
+    run_dir = os.path.join(out_dir, "darknet_retina")
+    cfg = import_config(RETINA_CONFIG)
+    cfg.merge([*DARKNET_RETINA, *_retina_opts(run_dir)])
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    model = build_model(cfg, "cuda", generator)
+    randomise_retina(model.module, generator)
+    weights = os.path.join(out_dir, "retinanet_darknet53_seed0.pt")
+    torch.save(model.module.state_dict(), weights)
+    n_params = sum(p.numel() for p in model.module.parameters())
+    del model
+    opts = [*DARKNET_RETINA, *_retina_train_opts(run_dir, weights)]
+    opts[opts.index("SOLVER.NUM_IMAGE_PER_EPOCH") + 1] = str(2 * RETINA_B)
+    keep_losses = lambda args, out: {k: float(v.detach()) for k, v in out[1].items()}
+    from basedet_tpu_torch.models.det.retinanet import RetinaNet
+
+    t0 = time.perf_counter()
+    with kernel_counts("RetinaNet Darknet-53 det_train"), recording(RetinaNet, "get_losses", keep_losses) as losses:
+        trainer = det_train.main(["-f", RETINA_CONFIG, "--device", "cuda", *opts])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(trainer.state.step == 2 and len(losses) == 2, f"Darknet-53 RetinaNet took {trainer.state.step} steps")
+    check(all(math.isfinite(v) and v >= 0 for step in losses for v in step.values()), f"losses {losses}")
+    train_counts = _new_counts("RetinaNet Darknet-53 det_train", {"box_iou": 2})
+    dumped = os.path.join(run_dir, "retina_ckpt", "dumped_model.pt")
+    t1 = time.perf_counter()
+    with kernel_counts("RetinaNet Darknet-53 det_test"):
+        results = det_test.main(["-f", RETINA_CONFIG, "-w", dumped, "--device", "cuda", *DARKNET_RETINA,
+                                 *_retina_opts(run_dir)])
+    torch.cuda.synchronize()
+    test_seconds = time.perf_counter() - t1
+    test_counts = _new_counts("RetinaNet Darknet-53 det_test", {"nms_keep": 8})
+    with open(os.path.join(run_dir, "predict_coco.json")) as f:
+        records = json.load(f)
+    check(np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(), "non-finite detections")
+    log(f"[darknet-retina] RetinaNet on darknet53 ({n_params} parameters, train-mode BN, p6p7 on dark5): det_train "
+        f"2 steps of {RETINA_B} of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} in {seconds:.2f} s, losses "
+        f"{[{k: round(v, 4) for k, v in s.items()} for s in losses]}, launches {train_counts}; det_test over 8 "
+        f"requests in {test_seconds:.2f} s: {results}, {len(records)} finite detections, launches {test_counts} "
+        f"| {card}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -6392,6 +6602,7 @@ def main():
         phase_analyze(card)
         for report, err in zip((fused_fwd, fused_bwd), _fused_errs(phase_yolox_m(out_dir, card))):
             report["max_abs_err"] = max(report["max_abs_err"], err)
+        phase_benchmark(out_dir, card)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}

@@ -6,7 +6,8 @@ bf16 policy with the fused CSP chain, tiny Faster R-CNN (also with
 tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
 synthetic PNG set through the data slice, and tiny YOLOX-S with ``--tb``,
 async checkpoints and ``--debug``), and its tools (trace_net,
-analyze_net and dump_cfg on tiny YOLOX-S, parity_eval --rehearse)
+analyze_net and dump_cfg on tiny YOLOX-S, parity_eval --rehearse, the
+benchmark sweep on tiny YOLOX-S and tiny Faster R-CNN)
 run in a subprocess that cannot import any of them, nor Pillow, which only
 JPEG needs. ``"basedet_tpu_torch"``'s
 first dotted part is not ``"basedet_tpu"``, so the port itself is not
@@ -159,6 +160,18 @@ _, rehearsal = parity_eval.main(["--rehearse", "--rehearse-images", "2", "--devi
 print(json.dumps({{"levels": len(outputs), "params": stats["params"], "dumped": dumped,
                    "missing": len(rehearsal["missing"]), "unused": len(rehearsal["unused"]),
                    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+"""
+
+
+_BENCH_SCRIPT = _BLOCK + r"""
+from basedet_tpu_torch.tools import benchmark
+from tests.tiny import shrink
+
+build = benchmark._build
+benchmark._build = lambda name, size, batch: shrink(build(name, size, batch))
+rows = benchmark.main(["--models", "YOLOX-S", "FasterRCNN", "--image-size", "128", "--batch", "2",
+                       "--device", "cpu", "--out", {out!r} + "/bench.json"])
+print(json.dumps({{"rows": rows, "leaked": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
 """
 
 
@@ -325,6 +338,16 @@ def test_tools_run_without_jax(tmp_path):
     assert os.path.exists(out["dumped"]) and out["missing"] == out["unused"] == 0
 
 
+def test_benchmark_runs_without_jax(tmp_path):
+    """The benchmark tool's sweep (train and eval rows at its default 5 + 20
+    steps) on tiny YOLOX-S and tiny Faster R-CNN, blocked."""
+    out = _run_blocked(_BENCH_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path)))
+    assert out["leaked"] == []
+    assert [(r["model"], r["mode"]) for r in out["rows"]] == [
+        ("YOLOX-S", "train"), ("YOLOX-S", "eval"), ("FasterRCNN", "train"), ("FasterRCNN", "eval")]
+    assert json.loads((tmp_path / "bench.json").read_text()) == out["rows"]
+
+
 def test_port_sources_never_import_jax():
     """No file of the port (its configs included) and not chip_smoke.py
     imports JAX, the JAX package, cv2, tensorboardX, tensorboard or orbax."""
@@ -336,7 +359,8 @@ def test_port_sources_never_import_jax():
         "parallel/mesh", "parallel/tp", "tools/trace_net", "tools/profile_net", "tools/analyze_net",
         "tools/dump_cfg", "tools/parity_diff", "tools/parity_eval", "layers/common/module_inspector",
         "layers/common/module_utils", "layers/blocks/pool", "evaluators/visualize", "utils/tb_writer",
-        "native/build", "native/pack", "playground/yolox_m/config")} <= scanned
+        "native/build", "native/pack", "playground/yolox_m/config", "tools/benchmark",
+        "layers/backbone/build")} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from basedet_tpu.utils import logger")
@@ -345,7 +369,7 @@ def test_port_sources_never_import_jax():
 
 
 @pytest.mark.parametrize("tool", ["det_train", "det_test", "trace_net", "analyze_net", "profile_net", "parity_eval",
-                                  "parity_diff"])
+                                  "parity_diff", "benchmark"])
 def test_tools_default_to_cuda_and_raise_without_it(tool, monkeypatch, tmp_path):
     """The entry points run on the card unless the caller asks for the CPU:
     with no --device and no CUDA they raise, naming --device cpu, before
@@ -357,7 +381,8 @@ def test_tools_default_to_cuda_and_raise_without_it(tool, monkeypatch, tmp_path)
     main = importlib.import_module(f"basedet_tpu_torch.tools.{tool}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = {"parity_eval": ["--rehearse", "--out-dir", str(tmp_path)],
-            "parity_diff": ["dump", "-o", str(tmp_path / "d.pkl")]}.get(tool, ["-f", YOLOX, "GLOBAL.OUTPUT_DIR",
+            "parity_diff": ["dump", "-o", str(tmp_path / "d.pkl")],
+            "benchmark": ["--out", str(tmp_path / "b.json")]}.get(tool, ["-f", YOLOX, "GLOBAL.OUTPUT_DIR",
                                                                              str(tmp_path)])
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)
