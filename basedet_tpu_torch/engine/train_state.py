@@ -74,7 +74,8 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     (``parallel.all_reduce_grads``) after the backward and before the
     clipping, so every rank takes the same update; the metrics stay the
     rank's own (the trainer averages them at its log interval). The fused
-    CSP chain is refused there.
+    CSP chain takes its BN statistics over the data group
+    (``layers/blocks/csp_fused.py``).
 
     With ``TRAINER.TP_SIZE`` above 1 (``parallel.mesh.init_grid``) the step
     runs forward and backward inside ``tp_context`` of this rank's model
@@ -85,9 +86,6 @@ def make_train_step(model, solver, cfg) -> Callable[[TrainState, Dict], Dict[str
     (``tp.all_reduce_model_grads``, one all-reduce); then the mean over the
     data group, then the clipping, on whole gradients."""
     dtype, fused_bn = policy_from_cfg(cfg)
-    if fused_bn and parallel.is_active():
-        raise NotImplementedError("TRAINER.AMP.FUSED_BN takes the BN statistics inside the fused kernels over one "
-                                  "rank's rows; it is not ported to data-parallel training")
     remat = mode_from_cfg(cfg)
     ema_cfg = cfg.TRAINER.EMA
     use_ema = bool(ema_cfg.get("ENABLE", False))

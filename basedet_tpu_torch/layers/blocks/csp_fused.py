@@ -13,6 +13,15 @@ residual, the concat, conv3 1x1), with its memory traffic restructured:
   * the 3x3 conv stays ``F.conv2d`` in bf16 on one materialised activation,
     its statistics one reduction.
 
+Under a process group the BN sums of every conv (the kernels' column sums
+and the 3x3 conv's reduction) and the row count are summed over the data
+group before the moments (``parallel.group_stats``: one all-reduce
+forward, one of the sums' cotangents backward), so the statistics are those
+of the global batch, as pjit's are over the JAX package's sharded batch.
+The BN weight and bias keep their own rank's share of the gradient, which
+``parallel.all_reduce_grads`` then averages, as ``CrossRankBatchNorm``
+leaves them.
+
 M-tensors are ``(B·H·W, C)`` views of channels-last NCHW tensors, so the
 layer's input and output change layout for free. The JAX package's lane
 packing (``_pack_factor``, block-diagonal ``kron`` weights) is a TPU layout
@@ -25,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from basedet_tpu_torch import parallel
 from basedet_tpu_torch.ops.fused_bn import moments_to_affine, stats_to_moments
 from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
 
@@ -68,7 +78,7 @@ def csp_layer_fused(
         return w.reshape(w.shape[0], w.shape[1]).t().to(torch.bfloat16).contiguous()
 
     def affine(key, s, ss):
-        mean, var = stats_to_moments(s, ss, M)
+        mean, var = stats_to_moments(*parallel.group_stats(s, ss, M))
         moments[key] = (mean, var)
         return moments_to_affine(mean, var, params[key + "/g"], params[key + "/b"], eps)
 

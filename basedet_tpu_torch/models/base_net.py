@@ -24,7 +24,7 @@ import torch
 
 from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.common.pre_processing import data_to_input, to_device
-from basedet_tpu_torch.utils.checkpoint import load_matched_weights
+from basedet_tpu_torch.utils.checkpoint import load_matched_weights, unwarp_ckpt
 from basedet_tpu_torch.utils.convert_weights import convert_reference_detector_state
 from basedet_tpu_torch.utils.logger import logger
 from basedet_tpu_torch.utils.weights import state_dict_from_jax
@@ -84,8 +84,10 @@ class BaseNet:
         numpy leaves, or a pickled flat state dict in the reference's
         (torch/MegEngine) layout, e.g. a backbone-only ImageNet checkpoint.
         Flat states go through the reference detector renames first
-        (``utils/convert_weights.py``), which leave the port's own names as
-        they are. Returns the matcher's stats, or None for a training
+        (``utils/convert_weights.py``), all but the keys that already name an
+        entry of the port's ``state_dict`` (the HF zoo's Flax names, such as
+        ``bottom_up.hf.encoder.stages.0.layers.0...``, hold indices that the
+        renames would flatten). Returns the matcher's stats, or None for a training
         checkpoint."""
         if zipfile.is_zipfile(weight_path):
             sd = torch.load(weight_path, map_location="cpu", weights_only=True)
@@ -102,7 +104,11 @@ class BaseNet:
             return None
         if ema:
             raise ValueError(f"{weight_path} is not a training checkpoint: it holds no EMA weights")
-        matched, stats = load_matched_weights(self.module.state_dict(), convert_reference_detector_state(sd))
+        own = self.module.state_dict()
+        sd = unwarp_ckpt(sd)
+        state = {**convert_reference_detector_state({k: v for k, v in sd.items() if k not in own}),
+                 **{k: v for k, v in sd.items() if k in own}}
+        matched, stats = load_matched_weights(own, state)
         self.module.load_state_dict(matched, strict=True)
         logger.info(f"loaded {weight_path} by matching: {stats['matched']} matched, "
                     f"{len(stats['missing'])} missing, {len(stats['unused'])} unused")

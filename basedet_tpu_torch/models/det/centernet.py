@@ -1,6 +1,7 @@
 """CenterNet in PyTorch (counterpart of ``basedet_tpu/models/det/centernet.py``).
 
-ResNet (train-mode BN, ``FREEZE_AT`` 0) → ``res5`` → three DCNv2 + 4x4
+ResNet (train-mode BN, ``FREEZE_AT`` 0; or an ``hf_<preset>`` backbone,
+whose width ``feature_channels`` gives) → ``res5`` → three DCNv2 + 4x4
 deconvolution stages to stride 4 (the DCN's input gradient through the
 row-scatter kernel) → ``cls`` (sigmoid), ``wh`` and ``reg`` heads.
 
@@ -27,11 +28,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from basedet_tpu_torch.layers.backbone.build import make_backbone
+from basedet_tpu_torch.layers.backbone.build import feature_channels, make_backbone
 from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.layers.head.center_head import CenterHead, CenternetDeconv
 from basedet_tpu_torch.models.base_net import BaseNet
-from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
 from basedet_tpu_torch.parallel import global_normaliser, global_sum, world_size
 from basedet_tpu_torch.structures import clip_boxes
 from basedet_tpu_torch.utils.registry import registers
@@ -134,7 +134,7 @@ class CenterNetModule(nn.Module):
         super().__init__()
         m = cfg.MODEL
         channels = list(m.HEAD.DECONV_CHANNEL)
-        channels[0] = resnet_feature_channels(m.BACKBONE.NAME)["res5"]
+        channels[0] = feature_channels(m.BACKBONE.NAME)["res5"]
         self.bottom_up = make_backbone(m.BACKBONE.NAME, ("res5",), m.BACKBONE.NORM,
                                        m.BACKBONE.FREEZE_AT, device=device)
         self.upsample = CenternetDeconv(channels, tuple(m.HEAD.DECONV_KERNEL),
@@ -148,11 +148,14 @@ class CenterNetModule(nn.Module):
         normal): backbone convs lecun-normal, BN the identity, the DCN offset
         branch zero and its mix He-normal, the deconvolutions bilinear, the
         head convs lecun-normal with the class bias at the prior."""
-        for m in self.bottom_up.modules():
-            if isinstance(m, nn.Conv2d):
-                m.weight.normal_(0.0, math.sqrt(1.0 / m.weight[0].numel()), generator=generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        if hasattr(self.bottom_up, "init_weights"):  # the HF zoo draws as its Flax modules do
+            self.bottom_up.init_weights(generator)
+        else:
+            for m in self.bottom_up.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.weight.normal_(0.0, math.sqrt(1.0 / m.weight[0].numel()), generator=generator)
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.reset_parameters()
         for stage in self.upsample.stages():
             stage.init_weights(generator)
         for head in (self.head.cls_head, self.head.wh_head, self.head.reg_head):

@@ -1,7 +1,8 @@
 """DETR in PyTorch (counterpart of ``basedet_tpu/models/det/detr.py``).
 
 ResNet ``res5`` (``make_backbone``; FrozenBN and ``FREEZE_AT`` 2 in the
-config) → ``input_proj`` (1x1 conv to the transformer width) → the
+config; or an ``hf_<preset>`` backbone, whose width ``feature_channels``
+gives) → ``input_proj`` (1x1 conv to the transformer width) → the
 transformer with the sine (or learned) position embedding of the pixel mask
 downsampled to the feature grid → per decoder layer ``class_embed`` logits
 (C + 1, the last the background) and ``bbox_embed`` boxes (sigmoid,
@@ -33,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from basedet_tpu_torch.layers import precision
-from basedet_tpu_torch.layers.backbone.build import make_backbone
+from basedet_tpu_torch.layers.backbone.build import feature_channels, make_backbone
 from basedet_tpu_torch.layers.blocks.transformer import (MLP, LearnedPositionEmbedding, Transformer,
                                                          sine_position_embedding)
 from basedet_tpu_torch.layers.common.blocks import FrozenBatchNorm
@@ -43,7 +44,6 @@ from basedet_tpu_torch.layers.common.pre_processing import to_device
 from basedet_tpu_torch.layers.common.sampling import step_generator
 from basedet_tpu_torch.layers.losses import iou_loss
 from basedet_tpu_torch.models.base_net import BaseNet
-from basedet_tpu_torch.models.cls.resnet import resnet_feature_channels
 from basedet_tpu_torch.parallel import global_normaliser
 from basedet_tpu_torch.structures import convert_boxes
 from basedet_tpu_torch.structures.box_ops import clip_boxes
@@ -62,7 +62,7 @@ class DETRModule(nn.Module):
         dim = t.DIM
         self.bottom_up = make_backbone(m.BACKBONE.NAME, ("res5",), m.BACKBONE.NORM, m.BACKBONE.FREEZE_AT,
                                        device=device)
-        self.input_proj = nn.Conv2d(resnet_feature_channels(m.BACKBONE.NAME)["res5"], dim, 1, device=device)
+        self.input_proj = nn.Conv2d(feature_channels(m.BACKBONE.NAME)["res5"], dim, 1, device=device)
         self.query_embed = nn.Parameter(torch.empty(m.NUM_QUERIES, dim, device=device))
         self.sine = m.POS_EMBED == "sine"
         if not self.sine:
@@ -91,6 +91,8 @@ class DETRModule(nn.Module):
                 m.row_embed.uniform_(0.0, 1.0, generator=generator)
                 m.col_embed.uniform_(0.0, 1.0, generator=generator)
         self.query_embed.normal_(0.0, 1.0, generator=generator)
+        if hasattr(self.bottom_up, "init_weights"):  # the HF zoo draws as its Flax modules do
+            self.bottom_up.init_weights(generator)
 
     def features(self, image: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """image (B, 3, H, W), mask (B, H, W) 1 = valid → the projected

@@ -100,13 +100,16 @@ class FasterRCNNModule(nn.Module):
         def normal(w, std):
             w.normal_(0.0, std, generator=generator)
 
-        for m in self.bottom_up.modules():
-            if isinstance(m, nn.Conv2d):
-                normal(m.weight, math.sqrt(1.0 / (m.weight[0].numel())))
-            elif isinstance(m, FrozenBatchNorm):
-                m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
-            elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
-                m.reset_parameters()
+        if hasattr(self.bottom_up, "init_weights"):  # the HF zoo draws as its Flax modules do
+            self.bottom_up.init_weights(generator)
+        else:
+            for m in self.bottom_up.modules():
+                if isinstance(m, nn.Conv2d):
+                    normal(m.weight, math.sqrt(1.0 / (m.weight[0].numel())))
+                elif isinstance(m, FrozenBatchNorm):
+                    m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
+                elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
+                    m.reset_parameters()
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 normal(m.weight, math.sqrt(2.0 / (m.weight[0].numel())))

@@ -5,7 +5,8 @@ on ``res5`` → the RetinaNet head shared over P3-P7 → per level logits
 (N, H·W·A, C) and offsets (N, H·W·A, 4) in the anchor generator's order:
 grid-major, anchor-minor. ``MODEL.BACKBONE.NAME`` may name any backbone of
 ``layers/backbone/build.py`` (``darknet21``/``53`` or ``csp_darknet`` with
-their ``dark*`` features, ``FPN.TOP_BLOCK_IN_FEATURE`` naming one of them),
+their ``dark*`` features, ``FPN.TOP_BLOCK_IN_FEATURE`` naming one of them;
+``hf_<preset>`` with ``res3``-``res5``, as ``auto_convert_cfg_to_hf`` writes),
 whose widths ``feature_channels`` gives the FPN, as in the JAX package;
 FCOS, ATSS, OTA and FreeAnchor build this module too.
 
@@ -83,13 +84,16 @@ class RetinaNetModule(nn.Module):
         normal): backbone convs lecun-normal, frozen and trainable BN the
         identity, FPN convs He-normal (fan in) with zero biases, the head
         normal(0.01) with the class bias at the prior."""
-        for m in self.bottom_up.modules():
-            if isinstance(m, nn.Conv2d):
-                m.weight.normal_(0.0, math.sqrt(1.0 / m.weight[0].numel()), generator=generator)
-            elif isinstance(m, FrozenBatchNorm):
-                m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
-            elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
-                m.reset_parameters()
+        if hasattr(self.bottom_up, "init_weights"):  # the HF zoo draws as its Flax modules do
+            self.bottom_up.init_weights(generator)
+        else:
+            for m in self.bottom_up.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.weight.normal_(0.0, math.sqrt(1.0 / m.weight[0].numel()), generator=generator)
+                elif isinstance(m, FrozenBatchNorm):
+                    m.weight.fill_(1.0), m.bias.zero_(), m.running_mean.zero_(), m.running_var.fill_(1.0)
+                elif isinstance(m, nn.BatchNorm2d):  # NORM "BN"
+                    m.reset_parameters()
         for m in self.fpn.modules():
             if isinstance(m, nn.Conv2d):
                 m.weight.normal_(0.0, math.sqrt(2.0 / m.weight[0].numel()), generator=generator)

@@ -11,6 +11,8 @@ rows of the global batch, and those reductions are made explicit:
   normalisers of ``models/det/``);
 - ``all_reduce_sum_``: the cross-rank BN's statistics
   (``layers/common/blocks.py``);
+- ``group_stats``: the fused CSP chain's BN sums, differentiably
+  (``layers/blocks/csp_fused.py``);
 - ``shard_rows`` / ``shard_batch``: the rank's rows of a global tensor or
   batch (the loaders, the sampling noise, DETR's dropout masks);
 - ``broadcast_module``: rank 0's parameters and buffers to every rank;
@@ -146,6 +148,37 @@ def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     if is_active():
         dist.all_reduce(t, group=data_group())
     return t
+
+
+class _GroupStats(torch.autograd.Function):
+    """(Σx, Σx², n) of one rank's rows → the data group's, in one all-reduce
+    (float64, so the count is exact); the backward all-reduces the
+    cotangents of the two sums, so the gradient that reaches a rank's rows is
+    that of every rank's loss together, as ``CrossRankBatchNorm`` gives it."""
+
+    @staticmethod
+    def forward(ctx, s, ss, count):
+        c = s.shape[0]
+        n = torch.full((1,), float(count), dtype=torch.float64, device=s.device)
+        sums = all_reduce_sum_(torch.cat([s.double(), ss.double(), n]))
+        total = sums[-1].float()
+        ctx.mark_non_differentiable(total)
+        return sums[:c].float(), sums[c:2 * c].float(), total
+
+    @staticmethod
+    def backward(ctx, ds, dss, _dn):
+        c = ds.shape[0]
+        sums = all_reduce_sum_(torch.cat([ds, dss]))
+        return sums[:c], sums[c:], None
+
+
+def group_stats(s: torch.Tensor, ss: torch.Tensor, count: int):
+    """(s, ss, count) summed over the data group under a process group (the
+    count as an f32 tensor), differentiable in ``s`` and ``ss``; without one,
+    the arguments as they are."""
+    if not is_active():
+        return s, ss, count
+    return _GroupStats.apply(s, ss, count)
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,9 @@ def convert_reference_detector_state(state: Mapping) -> Dict[str, torch.Tensor]:
       * Sequential indices flatten: ``layer1.0.`` → ``layer1_0.``,
         ``cls_subnet.2.`` → ``cls_subnet_2.``.
 
-    Every name of the port's own ``state_dict`` passes through unchanged, so
-    a state already in the port's names may take this path too."""
+    A name of the port's own ``state_dict`` without a ``.<index>.`` part
+    passes through unchanged; ``BaseNet.load_weights`` keeps the port's own
+    names out of these renames."""
     state = unwarp_ckpt(state)
     ds_bn = "FrozenBatchNorm_3" if any(".bn3." in k for k in state) else "FrozenBatchNorm_2"
     renamed = {}

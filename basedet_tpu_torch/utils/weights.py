@@ -39,6 +39,12 @@ their flax names and take the conv rule. So are YOLOv3's Darknet
 ``ConvBNAct`` with ``conv`` and ``BatchNorm_0``) and YOLOFPN
 (``output_conv<i>_conv<j>``, ``output_conv<i>_pred``, ``lateral_conv<i>``).
 
+The HF backbone zoo (``layers/backbone/hf_adaptor.py``) names its BNs
+``normalization`` (Flax ``nn.BatchNorm``: ``scale``/``bias`` in params,
+``mean``/``var`` in batch_stats), kept as they are; its grouped kernels
+``(kh, kw, Cin/g, Cout)`` and its squeeze-excitation convs with bias
+(``attention/0``, ``attention/2``) take the conv rule.
+
 DETR's transformer adds flax ``LayerNorm`` (``norm<i>``, ``encoder_norm``,
 ``decoder_norm``): ``scale``/``bias`` → ``weight``/``bias``, no transpose;
 and the ``DenseGeneral`` projections of each ``self_attn``/``cross_attn``
@@ -59,7 +65,7 @@ import numpy as np
 import torch
 
 _BN = "BatchNorm_0"
-_BN_NAME = re.compile(r"BatchNorm_\d+")
+_BN_NAME = re.compile(r"BatchNorm_\d+|normalization")
 _TRANSPOSED = "up_sample"
 _FROZEN_BN = "FrozenBatchNorm_"
 _GN_NAME = re.compile(r"(cls|bbox)_gn(_l\d+)?_\d+|GroupNorm_\d+")

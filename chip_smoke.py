@@ -187,14 +187,14 @@ Run from the root of the repository. Phases, each of which raises on failure:
      memory; after the other models' timing, its inference at batch 1 and
      8 (network, per-level top-1000 + decode, NMS + rescale); with
      --profile, a profiler pass over the train step;
- 24. the data slice: the synthetic COCO set of tools/sanity_e2e.py, 200
-     train and 40 val PNGs of 640x640 written by the port; os.cpu_count()
+ 24. the data slice: the synthetic COCO set of tools/sanity_e2e.py, 96
+     train and 16 val PNGs of 640x640 written by the port; os.cpu_count()
      and whether Pillow imports (only JPEG would need it);
  25. det_train on full-width YOLOX-S (3 classes, random init) over it:
      mosaic and mixup in min(8, cores) DataLoader workers, batches of 8 with
      the multiscale resize, 2 epochs of 10 steps with NO_AUG_EPOCH 1; the
      matching and IoU kernels once per step, the no-aug switch turning
-     mosaic and mixup off and forking the workers anew, EvalHook on the 40
+     mosaic and mixup off and forking the workers anew, EvalHook on the 16
      val requests with the live and EMA weights (NMS once per request),
      plain versions never; the median data_time and step time;
  26. det_train --resume into the same directory with MAX_EPOCH 3: restored
@@ -202,11 +202,10 @@ Run from the root of the repository. Phases, each of which raises on failure:
  27. 2 steps each of Faster R-CNN and CenterNet over the set through
      DataloaderBuilder and their AUG.TRAIN_VALUE, kernel counts per step as
      in phases 11 and 14;
- 28. tools/bench_pipeline at 0, 2, 4 and 8 workers, the serial split of a
+ 28. tools/bench_pipeline at 0 and 8 workers, the serial split of a
      batch (the pack's share) and one batch's copy to the card from pinned
      and from pageable memory; YOLOX-S f32 train steps fed by the real
-     loader against DummyLoader (real, dummy, real), with the device's idle
-     share;
+     loader against DummyLoader, with the device's idle share;
  29. FCOS R50-FPN (full width, random weights from a seed: frozen BN and
      GroupNorm affine and every bias spread, class biases by 2, box biases
      raised so that boxes overlap): det_train, 2 steps of 2 images of
@@ -345,7 +344,7 @@ Run from the root of the repository. Phases, each of which raises on failure:
      failure fails the run: for each of its eleven names (RetinaNet, FCOS,
      ATSS, FreeAnchor, FasterRCNN, YOLOX-S, YOLOX-M, YOLOv3, CenterNet, OTA,
      DETR) a train row in f32 and one under --amp (batch 8 of 640x640) and an
-     eval row at batch 1, 3 warm-up and 10 timed steps or requests each:
+     eval row at batch 1, 2 warm-up and 6 timed steps or requests each:
      every number finite and positive, the peak printed, each kernel's
      launches on the row's path as BENCH_TRAIN and BENCH_EVAL say and its
      plain version never; the host syncs of one f32 step and one request
@@ -354,7 +353,23 @@ Run from the root of the repository. Phases, each of which raises on failure:
      (train-mode BN) under full-width RetinaNet's FPN: det_train 2 steps of
      2 images of 800x1333 (#10 once a step), det_test on its dump over 8
      requests (#1 once a request), plain 0;
- 51. print the kernel report (ten kernels in six sources, the bf16
+ 51. the HF backbone zoo (layers/backbone/hf_adaptor.py) under full-width
+     detectors: RetinaNet on hf_resnet50 (auto_convert_cfg_to_hf) and Faster
+     R-CNN on hf_regnety_040 (res2-res5), train-mode BN: det_train 4 steps
+     of 2 images of 800x1333 (#10 once a step, Faster R-CNN also #1, #5 and
+     #6 once and #10 twice), step wall time and peak memory; det_test on its
+     dump over 8 requests (#1 once a request, Faster R-CNN #1 twice and #5
+     once), plain 0; the dump on the card against the CPU on one request
+     (backbone, FPN and head or proposals, detections);
+ 52. the fused CSP chain under data-parallel training: YOLOX-S dark3's
+     CSPLayer over two ranks sharing the card over gloo against one process
+     (output, input gradient, parameter gradients, running statistics, each
+     within twice the kernels-vs-plain-versions difference on the same
+     inputs); det_train --amp TRAINER.AMP.FUSED_BN True --multi-host, 3
+     steps of 4 a rank, against one process at 8 (#3/#4 36 times a step a
+     rank, #2/#10 once, plain 0; ranks bit-equal; the first step's losses
+     held), beside the same run without the chain; world size 1 over NCCL;
+ 53. print the kernel report (ten kernels in six sources, the bf16
      RoIAlign variants apart; every kernel's launches path by path, the new
      paths and each data-parallel rank included), the card, and the result
      line.
@@ -397,6 +412,7 @@ ROI_BWD_RTOL = 2e-5
 ROI_R, ROI_C, ROI_STRIDES = 1000, 256, (4, 8, 16, 32)
 ROI_LEVELS = [(200, 336), (100, 168), (50, 84), (25, 42)]
 FRCNN_ATOL, FRCNN_AGREE = 1e-3, 0.95
+MODEL_REPS = 5  # timed runs of a whole model, stage or step (events, mean)
 # NVIDIA H100 SXM data sheet: HBM3 rate, f32 rate outside the tensor cores, dense bf16 tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_PER_S, PEAK_BF16_PER_S = 3.35e12, 67e12, 989e12
 SLICE_B, SLICE_K, SLICE_T = 8, 3000, 0.65  # YOLOX-S eval: 3 levels x top-1000, IoU 0.65
@@ -434,8 +450,13 @@ FUSED_SUM_RTOL = 2.0 ** -17
 AMP_LOSS_RTOL, AMP_FG_AGREE, AMP_STATS_RTOL = 3e-2, 0.995, 1e-2
 
 
+_START = time.perf_counter()
+
+
 def log(msg=""):
-    print(msg, flush=True)
+    """Print ``msg``; a phase's line (one starting with its ``[tag]``) ends with the seconds since the
+    script started, so that a run shows where its time limit goes."""
+    print(f"{msg} [t+{time.perf_counter() - _START:.0f} s]" if msg.startswith("[") else msg, flush=True)
 
 
 def check(cond, msg):
@@ -824,7 +845,7 @@ def matching_timing(cases, card):
         call = lambda: dynamic_k_matching(cost, ious, valid)
         ms = cuda_ms(call, reps=50, warmup=5)
         device, ops, names = device_kernels(call, 20)
-        plain_ms = cuda_ms(lambda: dynamic_k_matching_plain(cost, ious, valid), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: dynamic_k_matching_plain(cost, ious, valid), reps=MODEL_REPS, warmup=2)
         bound_ms, bound_by = matching_bound(arrays[2], cost.shape[2])
         times[name] = dict(ms=ms, device_ms=device, ops=ops, names=sorted(names), plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
@@ -1144,7 +1165,7 @@ def plain_iou_callers():
 def routing_timing(label, card, **runs):
     """Each of ``runs`` (a train step, or a stage of it that calls the IoU) with its IoUs through
     kernel #10 and through the plain version (the routing's before), in turns (kernel, plain,
-    plain, kernel): means of 10 runs each (events), and the peak memory of each
+    plain, kernel): means of MODEL_REPS runs each (events), and the peak memory of each
     (torch.cuda.max_memory_allocated)."""
     for name, run in runs.items():
         times, peaks = {"kernel": [], "plain": []}, {"kernel": 0, "plain": 0}
@@ -1152,7 +1173,7 @@ def routing_timing(label, card, **runs):
             with plain_iou_callers() if which == "plain" else contextlib.nullcontext():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                times[which].append(cuda_ms(run, reps=10, warmup=2))
+                times[which].append(cuda_ms(run, reps=MODEL_REPS, warmup=2))
                 peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
         span = {k: f"{min(v):.3f}-{max(v):.3f}" for k, v in times.items()}
         log(f"[routing] {label}, {name}: IoU through the kernel {span['kernel']} ms, peak "
@@ -1193,12 +1214,12 @@ def phase_train_timing(weights, card, amp=None, fused_step=None):
     with recording(model, "assign", lambda args, out: args) as assigned:
         losses()
     launches, fused = dynamic_k_matching.launches, fused_gemm_stats.launches
-    t_fwd = cuda_ms(forward, reps=10, warmup=3)
-    t_assign = cuda_ms(lambda: model.assign(*assigned[0]), reps=10, warmup=3)
-    t_loss = cuda_ms(losses, reps=10, warmup=3)
-    t_fb = cuda_ms(losses_backward, reps=10, warmup=3)
+    t_fwd = cuda_ms(forward, reps=MODEL_REPS, warmup=2)
+    t_assign = cuda_ms(lambda: model.assign(*assigned[0]), reps=MODEL_REPS, warmup=2)
+    t_loss = cuda_ms(losses, reps=MODEL_REPS, warmup=2)
+    t_fb = cuda_ms(losses_backward, reps=MODEL_REPS, warmup=2)
     torch.cuda.reset_peak_memory_stats()
-    t_step = cuda_ms(lambda: step(state, batch), reps=10, warmup=3)
+    t_step = cuda_ms(lambda: step(state, batch), reps=MODEL_REPS, warmup=2)
     peak = torch.cuda.max_memory_allocated()
     check(dynamic_k_matching.launches > launches, "train timing ran no matching kernel")
     check((fused_gemm_stats.launches > fused) == (amp == "fused"),
@@ -1212,7 +1233,7 @@ def phase_train_timing(weights, card, amp=None, fused_step=None):
         f"({8000 / t_step:.1f} img/s): forward {t_fwd:.3f} ms, assignment {t_assign:.3f} ms "
         f"(matching kernel inside), losses {t_loss - t_fwd - t_assign:.3f} ms, backward "
         f"{t_fb - t_loss:.3f} ms, SGD+EMA {t_step - t_fb:.3f} ms (parts are differences of means "
-        f"of 10 runs each){share}; peak memory {peak / 2**30:.2f} GiB "
+        f"of {MODEL_REPS} runs each){share}; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated), input already on the card | {card}")
     if amp is None:
         routing_timing("YOLOX-S f32 train step, batch 8 of 640x640", card,
@@ -1813,7 +1834,7 @@ def phase_timing(model, card):
     from basedet_tpu_torch.ops.nms_kernel import nms_keep
 
     totals = {}
-    for bs, reps in ((1, 30), (32, 8)):
+    for bs, reps in ((1, 15), (32, 4)):
         batch = _timing_batch(bs)
         info = batch["im_info"]
         total = cuda_ms(lambda: model.inference(batch), reps=reps, warmup=3)
@@ -2671,7 +2692,7 @@ def phase_frcnn_train_timing(weights, card):
     from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align_backward
 
     model, state, step, batch, noise = frcnn_train_inputs(weights)
-    m, reps = model.module, 10
+    m, reps = model.module, MODEL_REPS
 
     def timed(fn):
         def run():
@@ -2733,7 +2754,7 @@ def phase_frcnn_timing(model, card):
 
     m = model.module
     launches = multilevel_roi_align.launches
-    for bs, reps in ((1, 20), (8, 5)):
+    for bs, reps in ((1, 10), (8, 3)):
         batch = _timing_batch(bs, FRCNN_IMAGE)
         total = cuda_ms(lambda: model.inference(batch), reps=reps, warmup=2)
         torch.cuda.reset_peak_memory_stats()
@@ -3095,7 +3116,7 @@ def phase_cnet_train_timing(weights, card, scatter_step_ms):
 
     model, state, step, batch = _cnet_train_setup(weights, "cuda", CNET_B)
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
-    m, reps = model.module, 10
+    m, reps = model.module, MODEL_REPS
 
     def timed(fn):
         def run():
@@ -3639,7 +3660,7 @@ def phase_retina_train_timing(weights, card):
 
     model, state, step, batch = _retina_train_setup(weights, "cuda")
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
-    m, reps = model.module, 10
+    m, reps = model.module, MODEL_REPS
 
     def timed(fn):
         def run():
@@ -3681,37 +3702,39 @@ def phase_retina_train_timing(weights, card):
 def phase_retina_timing(model, card):
     """RetinaNet f32 inference at batch 1 and 8 of 800x1333, input on the card: the whole request,
     the network, the per-level top-1000 (sigmoid, stable sort of R·C scores, decode) and NMS with
-    the rescale, each timed alone on the previous stage's outputs, means of 10."""
+    the rescale, each timed alone on the previous stage's outputs, means of MODEL_REPS."""
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.layers.common.post_processing import post_processing
 
     test_cfg = model.cfg.TEST
     for bs in (1, 8):
         batch = _timing_batch(bs, FRCNN_IMAGE)
-        total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+        total = cuda_ms(lambda: model.inference(batch), reps=MODEL_REPS, warmup=2)
         torch.cuda.reset_peak_memory_stats()
         model.inference(batch)
         peak = torch.cuda.max_memory_allocated()
         with torch.inference_mode(), full_f32():
             x = model.pre_process(batch)
             image, info = x["image"], x["img_info"]
-            t_net = cuda_ms(lambda: model.module(image), reps=10, warmup=2)
+            t_net = cuda_ms(lambda: model.module(image), reps=MODEL_REPS, warmup=2)
             logits_l, offsets_l = model.module(image)
             flat = model.flatten(logits_l, offsets_l)
             anchors = model.anchors(logits_l)
-            t_topk = cuda_ms(lambda: model.candidates(*flat, anchors), reps=10, warmup=2)
+            t_topk = cuda_ms(lambda: model.candidates(*flat, anchors), reps=MODEL_REPS, warmup=2)
             cands = model.candidates(*flat, anchors)
             t_nms = cuda_ms(lambda: post_processing(*cands, info, test_cfg.IOU_THRESHOLD,
-                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=10, warmup=2)
+                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=MODEL_REPS, warmup=2)
         log(f"[timing] RetinaNet R50-FPN f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch {bs}: {total:.3f} ms per batch "
             f"({1000 * bs / total:.2f} img/s); network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, "
-            f"NMS at K = {cands[1].shape[1]} + rescale {t_nms:.3f} ms (each alone, means of 10); peak memory "
+            f"NMS at K = {cands[1].shape[1]} + rescale {t_nms:.3f} ms (each alone, means of {MODEL_REPS}); peak memory "
             f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), input already on the card | {card}")
 
 
 # -- the data slice: a COCO-format set on disk, the real loaders, eval and resume ---------------
 
-DATA_SIZE, DATA_TRAIN, DATA_VAL = 640, 200, 40  # the synthetic set of sanity_e2e at YOLOX-S's input size
+# the synthetic set of sanity_e2e at YOLOX-S's input size; 96 train images cover an epoch of DATA_STEPS
+# batches of 8 (the smoke's whole run has to fit its time limit)
+DATA_SIZE, DATA_TRAIN, DATA_VAL = 640, 96, 16
 DATA_STEPS = 10  # iterations per epoch of phases 25-26
 DATA_COUNTS = {}  # data-slice path -> {kernel: (launches, plain calls)}
 
@@ -3775,8 +3798,8 @@ def check_counts(path, expected):
 
 
 def phase_data_set(out_dir):
-    """24. The synthetic COCO set of ``sanity_e2e`` at 640x640, 200 train and 40 val images written
-    as PNG by the port, registered for the phases below."""
+    """24. The synthetic COCO set of ``sanity_e2e`` at 640x640, DATA_TRAIN train and DATA_VAL val
+    images written as PNG by the port, registered for the phases below."""
     from basedet_tpu_torch.data import register_dataset
     from basedet_tpu_torch.tools.sanity_e2e import make_synthetic_coco
 
@@ -3836,7 +3859,7 @@ def _step_summary(records):
 def phase_data_train(out_dir, card):
     """25. det_train on full-width YOLOX-S (3 classes, random init) over the synthetic set: mosaic
     and mixup live in min(8, cores) DataLoader workers, batches of 8 (640x640, then the multiscale
-    resize), 2 epochs of 10 steps, the second without augmentation; EvalHook on the 40 val images
+    resize), 2 epochs of 10 steps, the second without augmentation; EvalHook on the DATA_VAL val images
     with the live and the EMA weights. Per step the matching and IoU kernels once; NMS once per val
     request; plain versions never. Returns the trainer."""
     from basedet_tpu_torch.tools import det_train
@@ -3959,13 +3982,13 @@ def _loop_timing(out_dir, workers, dummy, steps=12, warmup=3):
 
 
 def phase_data_bench(out_dir, card):
-    """28. tools/bench_pipeline at 0, 2, 4 and 8 workers (the real YOLOX loader at 640x640, batches
-    of 8), the serial split of one batch and one batch's copy to the card from pinned and from
-    pageable memory; then YOLOX-S f32 train steps fed by the real loader against DummyLoader's,
-    with the device's idle share (profiler, profiled wall)."""
+    """28. tools/bench_pipeline at 0 and 8 workers (the real YOLOX loader at 640x640, batches of
+    8), the serial split of one batch and one batch's copy to the card from pinned and from pageable
+    memory; then YOLOX-S f32 train steps fed by the real loader against DummyLoader's, with the
+    device's idle share (profiler, profiled wall)."""
     from basedet_tpu_torch.tools import bench_pipeline
 
-    workers = [w for w in (0, 2, 4, 8) if w <= (os.cpu_count() or 1)]
+    workers = [w for w in (0, 8) if w <= (os.cpu_count() or 1)]
     t0 = time.perf_counter()
     results = bench_pipeline.main(["--workers", *map(str, workers), "--size", str(DATA_SIZE), "--batch-size", "8",
                                    "--batches", "8", "--images", str(DATA_TRAIN), "--device", "cuda",
@@ -3983,11 +4006,9 @@ def phase_data_bench(out_dir, card):
     n = min(8, os.cpu_count() or 1)
     real = _loop_timing(out_dir, n, dummy=False)
     dummy = _loop_timing(out_dir, n, dummy=True)
-    real2 = _loop_timing(out_dir, n, dummy=False)
     log(f"[data-bench] YOLOX-S f32 train steps at batch 8 (multiscale), losses read once per 12 steps, "
         + "; ".join(f"{label}: {ms:.1f} ms a step, device idle share {idle:.3f}, median data_time {dt:.1f} ms"
-                    for label, (ms, idle, dt) in (("real loader", real), ("DummyLoader", dummy),
-                                                   ("real loader again", real2)))
+                    for label, (ms, idle, dt) in (("real loader", real), ("DummyLoader", dummy)))
         + f" (profiled wall, {n} workers) | {card}")
 
 
@@ -4477,13 +4498,13 @@ def phase_new_train_timing(name, weights, card):
 
 def phase_new_inference_timing(name, model, card):
     """``name``'s f32 inference at batch 1 of 800x1333, input on the card: the whole request, the
-    network, the per-level top-1000 + decode and NMS with the rescale, each alone, means of 10."""
+    network, the per-level top-1000 + decode and NMS with the rescale, each alone, means of MODEL_REPS."""
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.layers.common.post_processing import post_processing
 
     test_cfg = model.cfg.TEST
     batch = _timing_batch(1, FRCNN_IMAGE)
-    total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+    total = cuda_ms(lambda: model.inference(batch), reps=MODEL_REPS, warmup=2)
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4494,17 +4515,17 @@ def phase_new_inference_timing(name, model, card):
     with torch.inference_mode(), full_f32():
         x = model.pre_process(batch)
         image, info = x["image"], x["img_info"]
-        t_net = cuda_ms(lambda: model.module(image), reps=10, warmup=2)
+        t_net = cuda_ms(lambda: model.module(image), reps=MODEL_REPS, warmup=2)
         head_out = model.module(image)
         places = model.anchors(head_out[0]) if name == "FreeAnchor" else model.points(head_out[0])
         flat = model.flatten(*head_out)
-        t_topk = cuda_ms(lambda: model.candidates(*flat, places), reps=10, warmup=2)
+        t_topk = cuda_ms(lambda: model.candidates(*flat, places), reps=MODEL_REPS, warmup=2)
         cands = model.candidates(*flat, places)
         t_nms = cuda_ms(lambda: post_processing(*cands, info, test_cfg.IOU_THRESHOLD, test_cfg.MAX_BOXES_PER_IMAGE),
-                        reps=10, warmup=2)
+                        reps=MODEL_REPS, warmup=2)
     log(f"[timing] {name} R50-FPN f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch 1: {total:.3f} ms per request; "
         f"network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, NMS at K = {cands[1].shape[1]} + rescale "
-        f"{t_nms:.3f} ms (each alone, means of 10); peak memory {peak / 2**30:.2f} GiB (the model's weights and "
+        f"{t_nms:.3f} ms (each alone, means of {MODEL_REPS}); peak memory {peak / 2**30:.2f} GiB (the model's weights and "
         f"the request's torch.cuda.max_memory_allocated above what was held before it), input already on the card "
         f"| {card}")
     return total
@@ -4995,13 +5016,13 @@ def phase_detr_train_timing(weights, card):
 def phase_last_inference_timing(name, model, card):
     """``name``'s f32 inference at batch 1 of 800x1333, input on the card: the whole request, the
     network and the post-process (YOLOv3: the per-level top-1000 + decode, then NMS at K = 3000 with
-    the rescale), each alone, means of 10; the request's peak with the weights."""
+    the rescale), each alone, means of MODEL_REPS; the request's peak with the weights."""
     from basedet_tpu_torch.layers.common.function import full_f32
     from basedet_tpu_torch.layers.common.post_processing import post_processing
 
     batch = _timing_batch(1, FRCNN_IMAGE)
     model.eval()
-    total = cuda_ms(lambda: model.inference(batch), reps=10, warmup=2)
+    total = cuda_ms(lambda: model.inference(batch), reps=MODEL_REPS, warmup=2)
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -5012,23 +5033,23 @@ def phase_last_inference_timing(name, model, card):
     with torch.inference_mode(), full_f32():
         if name == "YOLOv3":
             x = model.pre_process(batch)
-            t_net = cuda_ms(lambda: model.module(x["image"]), reps=10, warmup=2)
+            t_net = cuda_ms(lambda: model.module(x["image"]), reps=MODEL_REPS, warmup=2)
             preds = model.module(x["image"])
-            t_topk = cuda_ms(lambda: model.candidates(preds), reps=10, warmup=2)
+            t_topk = cuda_ms(lambda: model.candidates(preds), reps=MODEL_REPS, warmup=2)
             cands = model.candidates(preds)
             test_cfg = model.cfg.TEST
             t_nms = cuda_ms(lambda: post_processing(*cands, x["img_info"], test_cfg.IOU_THRESHOLD,
-                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=10, warmup=2)
+                                                    test_cfg.MAX_BOXES_PER_IMAGE), reps=MODEL_REPS, warmup=2)
             split = (f"network {t_net:.3f}, top-1000 per level + decode {t_topk:.3f}, NMS at K = {cands[1].shape[1]} "
                      f"+ rescale {t_nms:.3f} ms")
         else:
             x = model.prepare(batch)
-            t_net = cuda_ms(lambda: model.module(x["image"], x["mask"]), reps=10, warmup=2)
+            t_net = cuda_ms(lambda: model.module(x["image"], x["mask"]), reps=MODEL_REPS, warmup=2)
             logits, coords = model.module(x["image"], x["mask"])
-            t_post = cuda_ms(lambda: model.post_process(logits[-1], coords[-1], x["img_info"]), reps=10, warmup=2)
+            t_post = cuda_ms(lambda: model.post_process(logits[-1], coords[-1], x["img_info"]), reps=MODEL_REPS, warmup=2)
             split = f"network {t_net:.3f}, softmax + boxes {t_post:.3f} ms"
     log(f"[timing] {name} f32 {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} batch 1: {total:.3f} ms per request; {split} (each "
-        f"alone, means of 10); peak memory {peak / 2**30:.2f} GiB (the model's weights and the request's "
+        f"alone, means of {MODEL_REPS}); peak memory {peak / 2**30:.2f} GiB (the model's weights and the request's "
         f"torch.cuda.max_memory_allocated above what was held before it), input already on the card | {card}")
     return total
 
@@ -5468,8 +5489,11 @@ def dp_worker(out_dir, tag, runs):
             steps.append({"ms": (time.perf_counter() - t0 - self.meters["data_time"].latest) * 1e3,
                           "losses": {k: m.latest for k, m in self.meters.items() if "loss" in k}})
 
-        DetTrainer.train_one_iter = one_iter
         path = f"{tag} {name} rank {rank}"
+        if args == "csp_layer":  # phase 52's CSPLayer, under a process group of its own
+            torch.save(dp_csp_layer(path), os.path.join(out_dir, f"{tag}_{name}_rank{rank}.pt"))
+            continue
+        DetTrainer.train_one_iter = one_iter
         try:
             with recording(blocks.CrossRankBatchNorm, "apply", lambda a, o: None) as bn_calls, \
                     recording(parallel, "all_reduce_grads", lambda a, o: None) as grad_reductions, \
@@ -5515,6 +5539,37 @@ def _torchrun(nproc, out_dir, tag, runs):
         check(False, f"torchrun {tag} exited {rc}")
     return {name: [torch.load(os.path.join(out_dir, f"{tag}_{name}_rank{r}.pt"), weights_only=False)
                    for r in range(nproc)] for name, _ in runs}, seconds
+
+
+def _tp_args(out_dir, sub, multi_host):
+    """det_train arguments of phase 45's DETR run, under ``out_dir/tp/sub``."""
+    flags = ["--multi-host", "--dist-backend", "gloo"] if multi_host else []
+    opts = _last_train_opts(os.path.join(out_dir, "tp", sub), "DETR", _amp_weights(out_dir, "DETR"), DETR_B)
+    return ["-f", DETR_CONFIG, "--device", "cuda", *flags, *opts,
+            *(["TRAINER.TP_SIZE", str(TP_SIZE)] if multi_host else [])]
+
+
+def dp_launches(out_dir, weights, frcnn_weights):
+    """The torchrun launches of phases 43-45 and 52, two in all (each launch pays its ranks'
+    start-up): one rank over NCCL (phase 43's YOLOX-S, phase 52's fused chain) and two ranks sharing
+    the card over gloo (phase 44's YOLOX-S and Faster R-CNN, phase 45's DETR at TP_SIZE 2, phase 52's
+    CSPLayer and its fused and unfused YOLOX-S). → ((NCCL results, seconds), (gloo results, seconds))."""
+    dp_dir = os.path.join(out_dir, "dp")
+    for sub in ("dp_nccl", "dp_gloo", "tp", "fused_dp"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    at = lambda *parts: os.path.join(out_dir, *parts)
+    os.makedirs(dp_dir, exist_ok=True)
+    nccl = _torchrun(1, dp_dir, "nccl1", [
+        ("yolox", _yolox_dp_args(at("dp_nccl", "dp"), weights, True, 8, 32)),
+        ("fused", _fused_dp_args(at("fused_dp", "nccl"), weights, True, FUSED_DP_B))])
+    gloo = _torchrun(2, dp_dir, "gloo2", [
+        ("yolox", _yolox_dp_args(at("dp_gloo", "yolox"), weights, True, 4, 16, "gloo")),
+        ("frcnn", _frcnn_dp_args(at("dp_gloo", "frcnn"), frcnn_weights, True, 1, 4, "gloo")),
+        ("detr", _tp_args(out_dir, "tp", True)),
+        ("csp", "csp_layer"),
+        ("fused", _fused_dp_args(at("fused_dp", "fused"), weights, True, FUSED_DP_B // 2, "gloo")),
+        ("unfused", _fused_dp_args(at("fused_dp", "unfused"), weights, True, FUSED_DP_B // 2, "gloo", fused=False))])
+    return nccl, gloo
 
 
 def _dp_plain(args, path):
@@ -5581,7 +5636,7 @@ def _frcnn_dp_args(out_dir, weights, multi_host, per_rank, images, backend=None)
     return ["-f", FRCNN_CONFIG, "--device", "cuda", *flags, *opts]
 
 
-def phase_dp_nccl(out_dir, weights, card):
+def phase_dp_nccl(out_dir, weights, card, launched):
     """43. Data-parallel det_train at world size 1 over NCCL: full-width YOLOX-S, batch 8 of 640x640
     (resized to 832x832), f32 with TF32 off, 4 steps, through ``torchrun --nproc-per-node 1 ...
     det_train --multi-host``; under a process group the cross-rank BN and the gradient all-reduce
@@ -5594,8 +5649,7 @@ def phase_dp_nccl(out_dir, weights, card):
     plain_path = "YOLOX-S det_train, plain beside the DP run"
     plain, plain_state = _dp_plain(_yolox_dp_args(os.path.join(dp_dir, "plain"), weights, False, 8, 32),
                                    plain_path)
-    runs, seconds = _torchrun(1, dp_dir, "nccl1", [("yolox", _yolox_dp_args(
-        os.path.join(dp_dir, "dp"), weights, True, 8, 32))])
+    runs, seconds = launched
     res = runs["yolox"][0]
     check(res["world"] == 1 and res["global_batch"] == 8 and len(res["steps"]) == 4 == len(plain),
           f"the NCCL run took {len(res['steps'])} steps at world {res['world']}")
@@ -5611,7 +5665,7 @@ def phase_dp_nccl(out_dir, weights, card):
     update = _update_deviation(res["state"], plain_state, torch.load(weights, map_location="cpu"))
     dp_ms, dp_text = _median_ms(res["steps"])
     plain_ms, plain_text = _median_ms(plain)
-    log(f"[dp-nccl] {path}: 4 steps of 8 at 832x832 in a torchrun launch of {seconds:.1f} s; cross-rank BN "
+    log(f"[dp-nccl] {path}: 4 steps of 8 at 832x832 (a torchrun launch of {seconds:.1f} s with phase 52's NCCL run); cross-rank BN "
         f"calls {res['bn_calls']} ({res['bn_calls'] // 4} a step), gradient all-reduces {res['grad_reductions']}; "
         f"kernel launches #2 {counts['dynamic_k_matching'][0]}, #10 {counts['box_iou'][0]}, plain 0; losses "
         f"within {worst} relative of the plain det_train's, step by step (rtol {DP_LOSS_RTOLS[0]}, "
@@ -5656,7 +5710,7 @@ def _state_report(rows):
                      for share, k, err, mag, change in rows[:3])
 
 
-def phase_dp_gloo(out_dir, weights, frcnn_weights, card):
+def phase_dp_gloo(out_dir, weights, frcnn_weights, card, launched):
     """44. Two ranks sharing the card over gloo (``torchrun --nproc-per-node 2 ... --multi-host
     --dist-backend gloo``; not a multi-GPU figure): full-width YOLOX-S at 4 a rank against the plain
     det_train at 8, and Faster R-CNN R50-FPN at 1 a rank against 2 (the sampling draws and the
@@ -5673,9 +5727,7 @@ def phase_dp_gloo(out_dir, weights, frcnn_weights, card):
     plain_frcnn, frcnn_state = _dp_plain(
         _frcnn_dp_args(os.path.join(dp_dir, "plain_frcnn"), frcnn_weights, False, 2, 4),
         "Faster R-CNN det_train, plain beside the 2-rank run")
-    runs, seconds = _torchrun(2, dp_dir, "gloo2", [
-        ("yolox", _yolox_dp_args(os.path.join(dp_dir, "yolox"), weights, True, 4, 16, "gloo")),
-        ("frcnn", _frcnn_dp_args(os.path.join(dp_dir, "frcnn"), frcnn_weights, True, 1, 4, "gloo"))])
+    runs, seconds = launched
     expected = {"yolox": {"dynamic_k_matching": 2, "box_iou": 2},
                 "frcnn": {"multilevel_roi_align": 2, "multilevel_roi_align_backward": 2, "nms_keep": 2, "box_iou": 4}}
     labels = {"yolox": "YOLOX-S det_train --multi-host, 2 ranks over gloo",
@@ -5719,7 +5771,7 @@ def phase_dp_gloo(out_dir, weights, frcnn_weights, card):
                      f"{ms(ranks[0]['steps'])} ms, rank 1 {ms(ranks[1]['steps'])} ms, against the plain step at the "
                      f"global batch {ms(plain)} ms")
     probes = runs["yolox"][0]["probes"]
-    log(f"[dp-gloo] two ranks sharing the card over gloo (torchrun launch of {seconds:.1f} s, YOLOX-S 2 steps of "
+    log(f"[dp-gloo] two ranks sharing the card over gloo (a torchrun launch of {seconds:.1f} s with phases 45 and 52's runs, YOLOX-S 2 steps of "
         f"4 a rank at 832x832, Faster R-CNN 2 steps of 1 a rank at 800x1333): " + "; ".join(lines)
         + f"; gloo collectives on CUDA tensors: {probes} | {card}")
     return launches
@@ -5747,7 +5799,7 @@ ANALYZE = {  # family: (config, image the phases run it at)
 }
 
 
-def phase_tp(out_dir, card):
+def phase_tp(out_dir, card, launched):
     """45. Tensor parallelism: full-width DETR R50 (6 + 6 layers, FFN 2048, 100 queries), 2 steps of 2
     images of 800x1333, dropout 0.1, through ``torchrun --nproc-per-node 2 ... det_train --multi-host
     --dist-backend gloo TRAINER.TP_SIZE 2`` (data 1 x model 2: both ranks share the card and step the
@@ -5755,18 +5807,9 @@ def phase_tp(out_dir, card):
     each step's losses, the state after the steps, the ranks bit-equal, every FFN call of the ranks
     split two ways, no kernel launched (DETR runs none) and no plain version; the step wall time beside
     the plain step's. NCCL at TP_SIZE 2 needs two cards: not run here."""
-    tp_dir = os.path.join(out_dir, "tp")
-    os.makedirs(tp_dir, exist_ok=True)
     weights = _amp_weights(out_dir, "DETR")
-
-    def args(sub, multi_host):
-        flags = ["--multi-host", "--dist-backend", "gloo"] if multi_host else []
-        opts = _last_train_opts(os.path.join(tp_dir, sub), "DETR", weights, DETR_B)
-        return ["-f", DETR_CONFIG, "--device", "cuda", *flags, *opts,
-                *(["TRAINER.TP_SIZE", str(TP_SIZE)] if multi_host else [])]
-
-    plain, state = _dp_plain(args("plain", False), "DETR det_train, plain beside the TP run")
-    runs, seconds = _torchrun(TP_SIZE, tp_dir, "tp2", [("detr", args("tp", True))])
+    plain, state = _dp_plain(_tp_args(out_dir, "plain", False), "DETR det_train, plain beside the TP run")
+    runs, seconds = launched
     ranks = runs["detr"]
     label = f"DETR det_train --multi-host TRAINER.TP_SIZE {TP_SIZE}, 2 ranks over gloo"
     layers = 6 + 6
@@ -5789,7 +5832,7 @@ def phase_tp(out_dir, card):
     tp_ms, tp_text = _median_ms(ranks[0]["steps"])
     plain_ms, plain_text = _median_ms(plain)
     ms = lambda steps: "/".join(f"{s['ms']:.1f}" for s in steps)
-    log(f"[tp] {label} (data 1 x model {TP_SIZE}, a torchrun launch of {seconds:.1f} s; 2 steps of {DETR_B} at "
+    log(f"[tp] {label} (data 1 x model {TP_SIZE}, in phase 44's torchrun launch; 2 steps of {DETR_B} at "
         f"{FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]}, dropout 0.1): every one of the {layers} FFN calls a step split "
         f"{TP_SIZE} ways on each rank; the ranks bit-equal; losses within {worst_loss} relative of the plain "
         f"det_train's by step; the update of its parameters {update:.4g} of its norm off one process's "
@@ -6330,7 +6373,7 @@ def phase_yolox_m(out_dir, card):
 
 # -- phase 50: the benchmark tool's sweep over the eleven configs, and Darknet-53 under RetinaNet's FPN ---------
 
-BENCH_IMAGE, BENCH_B, BENCH_EVAL_B, BENCH_WARMUP, BENCH_ITERS = 640, 8, 1, 3, 10  # the JAX tool's shapes
+BENCH_IMAGE, BENCH_B, BENCH_EVAL_B, BENCH_WARMUP, BENCH_ITERS = 640, 8, 1, 2, 6  # the JAX tool's shapes
 BENCH_EVENTS_RTOL = 0.05  # the tool's host-clock step_ms against CUDA events around the same loop
 # {model: {kernel: launches per train step}} on the tool's path in f32 (--amp: RoIAlign's bf16 kernels in
 # place of the f32 ones) and {model: {kernel: launches per request}} in eval; TRAINER.AMP.FUSED_BN is off
@@ -6525,6 +6568,390 @@ def phase_darknet_retina(out_dir, card):
         f"| {card}")
 
 
+
+# -- the HF backbone zoo under the detectors (phase 51) ----------------------------------------------
+
+HF_DETECTORS = {  # model: (config, HF preset, extra options, {kernel: det_train launches a step},
+    #                      {kernel: det_test launches a request}, randomise)
+    "RetinaNet": (RETINA_CONFIG, "resnet50", None, {"box_iou": 1}, {"nms_keep": 1}, "retina"),
+    "Faster R-CNN": (FRCNN_CONFIG, "regnety_040", ["MODEL.BACKBONE.OUT_FEATURES", "('res2','res3','res4','res5')"],
+                     {"multilevel_roi_align": 1, "multilevel_roi_align_backward": 1, "nms_keep": 1, "box_iou": 2},
+                     {"multilevel_roi_align": 1, "nms_keep": 2}, "frcnn"),
+}
+HF_STEPS, HF_REQUESTS = 4, 8
+
+
+def _hf_opts(name):
+    """The options that put ``name`` on its HF preset: RetinaNet's are those ``auto_convert_cfg_to_hf``
+    writes (res3-res5, p6p7 on res5), checked against the function; Faster R-CNN keeps res2-res5."""
+    from basedet_tpu_torch.layers.backbone.hf_adaptor import auto_convert_cfg_to_hf
+    from basedet_tpu_torch.tools import import_config
+
+    config, preset, extra, *_ = HF_DETECTORS[name]
+    if extra is not None:
+        return ["MODEL.BACKBONE.NAME", f"hf_{preset}", *extra]
+    cfg = auto_convert_cfg_to_hf(import_config(config), preset)
+    opts = ["MODEL.BACKBONE.NAME", cfg.MODEL.BACKBONE.NAME, "MODEL.BACKBONE.OUT_FEATURES",
+            str(tuple(cfg.MODEL.BACKBONE.OUT_FEATURES)).replace(" ", ""), "MODEL.FPN.TOP_BLOCK_IN_FEATURE",
+            cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE]
+    merged = import_config(config)
+    merged.merge(opts)
+    check(tuple(merged.MODEL.BACKBONE.OUT_FEATURES) == tuple(cfg.MODEL.BACKBONE.OUT_FEATURES)
+          and merged.MODEL.FPN.TOP_BLOCK_IN_FEATURE == cfg.MODEL.FPN.TOP_BLOCK_IN_FEATURE,
+          f"{name}: the options are not auto_convert_cfg_to_hf's rewrite")
+    return opts
+
+
+def _hf_card_vs_cpu(name, cfg, model, weights):
+    """One eval request (800x1333) on the card and on the CPU from the dumped weights, f32 with TF32
+    off: the HF backbone's res2-res5 (as requested), the FPN levels and the head outputs (RetinaNet)
+    or the proposals (Faster R-CNN), each to HEAD_ATOL of its largest entry; detections matched as
+    phases 12 and 22 match them (FRCNN_AGREE)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.data import build_test_dataloader
+    from basedet_tpu_torch.layers.common.function import full_f32
+    from basedet_tpu_torch.utils.compare import match_detections
+
+    cpu = build_model(cfg, "cpu")
+    cpu.load_weights(weights)
+    request = next(iter(build_test_dataloader(cfg)))
+    request = {k: request[k] for k in ("data", "im_info")}
+
+    def stages(m):
+        m.eval()
+        with torch.inference_mode(), full_f32():
+            x = m.pre_process(request)
+            bottom_up = m.module.bottom_up(x["image"])
+            feats = m.module.fpn(bottom_up)
+            out = {**bottom_up, **feats}
+            proposals = None
+            if name == "RetinaNet":
+                logits, offsets = m.module.head([out[n] for n in m.module.level_names])
+                out.update({f"logits {n}": v for n, v in zip(m.module.level_names, logits)})
+                out.update({f"offsets {n}": v for n, v in zip(m.module.level_names, offsets)})
+            else:
+                proposals = [t.cpu() for t in m.module.proposals(feats, x["img_info"])]
+        return ({k: v.float().cpu() for k, v in out.items()}, proposals,
+                {k: v.cpu().numpy() for k, v in m.inference(request).items()})
+
+    t0 = time.perf_counter()
+    c_stages, c_prop, c_dets = stages(cpu)
+    cpu_s = time.perf_counter() - t0
+    g_stages, g_prop, g_dets = stages(model)
+    err = {k: float((g_stages[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)) for k, v in c_stages.items()}
+    frac = match_detections(c_dets, g_dets)
+    check(max(err.values()) <= HEAD_ATOL, f"{name} on its HF backbone: card and CPU stages differ: {err}")
+    check(np.isfinite(g_dets["boxes"]).all() and g_dets["valid"].any(), f"{name}: card detections empty or non-finite")
+    check(frac >= FRCNN_AGREE, f"{name}: only {frac:.3f} of the CPU's detections matched on the card")
+    text = ""
+    if c_prop is not None:  # proposal slots as phase 12 matches them (two near-tied scores may swap)
+        prop_frac, prop_err = _slot_agreement(c_prop[0], c_prop[1], g_prop[0], g_prop[1])
+        check(prop_frac >= FRCNN_AGREE, f"{name}: only {prop_frac:.3f} of the CPU's proposals matched on the card")
+        text = f"; proposals {prop_frac:.4f} of slots matched, max |dbox| {prop_err:.3e} on them"
+    return (f"card vs CPU on one {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} request (CPU {cpu_s:.1f} s), max |diff| over max "
+            f"|value|: {', '.join(f'{k} {v:.2e}' for k, v in err.items())} (tol {HEAD_ATOL}){text}; "
+            f"{int(c_dets['valid'].sum())} CPU / {int(g_dets['valid'].sum())} card detections, {frac:.4f} matched "
+            f"(min {FRCNN_AGREE})")
+
+
+def phase_hf_detectors(out_dir, card):
+    """51. The HF backbone zoo (``layers/backbone/hf_adaptor.py``) under full-width detectors: RetinaNet
+    on hf_resnet50 (``auto_convert_cfg_to_hf``) and Faster R-CNN on hf_regnety_040 (res2-res5 under
+    P2-P6), random weights from SEED with the biases spread as phases 11 and 19 spread them, every HF
+    BN in train mode. Each: det_train HF_STEPS steps of 2 images of 800x1333 in f32 (launches of #10,
+    and of #1, #5 and #6 for Faster R-CNN, as HF_DETECTORS says, plain 0), each step's wall time and
+    the run's peak memory; det_test on its dump over HF_REQUESTS requests (#1, and #5 for Faster
+    R-CNN, plain 0), finite detections; the dump on the card against the CPU (``_hf_card_vs_cpu``)."""
+    from basedet_tpu_torch import build_model
+    from basedet_tpu_torch.tools import det_test, import_config
+
+    for name, (config, preset, _, train_launches, test_launches, spread) in HF_DETECTORS.items():
+        run_dir = os.path.join(out_dir, f"hf_{preset}")
+        hf = _hf_opts(name)
+        test_opts = [*hf, *(_retina_opts(run_dir) if spread == "retina" else _frcnn_opts(run_dir))]
+        cfg = import_config(config)
+        cfg.merge(test_opts)
+        generator = torch.Generator(device="cuda").manual_seed(SEED)
+        model = build_model(cfg, "cuda", generator)
+        (randomise_retina if spread == "retina" else randomise_frcnn)(model.module, generator)
+        weights = os.path.join(out_dir, f"{spread}_hf_{preset}_seed0.pt")
+        torch.save(model.module.state_dict(), weights)
+        n_params = sum(p.numel() for p in model.module.parameters())
+        n_backbone = sum(p.numel() for p in model.module.bottom_up.parameters())
+        del model
+        train_opts = _retina_train_opts(run_dir, weights) if spread == "retina" else _frcnn_train_opts(run_dir, weights)
+        args = ["-f", config, "--device", "cuda", *hf, *train_opts]
+        path = f"{name} hf_{preset} det_train"
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps, _ = _dp_plain(args, path)
+        peak = torch.cuda.max_memory_allocated() - before
+        check(len(steps) == HF_STEPS, f"{path} took {len(steps)} steps")
+        check(all(math.isfinite(v) and v >= 0 for s in steps for v in s["losses"].values()),
+              f"{path}: losses {[s['losses'] for s in steps]}")
+        train_counts = _new_counts(path, {k: v * HF_STEPS for k, v in train_launches.items()})
+        ckpt = "retina_ckpt" if spread == "retina" else "frcnn_ckpt"
+        dumped = os.path.join(run_dir, ckpt, "dumped_model.pt")
+        test_path = f"{name} hf_{preset} det_test"
+        t0 = time.perf_counter()
+        with kernel_counts(test_path):
+            results = det_test.main(["-f", config, "-w", dumped, "--device", "cuda", *test_opts])
+        torch.cuda.synchronize()
+        test_seconds = time.perf_counter() - t0
+        test_counts = _new_counts(test_path, {k: v * HF_REQUESTS for k, v in test_launches.items()})
+        with open(os.path.join(run_dir, "predict_coco.json")) as f:
+            records = json.load(f)
+        check(records and np.isfinite([r["bbox"] + [r["score"]] for r in records]).all(),
+              f"{test_path}: no or non-finite detections")
+        model = build_model(cfg, "cuda")
+        model.load_weights(dumped)
+        parity = _hf_card_vs_cpu(name, cfg, model, dumped)
+        del model
+        step_ms, step_text = _median_ms(steps)
+        log(f"[hf] {name} on hf_{preset} ({n_params} parameters, {n_backbone} in the HF backbone, train-mode BN): "
+            f"det_train {HF_STEPS} steps of 2 of {FRCNN_IMAGE[0]}x{FRCNN_IMAGE[1]} in f32, step wall time without the "
+            f"loader's batch {step_text}, peak {peak / 2**30:.2f} GiB above what was held "
+            f"(torch.cuda.max_memory_allocated over the det_train run), losses "
+            f"{[{k: round(v, 4) for k, v in s['losses'].items()} for s in steps]}, launches {train_counts}; det_test "
+            f"over {HF_REQUESTS} requests in {test_seconds:.2f} s: {results}, {len(records)} finite detections, "
+            f"launches {test_counts}; {parity} | {card}")
+
+
+# -- the fused CSP chain under data-parallel training (phase 52) --------------------------------------
+
+# YOLOX-S dark3's CSPLayer (128 -> 128, n = 3) at 832x832 (104x104 maps), a global batch of 8 whose
+# second half (rank 1's rows) is scaled by 3 and shifted by 1, so that statistics taken over one rank's
+# rows would be far from the global batch's
+FUSED_DP_C, FUSED_DP_N, FUSED_DP_HW, FUSED_DP_B = 128, 3, 104, 8
+FUSED_DP_STEPS = 3
+# Two ranks against one process on that CSPLayer: each rank's output and input gradient against its
+# rows of the one process's, the parameter gradients (the ranks' mean times 2) and the running
+# statistics against its. The ranks change only the order of the BN sums (each rank's kernel column
+# sums, then the all-reduce in float64), as the plain versions change it against the kernels (within
+# FUSED_SUM_RTOL a sum); scale and shift then move by f32 ulps and a few bf16 roundings flip, and the
+# BN backward amplifies those flips in its weights' gradients. So each quantity's largest difference
+# (over the largest magnitude) is held to FUSED_DP_FLOOR times the one process's kernels-against-plain-
+# versions difference on the same inputs, measured in the same run, and never less than one bf16 ulp
+# (y, dx, the conv kernels' gradients, rounded to bf16) or 1e-5 (the f32 BN gradients and statistics)
+FUSED_DP_FLOOR = 2.0
+# det_train --amp with the fused chain over two ranks against one process, the first step's losses:
+# bf16 train-mode YOLOX-S with random weights turns any change in the order of sums into changes of
+# its predictions at bf16's size (phase 9c: the kernels' step 0.685 of the gradient's norm from its
+# plain-version step), and SimOTA then re-assigns near-tied anchors; the first step of the first run
+# measured 4.8% (cls_loss; NVIDIA H100 80GB HBM3, 700.00 W). Later steps start from parameters that
+# this has moved apart (the BN buffers 0.162 of max(|value|, 1) apart after 3 steps in the second
+# run), so they and the state are printed beside the same comparison without the fused chain, not
+# held. The CSPLayer check above holds the reduction itself
+FUSED_DP_LOSS_RTOL = 0.1
+
+
+def _csp_fused_case(device):
+    """YOLOX-S dark3's CSPLayer (fused-eligible: dense, SiLU) with weights, BN affine and running
+    statistics from SEED, a bf16 input of FUSED_DP_B images at FUSED_DP_HW² and an f32 output
+    cotangent, on ``device``."""
+    from basedet_tpu_torch.layers.blocks.yolo_block import CSPLayer
+    from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d
+
+    g = torch.Generator().manual_seed(SEED + 52)
+    layer = CSPLayer(FUSED_DP_C, FUSED_DP_C, n=FUSED_DP_N)
+    with torch.no_grad():
+        for m in layer.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / m.weight[0].numel() ** 0.5)
+            elif isinstance(m, FlaxBatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g), m.bias.normal_(0.0, 0.3, generator=g)
+                m.running_mean.normal_(0.0, 0.2, generator=g), m.running_var.uniform_(0.5, 2.0, generator=g)
+    shape = (FUSED_DP_B, FUSED_DP_C, FUSED_DP_HW, FUSED_DP_HW)
+    x = torch.randn(shape, generator=g) * 2
+    x[FUSED_DP_B // 2:] = x[FUSED_DP_B // 2:] * 3 + 1
+    return layer.to(device), x.to(torch.bfloat16).to(device), torch.randn(shape, generator=g).to(device)
+
+
+def _csp_fused_pass(layer, x, dy):
+    """The layer in train mode under the bf16 policy with the fused chain, on ``x``; backward of
+    Σ y·dy; the parameter gradients averaged over the data group (the identity without one). →
+    output, input gradient, parameter gradients and running statistics, on the CPU."""
+    from basedet_tpu_torch import parallel
+    from basedet_tpu_torch.layers.precision import precision_policy
+
+    layer.train()
+    x = x.clone().requires_grad_(True)
+    with precision_policy(torch.bfloat16, True):
+        y = layer(x)
+    (y.float() * dy).sum().backward()
+    parallel.all_reduce_grads(list(layer.parameters()))
+    torch.cuda.synchronize()
+    return {"y": y.detach().cpu(), "dx": x.grad.cpu(),
+            "grads": {n: p.grad.cpu() for n, p in layer.named_parameters()},
+            "stats": {k: v.cpu() for k, v in layer.state_dict().items() if "running" in k}}
+
+
+def dp_csp_layer(path):
+    """One rank's share of phase 52's CSPLayer check: its rows of the global batch, under a process
+    group over gloo; the kernel counts zeroed just before, read just after."""
+    from basedet_tpu_torch import parallel
+
+    parallel.init_from_env(torch.device("cuda"), "gloo")
+    try:
+        layer, x, dy = _csp_fused_case(torch.device("cuda"))
+        with kernel_counts(path):
+            res = _csp_fused_pass(layer, parallel.shard_rows(x), parallel.shard_rows(dy))
+    finally:
+        parallel.shutdown()
+    return {**res, "counts": DATA_COUNTS[path]}
+
+
+def _fused_dp_args(out_dir, weights, multi_host, per_rank, backend=None, fused=True):
+    args = _yolox_dp_args(out_dir, weights, multi_host, per_rank, FUSED_DP_B * FUSED_DP_STEPS, backend)
+    return [*args[:4], "--amp", *args[4:], *(["TRAINER.AMP.FUSED_BN", "True"] if fused else [])]
+
+
+def phase_fused_dp(out_dir, weights, card, gloo, nccl):
+    """52. The fused CSP chain (TRAINER.AMP.FUSED_BN) under data-parallel training, its BN sums
+    all-reduced over the data group (``parallel.group_stats``). Two ranks sharing the card over gloo
+    (``torchrun --nproc-per-node 2``): YOLOX-S dark3's CSPLayer at 832x832 on 4 images a rank against
+    one process on the 8 (FUSED_DP_*); full-width YOLOX-S ``det_train --amp TRAINER.AMP.FUSED_BN True
+    --multi-host`` FUSED_DP_STEPS steps of 4 a rank against the plain det_train at 8 (the first
+    step's losses to FUSED_DP_LOSS_RTOL; the later ones, the BN buffers and the parameters' update
+    printed beside the same comparison without the fused chain), both ranks bit-equal, #3 and #4 36
+    times a step per rank, #2 and #10 once, plain 0; the run without the fused chain also for its
+    step time. Then world size 1 over NCCL against the plain det_train (the first step's losses to
+    FUSED_DP_LOSS_RTOL). Returns {kernel: {path: launches}}."""
+    dp_dir = os.path.join(out_dir, "fused_dp")
+    os.makedirs(dp_dir, exist_ok=True)
+    from unittest import mock
+
+    from basedet_tpu_torch.ops import fused_bn_kernel
+    from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain, unflatten_terms
+
+    want = _csp_fused_pass(*_csp_fused_case(torch.device("cuda")))
+    with mock.patch.object(fused_bn_kernel, "_launch_forward",
+                           lambda call: fused_gemm_stats_plain(unflatten_terms(call.spec, call.flat))), \
+            mock.patch.object(fused_bn_kernel, "_launch_backward",
+                              lambda terms, M, N, device, *cts: fused_gemm_stats_backward_plain(terms, *cts)):
+        plain_pass = _csp_fused_pass(*_csp_fused_case(torch.device("cuda")))
+    plain_path = "YOLOX-S det_train --amp FUSED_BN, plain beside the DP runs"
+    plain, plain_state = _dp_plain(_fused_dp_args(os.path.join(dp_dir, "plain"), weights, False, FUSED_DP_B),
+                                   plain_path)
+    plain_unfused, unfused_state = _dp_plain(_fused_dp_args(os.path.join(dp_dir, "plain_unfused"), weights, False,
+                                                            FUSED_DP_B, fused=False),
+                                             "YOLOX-S det_train --amp, plain beside the DP runs")
+    runs, _ = gloo
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    rows = FUSED_DP_B // 2
+
+    def differences(parts):
+        """{quantity: largest |difference| over the largest |value|} of ``parts`` ([(rank rows or None,
+        result)]) against the one process's kernel pass."""
+        out = {}
+        for sl, got in parts:
+            pairs = [(k, got[k], want[k] if sl is None else want[k][sl]) for k in ("y", "dx")]
+            pairs += [("conv kernels" if n.endswith("conv.weight") else "BN weights and biases",
+                       got["grads"][n] * (2 if sl is not None else 1), w) for n, w in want["grads"].items()]
+            pairs += [("running stats", got["stats"][n], w) for n, w in want["stats"].items()]
+            for k, g, w in pairs:
+                rel = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+                out[k] = max(out.get(k, 0.0), rel)
+        return out
+
+    floor = differences([(None, plain_pass)])
+    worst = differences([(slice(r * rows, (r + 1) * rows), got) for r, got in enumerate(runs["csp"])])
+    least = {"y": eps, "dx": eps, "conv kernels": eps, "BN weights and biases": 1e-5, "running stats": 1e-5}
+    for r, got in enumerate(runs["csp"]):
+        fwd, bwd = got["counts"]["fused_gemm_stats"], got["counts"]["fused_gemm_stats_backward"]
+        check(fwd == (FUSED_DP_N + 3, 0) and bwd == (FUSED_DP_N + 3, 0),
+              f"CSPLayer rank {r}: fused launches {fwd}, backward {bwd} (launches, plain calls)")
+    for k, v in worst.items():
+        check(v <= max(FUSED_DP_FLOOR * floor[k], least[k]),
+              f"the two ranks' fused CSPLayer against one process's: {k} {v:.3g}, the plain versions' {floor[k]:.3g}")
+    log(f"[fused-dp] dark3's CSPLayer (128 -> 128, n = 3) under the fused chain, two ranks sharing the card over gloo "
+        f"(4 of 8 images a rank at {FUSED_DP_HW}x{FUSED_DP_HW}, rank 1's scaled by 3 and shifted by 1) against one "
+        f"process, largest |difference| over largest |value|: "
+        f"{', '.join(f'{k} {v:.3g} (plain versions {floor[k]:.3g})' for k, v in worst.items())} (tol "
+        f"{FUSED_DP_FLOOR}x the plain versions', at least one bf16 ulp or 1e-5); {FUSED_DP_N + 3} + "
+        f"{FUSED_DP_N + 3} fused launches a rank | {card}")
+    launches = {}
+    label = "YOLOX-S det_train --amp FUSED_BN --multi-host, 2 ranks over gloo"
+    ranks = runs["fused"]
+    check(all(r["world"] == 2 and len(r["steps"]) == FUSED_DP_STEPS for r in ranks), "fused: not 2 ranks' steps")
+    for k, v in ranks[0]["state"].items():
+        check(torch.equal(v, ranks[1]["state"][k]), f"{label}: the ranks' {k} differ")
+    per_step = {"fused_gemm_stats": 36, "fused_gemm_stats_backward": 36, "dynamic_k_matching": 1, "box_iou": 1}
+    for r, res in enumerate(ranks):
+        for kernel, (n, plain_calls) in res["counts"].items():
+            expect = per_step.get(kernel, 0) * FUSED_DP_STEPS
+            check(n == expect and plain_calls == 0, f"{label} rank {r}: {kernel} launched {n} times, not {expect}; "
+                                                    f"plain {plain_calls}")
+            if n:
+                launches.setdefault(kernel, {})[f"{label} (rank {r})"] = n
+    check_counts(plain_path, {k: v * FUSED_DP_STEPS for k, v in per_step.items()})
+    loss_err = _fused_dp_losses(label, ranks[0]["steps"], plain)
+    init = torch.load(weights, map_location="cpu")
+
+    def apart(state, want):
+        """(BN buffers' largest |difference| over max(|value|, 1), the parameters' update's deviation)."""
+        buffers = max(float(((state[k] - w).abs() / w.abs().clamp_min(1.0)).max())
+                      for k, w in want.items() if k.endswith(("running_mean", "running_var")))
+        return buffers, _update_deviation(state, want, init)
+
+    buffers, update = apart(ranks[0]["state"], plain_state)
+    unfused_loss_err = _losses_apart(runs["unfused"][0]["steps"], plain_unfused)
+    unfused_buffers, unfused_update = apart(runs["unfused"][0]["state"], unfused_state)
+    fused_ms, fused_text = _median_ms(ranks[0]["steps"])
+    unfused_ms, unfused_text = _median_ms(runs["unfused"][0]["steps"])
+    nccl, _ = nccl
+    res = nccl["fused"][0]
+    nccl_label = "YOLOX-S det_train --amp FUSED_BN --multi-host (NCCL, world size 1)"
+    for kernel, (n, plain_calls) in res["counts"].items():
+        expect = per_step.get(kernel, 0) * FUSED_DP_STEPS
+        check(n == expect and plain_calls == 0, f"{nccl_label}: {kernel} launched {n} times, not {expect}")
+        if n:
+            launches.setdefault(kernel, {})[nccl_label] = n
+    nccl_err = _fused_dp_losses(nccl_label, res["steps"], plain)
+    # per fused call and step: one all-reduce of [Σx, Σx², n] forward (float64, 2N + 1) and one of the
+    # sums' cotangents backward (f32, 2N) for each BN of the chain; the grads' buckets apart
+    from basedet_tpu_torch.layers.blocks.yolo_block import CSPLayer
+    from basedet_tpu_torch.tools import import_config
+    from basedet_tpu_torch import build_model
+
+    model = build_model(import_config(CONFIG), "cpu")
+    widths = [b.bn.weight.numel() for m in model.module.modules() if isinstance(m, CSPLayer) for _, b in m._blocks()]
+    del model
+    log(f"[fused-dp] the fused CSP chain under data-parallel training (in phase 44's and phase 43's torchrun launches, two "
+        f"ranks sharing the card over gloo): {label}: "
+        f"{FUSED_DP_STEPS} steps of 4 a rank, losses {loss_err} off one process's at 8 by step (the first held to "
+        f"{FUSED_DP_LOSS_RTOL}), BN buffers {buffers:.3g} of max(|value|, 1) and the parameters' update {update:.4g} "
+        f"of its norm off one process's (not held); without the fused chain, the same comparison: losses "
+        f"{unfused_loss_err}, BN buffers {unfused_buffers:.3g}, update {unfused_update:.4g}; the ranks bit-equal; per "
+        f"rank launches {', '.join(f'{k} {v[0]}' for k, v in ranks[0]['counts'].items() if v[0])}, plain 0; step "
+        f"wall time without the loader's batch, rank 0: fused {fused_text}, unfused --amp {unfused_text} "
+        f"({fused_ms / unfused_ms:.3f}x), one process at 8 with the fused chain {_median_ms(plain)[1]}; "
+        f"collectives a step for the chain: {2 * len(widths)} all-reduces ({len(widths)} BNs, one forward and one "
+        f"backward each) of {sum(8 * (2 * c + 1) + 4 * 2 * c for c in widths)} bytes; {nccl_label}: losses "
+        f"{nccl_err} off the plain run's by step (the first held to {FUSED_DP_LOSS_RTOL}) | {card}")
+    return launches
+
+
+def _losses_apart(got, want):
+    """The largest relative difference of each step's losses from ``want``'s, as "a/b/c"."""
+    return "/".join(f"{max(abs(g['losses'][k] - v) / max(abs(v), 1e-12) for k, v in w['losses'].items() if v):.2e}"
+                    for g, w in zip(got, want))
+
+
+def _fused_dp_losses(name, got, want):
+    """Every step's losses finite and with ``want``'s keys, the first step's within FUSED_DP_LOSS_RTOL of
+    ``want``'s (FUSED_DP_LOSS_RTOL says why the later ones are not held); ``_losses_apart``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g["losses"].keys() == w["losses"].keys() and all(math.isfinite(v) for v in g["losses"].values()),
+              f"{name} step {i + 1}: losses {g['losses']}")
+    text = _losses_apart(got, want)
+    check(float(text.split("/")[0]) <= FUSED_DP_LOSS_RTOL,
+          f"{name} step 1: losses {got[0]['losses']} against {want[0]['losses']} (rtol {FUSED_DP_LOSS_RTOL})")
+    return text
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", help="also profile inference and the train steps, tables into DIR")
@@ -6592,17 +7019,21 @@ def main():
         phase_last_families(out_dir, card)
         for report, err in zip((roi_bf16, roi_bwd_bf16), phase_amp_families(out_dir, card)):
             report["max_abs_err"] = max(report["max_abs_err"], err)
-        dp_match, dp_iou = phase_dp_nccl(out_dir, weights, card)
-        dp_launches = phase_dp_gloo(out_dir, weights, frcnn_weights, card)
+        nccl, gloo = dp_launches(out_dir, weights, frcnn_weights)
+        dp_match, dp_iou = phase_dp_nccl(out_dir, weights, card, nccl)
+        dp_counts = phase_dp_gloo(out_dir, weights, frcnn_weights, card, gloo)
         for name, paths in (("dynamic_k_matching", dp_match), ("box_iou", dp_iou)):
-            dp_launches.setdefault(name, {}).update(paths)
-        phase_tp(out_dir, card)
+            dp_counts.setdefault(name, {}).update(paths)
+        phase_tp(out_dir, card, gloo)
         phase_trace(out_dir, weights, frcnn_weights, card)
         phase_profile_tool(out_dir, card)
         phase_analyze(card)
         for report, err in zip((fused_fwd, fused_bwd), _fused_errs(phase_yolox_m(out_dir, card))):
             report["max_abs_err"] = max(report["max_abs_err"], err)
         phase_benchmark(out_dir, card)
+        phase_hf_detectors(out_dir, card)
+        for name, paths in phase_fused_dp(out_dir, weights, card, gloo, nccl).items():
+            dp_counts.setdefault(name, {}).update(paths)
     totals = phase_timing(model, card)
     if args.profile:
         batches = {bs: _timing_batch(bs) for bs in (1, 32)}
@@ -6624,9 +7055,9 @@ def main():
         """{main path: launches} of one kernel: the paths counted by name here, then those that
         ``kernel_counts`` counted, then the data-parallel ranks' (phases 43-44)."""
         return {**named, **{path: counts[kernel][0] for path, counts in DATA_COUNTS.items() if counts[kernel][0]},
-                **dp_launches.get(kernel, {})}
+                **dp_counts.get(kernel, {})}
 
-    iou_by_path = {**{path: launches for path, (launches, _) in IOU_COUNTS.items()}, **dp_launches["box_iou"]}
+    iou_by_path = {**{path: launches for path, (launches, _) in IOU_COUNTS.items()}, **dp_counts["box_iou"]}
     nms_by_path = by_path("nms_keep", {
         "YOLOX-S det_test": launches, "YOLOX-S det_test of the --amp run": amp_nms,
         "Faster R-CNN det_train": train_nms, "Faster R-CNN det_test": frcnn_nms_launches,

@@ -55,6 +55,7 @@ from basedet_tpu_torch.layers.blocks import yolo_block as P
 from basedet_tpu_torch.ops.fused_bn import fused_gemm_stats_backward_plain, fused_gemm_stats_plain
 from basedet_tpu_torch.ops.fused_bn_kernel import fused_gemm_stats
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

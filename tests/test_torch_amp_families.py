@@ -50,6 +50,7 @@ from basedet_tpu_torch.layers import precision
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.test_torch_amp import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_yolox_train import flat
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 def _pair(port_cfg, randomise, num_heads=None):

@@ -17,6 +17,7 @@ import torch
 from basedet_tpu_torch.engine.hooks import AsyncCheckpointHook, CheckpointHook, ResumeHook
 from basedet_tpu_torch.engine.progress import Progress
 from basedet_tpu_torch.tools import det_train
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 

@@ -57,6 +57,7 @@ from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from
 from tests.test_torch_faster_rcnn_train import IMG, MAX_INST, make_batch, port_noise
 from tests.test_torch_yolox_train import flat
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 OUT_RTOL = 1e-4
 FRCNN_ATOL = 1e-3
@@ -184,7 +185,7 @@ def test_feature_channels_are_the_backbones_widths(name):
         got = make_backbone(name, feats)(torch.zeros(1, 3, 64, 64))
     assert {k: v.shape[1] for k, v in got.items()} == {k: feature_channels(name)[k] for k in feats}
     assert feature_channels("resnet50")["res5"] == 2048
-    with pytest.raises(NotImplementedError, match="hf_tiny"):
+    with pytest.raises(ValueError, match="unknown hf backbone 'tiny'"):
         feature_channels("hf_tiny")
 
 

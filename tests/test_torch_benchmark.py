@@ -18,6 +18,7 @@ import pytest
 
 from basedet_tpu_torch.tools import benchmark
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 NAMES = ("RetinaNet", "FCOS", "ATSS", "FreeAnchor", "FasterRCNN", "YOLOX-S", "YOLOX-M", "YOLOv3", "CenterNet",
          "OTA", "DETR")

@@ -40,6 +40,7 @@ from basedet_tpu_torch.utils import reference_layout
 from basedet_tpu_torch.utils.checkpoint import load_matched_weights, unwarp_ckpt
 from basedet_tpu_torch.utils.convert_weights import convert_reference_detector_state
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from tests.torch_threads import torch_threads  # noqa: F401
 
 FCOS_CONFIG = "basedet_tpu_torch/playground/fcos_r50_1x/config.py"
 

@@ -16,6 +16,7 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 from basedet_tpu_torch.data import image_ops as io  # noqa: E402
+from tests.torch_threads import torch_threads  # noqa: F401
 
 RESIZE_SHARE = 0.15  # pixels one level off cv2.resize (measured 0.113-0.127)
 WARP_SHARE = 0.002  # pixels one level off cv2.warpAffine (measured 0.0002)

@@ -26,6 +26,7 @@ from basedet_tpu_torch.data.collators import CanvasRing, DetectionPadCollator, p
 from basedet_tpu_torch.data.datasets import COCODataset, MosaicDataset  # noqa: E402
 from basedet_tpu_torch.data.image_ops import imwrite_png  # noqa: E402
 from basedet_tpu_torch.data.transforms import DataRNG, TransformCompose, build_transforms  # noqa: E402
+from tests.torch_threads import torch_threads  # noqa: F401
 
 BOX_ATOL = 1e-4
 

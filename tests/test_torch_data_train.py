@@ -15,6 +15,7 @@ from basedet_tpu_torch.data import register_dataset
 from basedet_tpu_torch.engine.hooks import ResumeHook
 from basedet_tpu_torch.tools import det_train
 from basedet_tpu_torch.tools.sanity_e2e import make_synthetic_coco
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 

@@ -11,6 +11,7 @@ import torch
 from basedet_tpu_torch import build_model
 from basedet_tpu_torch.tools import det_train
 from basedet_tpu_torch.tools.misc import import_config
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 OPTS = ["MODEL.WIDTH_FACTOR", "0.25", "MODEL.BATCHSIZE", "2", "DATA.MAX_INSTANCES", "8", "DATA.TRAIN.name", "dummy",

@@ -9,6 +9,7 @@ import math
 import torch
 
 from basedet_tpu_torch.tools import det_test, det_train
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN_CONFIG = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"

@@ -6,6 +6,7 @@ step each."""
 import torch
 
 from basedet_tpu_torch.tools import det_train
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = '''from basedet_tpu_torch.configs import YOLOXSConfig
 

@@ -52,6 +52,7 @@ from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.test_torch_retinanet import assert_rel
 from tests.test_torch_yolox_train import flat
+from tests.torch_threads import torch_threads  # noqa: F401
 
 D, H, FFN, QUERIES = 32, 2, 64, 8
 IMG = (128, 192)

@@ -33,6 +33,7 @@ from basedet_tpu_torch.solver import DefaultSolver, DetrSolver
 from basedet_tpu_torch.solver.build import build_schedule
 from basedet_tpu_torch.utils.weights import jax_from_state_dict
 from tests.test_torch_yolox_train import flat
+from tests.torch_threads import torch_threads  # noqa: F401
 
 STEP_RTOL = 1e-6
 SCHEDULE_RTOL = 1e-6

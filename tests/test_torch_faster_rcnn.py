@@ -43,6 +43,7 @@ from basedet_tpu_torch.utils.compare import match_detections
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG = (128, 192)
 FPN_ATOL = 1e-4

@@ -47,6 +47,7 @@ from tests.test_torch_faster_rcnn import _randomise
 from tests.test_torch_frcnn_targets import as_torch, jax_noise
 from tests.test_torch_yolox_train import flat
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG = (128, 192)
 MAX_INST = 6

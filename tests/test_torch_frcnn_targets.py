@@ -31,6 +31,7 @@ from basedet_tpu_torch.layers.common.sampling import draw_sampling_noise, sample
 from basedet_tpu_torch.layers.head.rcnn import rcnn_losses, rcnn_sample
 from basedet_tpu_torch.models.det.rpn import rpn_ground_truth, rpn_losses
 from basedet_tpu_torch.structures import BoxCoder
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG_H, IMG_W = 96, 128
 K = 6  # padded gt rows

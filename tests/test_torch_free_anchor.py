@@ -22,6 +22,7 @@ import torch
 from basedet_tpu_torch.ops.iou_kernel import box_iou_plain
 from tests.test_torch_fcos import (both_models, check_gradients, check_losses, jax_losses_and_grads,
                                    port_losses_and_grads)
+from tests.torch_threads import torch_threads  # noqa: F401
 
 LOSSES = {"total_loss", "pos_loss", "neg_loss"}
 

@@ -37,6 +37,7 @@ from basedet_tpu_torch.ops.fused_bn import (
 )
 from basedet_tpu_torch.ops import fused_bn_kernel
 from basedet_tpu_torch.ops.fused_bn_kernel import MAX_RAW, fused_gemm_stats, fused_gemm_stats_backward
+from tests.torch_threads import torch_threads  # noqa: F401
 
 M, K, N = 256, 32, 64
 SPECS = [("act",), (1,), (2,), ("act", 1), (1, 1)]

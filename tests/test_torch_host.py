@@ -21,6 +21,7 @@ from basedet_tpu_torch.tools import import_config
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from basedet_tpu_torch.utils.meters import MeterBuffer
 from basedet_tpu_torch.utils.registry import Registry
+from tests.torch_threads import torch_threads  # noqa: F401
 
 OVERRIDES = ["SOLVER.BASIC_LR", "0.02", "MODEL.BACKBONE.NAME", "resnet18",
              "DATA.DUMMY_IMAGE_SIZE", "(800,1333)", "TEST.CLS_THRESHOLD", "0.0",

@@ -28,6 +28,7 @@ import torch
 from basedet_tpu_torch.ops.iou_kernel import STRIP_COLS, box_iou, box_iou_plain, iou_skip_mask, iou_tile_model
 from basedet_tpu_torch.structures import pairwise_intersection
 from chip_smoke import _iou_boxes, check_iou_case, iou_edges
+from tests.torch_threads import torch_threads  # noqa: F401
 
 ATOL = 1e-6
 

@@ -33,6 +33,7 @@ from basedet_tpu_torch.structures import BoxCoder
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from chip_smoke import _iou_boxes
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("caller", [rpn, rcnn, yolox, retinanet, atss, free_anchor, yolov3],

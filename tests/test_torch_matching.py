@@ -30,6 +30,7 @@ from basedet_tpu_torch.ops.matching_kernel import (
     dynamic_k_matching,
     dynamic_k_matching_plain,
 )
+from tests.torch_threads import torch_threads  # noqa: F401
 
 THREADS = 1024  # kThreads of the source: the runs of the cost ties
 NONE = np.uint64(2**64 - 1)

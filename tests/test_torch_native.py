@@ -9,6 +9,7 @@ import pytest
 
 from basedet_tpu_torch.evaluators import coco_metrics as M
 from basedet_tpu_torch.native import build as native_build
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 def _pair(rng, D, G, crowd=0.2, ties=False):

@@ -23,6 +23,7 @@ from basedet_tpu_torch.ops import (
     nms_padded,
 )
 from basedet_tpu_torch.structures import box_iou, clip_boxes, convert_boxes
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 def random_boxes(rng, n, size=100.0):

@@ -1,9 +1,10 @@
 """basedet_tpu_torch runs where JAX, flax, optax, cv2, tensorboardX,
-tensorboard and orbax are absent, as on the GPU machine, and never imports
+tensorboard, orbax, transformers, msgpack and safetensors are absent, as on
+the GPU machine, and never imports
 the JAX package ``basedet_tpu``, not even its host code: its det_test and its det_train (YOLOX-S, in f32 and under the
 bf16 policy with the fused CSP chain, tiny Faster R-CNN (also with
 ``--amp --remat``), tiny CenterNet and
-tiny RetinaNet, tiny ATSS, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
+tiny RetinaNet, tiny ATSS, tiny RetinaNet on an ``hf_`` backbone, tiny YOLOv3 and tiny DETR, and YOLOX-S on a
 synthetic PNG set through the data slice, and tiny YOLOX-S with ``--tb``,
 async checkpoints and ``--debug``), and its tools (trace_net,
 analyze_net and dump_cfg on tiny YOLOX-S, parity_eval --rehearse, the
@@ -20,10 +21,12 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2", "PIL", "tensorboardX", "tensorboard", "orbax")
+BLOCKED = ("basedet_tpu", "jax", "jaxlib", "flax", "optax", "cv2", "PIL", "tensorboardX", "tensorboard", "orbax",
+           "transformers", "msgpack", "safetensors")
 YOLOX = "basedet_tpu_torch/playground/yolox_s/config.py"
 FRCNN = "basedet_tpu_torch/playground/faster_rcnn_r50_1x/config.py"
 CENTERNET = "basedet_tpu_torch/playground/centernet_r50/config.py"
@@ -43,6 +46,10 @@ _TINY_RETINANET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", 
 # tiny ATSS as tests/tiny.py shrinks it, on 128x192 images
 _TINY_ATSS = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.FPN.OUT_CHANNELS", "64", "MODEL.HEAD.NUM_CONVS", "1",
               "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
+# tiny RetinaNet on the HF zoo's smallest RegNet, res3-res5 and p6p7 on res5 as auto_convert_cfg_to_hf writes
+_HF_RETINANET = ["MODEL.BACKBONE.NAME", "hf_regnety_004", "MODEL.BACKBONE.OUT_FEATURES", "('res3','res4','res5')",
+                 "MODEL.FPN.TOP_BLOCK_IN_FEATURE", "res5", "MODEL.FPN.OUT_CHANNELS", "64", "MODEL.HEAD.NUM_CONVS", "1",
+                 "DATA.DUMMY_IMAGE_SIZE", "(128,192)"]
 # tiny CenterNet as tests/tiny.py shrinks it, on 128x128 images
 _TINY_CENTERNET = ["MODEL.BACKBONE.NAME", "resnet10", "MODEL.HEAD.DECONV_CHANNEL", "[512,64,32,16]",
                    "MODEL.HEAD.IN_CHANNELS", "16", "DATA.DUMMY_IMAGE_SIZE", "(128,128)"]
@@ -264,25 +271,33 @@ def test_retinanet_det_train_runs_without_jax(tmp_path):
     _det_train_blocked(tmp_path, "retinanet")
 
 
-def _train_test_blocked(tmp_path, config, opts):
-    """det_train 2 steps, then det_test on the dumped weights, in one blocked
-    process."""
-    script = _TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path), config=config, opts=opts, flags=[])
+def _train_test_blocked(tmp_path, *runs):
+    """For each (config, opts) of ``runs``: det_train 2 steps, then det_test
+    on the dumped weights, all in one blocked process, each run in its own
+    directory."""
+    script = "".join(_TRAIN_TEST_SCRIPT.format(blocked=BLOCKED, out=str(tmp_path / str(i)), config=config,
+                                               opts=opts, flags=[]) for i, (config, opts) in enumerate(runs))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_ENV, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    train, test = (json.loads(line) for line in proc.stdout.strip().splitlines()[-2:])
-    assert train["leaked"] == [] == test["leaked"]
-    assert train["steps"] == 2 and train["loss"] > 0
-    assert test["results"]["num_detections"] > 0
-    assert {r["image_id"] for r in json.loads((tmp_path / "predict_coco.json").read_text())} == set(range(8))
+    lines = proc.stdout.strip().splitlines()[-2 * len(runs):]
+    for i in range(len(runs)):
+        train, test = json.loads(lines[2 * i]), json.loads(lines[2 * i + 1])
+        assert train["leaked"] == [] == test["leaked"]
+        assert train["steps"] == 2 and train["loss"] > 0
+        assert test["results"]["num_detections"] > 0
+        records = json.loads((tmp_path / str(i) / "predict_coco.json").read_text())
+        assert {r["image_id"] for r in records} == set(range(8))
 
 
 def test_atss_det_train_and_det_test_run_without_jax(tmp_path):
     """Tiny ATSS trains 2 steps, then det_test serves its dumped weights, in
     one blocked process (its IoU through kernel #10's wrapper, the plain
-    version here)."""
-    _train_test_blocked(tmp_path, ATSS, _TINY_ATSS)
+    version here); then the same for tiny RetinaNet on an ``hf_`` backbone
+    (the HF zoo's RegNetY, written in the port: transformers, msgpack and
+    safetensors blocked too), its checkpoint loaded by det_test under the
+    Flax names."""
+    _train_test_blocked(tmp_path, (ATSS, _TINY_ATSS), (RETINANET, _HF_RETINANET))
 
 
 @pytest.mark.parametrize("model", ["yolov3", "detr"])
@@ -290,7 +305,7 @@ def test_last_families_det_train_and_det_test_run_without_jax(tmp_path, model):
     """Tiny YOLOv3 (SGD, its IoUs through kernel #10's wrapper, NMS through
     the NMS kernel's) and tiny DETR (DetrSolver's AdamW, the auction, no
     kernel) train 2 steps and serve their dumped weights, blocked."""
-    _train_test_blocked(tmp_path, *{"yolov3": (YOLOV3, _TINY_YOLOV3), "detr": (DETR, _TINY_DETR)}[model])
+    _train_test_blocked(tmp_path, {"yolov3": (YOLOV3, _TINY_YOLOV3), "detr": (DETR, _TINY_DETR)}[model])
 
 
 def test_det_train_on_synthetic_pngs_runs_without_jax_cv2_or_pil(tmp_path):
@@ -350,9 +365,10 @@ def test_benchmark_runs_without_jax(tmp_path):
 
 def test_port_sources_never_import_jax():
     """No file of the port (its configs included) and not chip_smoke.py
-    imports JAX, the JAX package, cv2, tensorboardX, tensorboard or orbax."""
-    pattern = re.compile(r"^\s*(import|from)\s+(basedet_tpu|jax|jaxlib|flax|optax|cv2|tensorboardX|tensorboard|orbax)\b",
-                         re.M)
+    imports JAX, the JAX package, cv2, tensorboardX, tensorboard, orbax,
+    transformers, msgpack or safetensors."""
+    pattern = re.compile(r"^\s*(import|from)\s+(basedet_tpu|jax|jaxlib|flax|optax|cv2|tensorboardX|tensorboard|orbax|"
+                         r"transformers|msgpack|safetensors)\b", re.M)
     sources = [*(REPO / "basedet_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     scanned = {str(p.relative_to(REPO)) for p in sources}
     assert {f"basedet_tpu_torch/{m}.py" for m in (
@@ -360,12 +376,13 @@ def test_port_sources_never_import_jax():
         "tools/dump_cfg", "tools/parity_diff", "tools/parity_eval", "layers/common/module_inspector",
         "layers/common/module_utils", "layers/blocks/pool", "evaluators/visualize", "utils/tb_writer",
         "native/build", "native/pack", "playground/yolox_m/config", "tools/benchmark",
-        "layers/backbone/build")} <= scanned
+        "layers/backbone/build", "layers/backbone/hf_adaptor")} <= scanned
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from basedet_tpu.utils import logger")
     assert not pattern.search("from basedet_tpu_torch.utils import logger")
     assert pattern.search("from tensorboardX import SummaryWriter") and pattern.search("import orbax.checkpoint")
+    assert pattern.search("from transformers import FlaxResNetModel") and pattern.search("import msgpack")
 
 
 @pytest.mark.parametrize("tool", ["det_train", "det_test", "trace_net", "analyze_net", "profile_net", "parity_eval",

@@ -28,6 +28,7 @@ from basedet_tpu_torch.layers.backbone.build import make_backbone
 from basedet_tpu_torch.layers.backbone.fpn import FPN
 from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d, FlaxGroupNorm, get_norm
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 def _nchw(x):

@@ -29,6 +29,7 @@ from basedet_tpu_torch.layers.losses import iou_loss, sigmoid_focal_loss
 from basedet_tpu_torch.ops.matching_kernel import dynamic_k_matching_plain
 from tests.test_torch_fcos import (both_models, check_gradients, check_losses, jax_losses_and_grads,
                                    port_losses_and_grads, tiny_cfgs)
+from tests.torch_threads import torch_threads  # noqa: F401
 
 LEVELS = ((16, 24), (8, 12), (4, 6), (2, 3), (1, 2))
 

@@ -27,6 +27,7 @@ from basedet_tpu_torch.configs import RetinaNetConfig
 from basedet_tpu_torch.data import register_dataset
 from basedet_tpu_torch.utils.registry import build_trainer
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2

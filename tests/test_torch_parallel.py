@@ -25,6 +25,10 @@ solver's LR and schedule are the same in both runs.
 - (c) ``CrossRankBatchNorm`` against ``FlaxBatchNorm2d`` on the concatenated
   batch, in f32 and under the bf16 policy.
 - (d) the ranks' states bit-equal after every scenario.
+- (h) the fused CSP chain (``TRAINER.AMP.FUSED_BN`` under the bf16 policy,
+  the kernels' plain versions on the CPU), its BN sums all-reduced: one
+  ``CSPLayer`` (n=2, shortcuts) on a global batch of 4, and one tiny YOLOX-S
+  ``--amp`` step, against one process on the global batch.
 - (e) a checkpoint saved by ``CheckpointHook`` after 2 steps (EMA on) and
   restored by ``ResumeHook`` into a model drawn from another seed: 2 more
   steps bit-equal to 4 uninterrupted ones, as
@@ -48,6 +52,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.nn as nn
 
 from basedet_tpu_torch import build_model, parallel
 from basedet_tpu_torch.configs import FasterRCNNConfig, RetinaNetConfig, YOLOXSConfig
@@ -55,12 +60,14 @@ from basedet_tpu_torch.engine.hooks import CheckpointHook, ResumeHook
 from basedet_tpu_torch.engine.progress import Progress
 from basedet_tpu_torch.engine.train_state import TrainState, make_train_step
 from basedet_tpu_torch.layers.blocks.drop import batch_keep_mask, keep_mask
+from basedet_tpu_torch.layers.blocks.yolo_block import CSPLayer
 from basedet_tpu_torch.layers.common.blocks import FlaxBatchNorm2d
 from basedet_tpu_torch.layers.common.sampling import step_generator
 from basedet_tpu_torch.layers.precision import precision_policy
 from basedet_tpu_torch.solver import DefaultSolver, DetSolver, YOLOXSolver
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 WORLD = 2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -191,6 +198,60 @@ def run_bn():
     return out
 
 
+def fused_inputs():
+    """A fused-eligible CSPLayer (dense, SiLU, n=2 with shortcuts) with BN
+    affine and running statistics drawn from a seed, and a global batch of 4
+    (bf16, the second half scaled and shifted) with its output cotangent."""
+    g = torch.Generator().manual_seed(11)
+    layer = CSPLayer(16, 32, n=2)
+    with torch.no_grad():
+        for m in layer.modules():
+            if isinstance(m, nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / m.weight[0].numel() ** 0.5)
+            elif isinstance(m, FlaxBatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g), m.bias.normal_(0.0, 0.3, generator=g)
+                m.running_mean.normal_(0.0, 0.2, generator=g), m.running_var.uniform_(0.5, 2.0, generator=g)
+    x = torch.randn(4, 16, 8, 8, generator=g) * 2
+    x[2:] = x[2:] * 3 + 1  # rank 1's rows: statistics over one rank's rows would be far off the batch's
+    dy = torch.randn(4, 32, 8, 8, generator=g)
+    return layer, x.to(torch.bfloat16), dy
+
+
+def run_fused_layer():
+    """The fused CSP chain (``TRAINER.AMP.FUSED_BN`` under the bf16 policy) on
+    the rank's rows in train mode: output, input gradient, the parameter
+    gradients averaged over ranks and the running statistics."""
+    layer, x, dy = fused_inputs()
+    layer.train()
+    x = parallel.shard_rows(x).clone().requires_grad_(True)
+    with precision_policy(torch.bfloat16, True):
+        y = layer(x)
+    (y.float() * parallel.shard_rows(dy)).sum().backward()
+    parallel.all_reduce_grads(list(layer.parameters()))
+    return {"y": y.detach(), "dx": x.grad, "grads": {n: p.grad for n, p in layer.named_parameters()},
+            "stats": {k: v.clone() for k, v in layer.state_dict().items() if "running" in k}}
+
+
+def fused_yolox_cfg():
+    cfg = yolox_cfg()
+    cfg.TRAINER.AMP.ENABLE = True
+    cfg.TRAINER.AMP.FUSED_BN = True
+    return cfg
+
+
+def run_fused_yolox():
+    """One tiny YOLOX-S step under ``--amp TRAINER.AMP.FUSED_BN True``."""
+    cfg = fused_yolox_cfg()
+    model = build_model(cfg, "cpu")
+    init = _sd(model.module)
+    losses, _ = _steps(model, cfg, YOLOXSolver.build(cfg, parallel.world_size()), yolox_batches(1))
+    return {"init": init, "losses": losses, "state": _sd(model.module)}
+
+
+def run_fused():
+    return {"layer": run_fused_layer(), **run_fused_yolox()}
+
+
 def run_dropout():
     """DETR's dropout masks and Faster R-CNN's noise: the rank's rows of the
     global draw."""
@@ -279,7 +340,7 @@ def rank_main(out_dir):
     r = parallel.rank()
     timings, results = {}, {}
     for name, fn in (("bn", run_bn), ("dropout", run_dropout), ("retina", run_retina), ("yolox", run_yolox),
-                     ("frcnn", run_frcnn),
+                     ("frcnn", run_frcnn), ("fused", run_fused),
                      ("ckpt", lambda: run_ckpt_roundtrip(os.path.join(out_dir, "ckpt")))):
         t0 = time.perf_counter()
         results[name] = fn()
@@ -371,7 +432,7 @@ def _assert_ranks_equal(results, key):
 
 # ------------------------------------------------------------------ tests
 
-@pytest.mark.parametrize("scenario", ["retina", "yolox", "frcnn", "ckpt", "det_train"])
+@pytest.mark.parametrize("scenario", ["retina", "yolox", "frcnn", "ckpt", "det_train", "fused"])
 def test_ranks_end_bit_equal(ranks, scenario):
     """(d) After every scenario both ranks hold the same state, bit for bit."""
     _assert_ranks_equal(ranks.results(), scenario)
@@ -484,6 +545,54 @@ def test_cross_rank_bn_matches_bn_on_the_concatenated_batch(ranks, dtype):
             tol = (2 * ulp if k == "dx" and dtype == "bf16" else ulp if k == "y" and dtype == "bf16"
                    else 1e-5) * scale
             assert float((g - w).abs().max()) <= tol, f"rank {r} {dtype} {k}: {float((g - w).abs().max())}"
+
+
+def test_fused_csp_layer_two_ranks_match_one(ranks):
+    """(h) Each rank's output and input gradient are its rows of the layer's
+    on the whole batch (measured: bit-equal; held to one bf16 ulp of each
+    tensor's magnitude), the running statistics the whole batch's to 4 f32
+    ulps, the averaged gradients times the world size the whole batch's: the
+    BN weights and biases (f32 sums) to 1e-5 of each tensor's largest entry,
+    the conv kernels to 2 bf16 ulps of it, as each rank's kernel gradient is
+    rounded to bf16 before the mean and the one process's once (measured:
+    0.78 ulp at most)."""
+    layer, x, dy = fused_inputs()
+    layer.train()
+    x = x.clone().requires_grad_(True)
+    with precision_policy(torch.bfloat16, True):
+        y = layer(x)
+    (y.float() * dy).sum().backward()
+    bf16 = float(torch.finfo(torch.bfloat16).eps)
+    f32 = float(torch.finfo(torch.float32).eps)
+    for r, res in enumerate(ranks.results()):
+        got = res["fused"]["layer"]
+        rows = slice(2 * r, 2 * r + 2)
+        for k, w in (("y", y.detach()[rows]), ("dx", x.grad[rows])):
+            err = float((got[k].float() - w.float()).abs().max())
+            assert err <= bf16 * float(w.float().abs().max()), (r, k, err)
+        for n, p in layer.named_parameters():
+            tol = (2 * bf16 if n.endswith("conv.weight") else 1e-5) * float(p.grad.abs().max())
+            err = float((got["grads"][n] * WORLD - p.grad).abs().max())
+            assert err <= tol, (r, n, err, tol)
+        stats = {k: v for k, v in layer.state_dict().items() if "running" in k}
+        assert stats.keys() == got["stats"].keys() and len(stats) == 14
+        for k, w in stats.items():
+            assert float((got["stats"][k] - w).abs().max()) <= 4 * f32 * float(w.abs().max()), (r, k)
+
+
+def test_fused_yolox_step_two_ranks_match_one(ranks):
+    """(h) One tiny YOLOX-S ``--amp TRAINER.AMP.FUSED_BN True`` step over two
+    ranks against one process on the global batch, to (b)'s tolerances
+    (measured: losses 1e-7 relative, the state 7.3e-6 of its change)."""
+    got = ranks.results()[0]["fused"]
+    want = run_fused_yolox()
+    for k in want["init"]:
+        assert torch.equal(got["init"][k], want["init"][k]), k
+    for g, w in zip(got["losses"], want["losses"]):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    _change_tol(got["state"], want["state"], want["init"], "fused yolox")
 
 
 def test_dropout_mask_is_the_ranks_rows_of_the_global_draw(ranks):

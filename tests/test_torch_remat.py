@@ -27,6 +27,7 @@ from basedet_tpu_torch.layers.common.function import full_f32
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from tests.test_torch_amp import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 RTOL = 1e-6
 MODES = (None, "full", "selective")

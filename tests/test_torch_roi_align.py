@@ -48,6 +48,7 @@ from basedet_tpu_torch.ops.roi_align_kernel import (
     pool_rois_multilevel,
     tile_gather_model,
 )
+from tests.torch_threads import torch_threads  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 IMG = 128

@@ -36,6 +36,7 @@ from basedet_tpu_torch.ops.roi_align_kernel import (
 )
 from tests.test_torch_amp import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_roi_align import B, IMG, STRIDES, _edge_rois, _feats, _one_level_rois, _random_rois
+from tests.torch_threads import torch_threads  # noqa: F401
 
 C = 16
 ROI_BWD_RTOL = 2e-5  # the f32 backward's tolerance, chip_smoke.py's ROI_BWD_RTOL

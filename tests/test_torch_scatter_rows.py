@@ -21,6 +21,7 @@ import torch
 
 from basedet_tpu_torch.ops.scatter_rows import row_segments, scatter_rows_plain
 from basedet_tpu_torch.ops.scatter_rows_kernel import gather_rows_batched, scatter_rows
+from tests.torch_threads import torch_threads  # noqa: F401
 
 RTOL = 2.0 ** -20
 

@@ -14,6 +14,7 @@ import torch
 
 import basedet_tpu.structures as J
 import basedet_tpu_torch.structures as P
+from tests.torch_threads import torch_threads  # noqa: F401
 
 B1 = [[0.0, 0.0, 10.0, 10.0], [0.0, 0.0, 5.0, 5.0], [2.0, 2.0, 8.0, 8.0]]
 B2 = [[0.0, 0.0, 10.0, 10.0], [5.0, 5.0, 15.0, 15.0]]

@@ -27,6 +27,7 @@ from basedet_tpu_torch.engine.hooks import TBDetectionImageHook, TensorboardHook
 from basedet_tpu_torch.engine.progress import Progress
 from basedet_tpu_torch.utils import tb_writer
 from basedet_tpu_torch.utils.meters import MeterBuffer
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

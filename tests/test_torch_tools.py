@@ -34,6 +34,7 @@ from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_plain
 from basedet_tpu_torch.tools import analyze_net, dump_cfg, parity_diff, parity_eval, profile_net, trace_net
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLAYGROUNDS = sorted(os.listdir(os.path.join(REPO, "basedet_tpu_torch", "playground")))

@@ -47,6 +47,7 @@ from basedet_tpu_torch.parallel.mesh import grid_layout
 from basedet_tpu_torch.solver import DetrSolver
 from basedet_tpu_torch.utils.dummy import DummyLoader
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRIDS = {"tp2": (2, 2), "dp2xtp2": (4, 2)}  # name: (world size, TP_SIZE)

@@ -25,6 +25,7 @@ from basedet_tpu_torch.engine.train_state import TrainState, ema_momentum, make_
 from basedet_tpu_torch.solver import YOLOXSolver, yolox_cosine_lr
 from basedet_tpu_torch.utils.weights import jax_from_state_dict
 from tests.test_torch_yolox_train import flat, make_batch, make_pair, tiny_cfg
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("warm,total,no_aug", [(5, 40, 10), (0, 30, 30), (2000, 4, 60)])

@@ -12,6 +12,7 @@ from basedet_tpu.utils import all_register
 from basedet_tpu_torch import build_model
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

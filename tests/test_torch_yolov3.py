@@ -59,6 +59,7 @@ from basedet_tpu_torch.utils.compare import match_detections
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.test_torch_retinanet import assert_rel, nchw, nhwc
 from tests.test_torch_yolox_train import flat
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG = (128, 192)
 MAX_INST = 8

@@ -29,6 +29,7 @@ from basedet_tpu_torch import build_model
 from basedet_tpu_torch.utils.compare import match_detections
 from basedet_tpu_torch.utils.weights import state_dict_from_jax
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG = 96
 HEAD_ATOL = 1e-4

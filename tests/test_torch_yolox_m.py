@@ -10,6 +10,7 @@ import numpy as np
 from basedet_tpu_torch import build_model
 from basedet_tpu_torch.tools.misc import import_config
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
+from tests.torch_threads import torch_threads  # noqa: F401
 
 CONFIG = "basedet_tpu_torch/playground/yolox_m/config.py"
 

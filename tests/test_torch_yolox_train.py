@@ -40,6 +40,7 @@ from basedet_tpu_torch.layers.blocks.yolo_block import ConvBNAct, CSPLayer
 from basedet_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 from tests.test_torch_yolox import _randomise
 from tests.tiny import shrink
+from tests.torch_threads import torch_threads  # noqa: F401
 
 IMG = 128
 MAX_INST = 8
