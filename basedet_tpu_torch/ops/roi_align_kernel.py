@@ -28,12 +28,19 @@ give the same bits. :func:`tile_gather_model` is its decomposition in
 Python, for the CPU tests. The gradient goes to the features only; RoIs
 that require one are refused, as the JAX package gives them none.
 
-Both kernels come in f32 and bf16 (the element type of the features, the
-output, g and dF; RoIs stay f32). The bf16 variants are the JAX package's
+Both directions come in f32 and bf16 (the element type of the features, the
+output, g and dF; RoIs stay f32). The bf16 kernels are the JAX package's
 Pallas kernels' own dtype: each axis's weights rounded to bf16 once, products
-and sums in f32, the output and dF rounded to bf16 once. A bf16 CUDA tensor
-launches them or raises; it is never sent through the f32 kernels or a plain
-version. ``multilevel_roi_align.launches`` and
+and sums in f32, the output and dF rounded to bf16 once. They have designs of
+their own, with every output's chain of f32 operations the same as the f32
+kernels' structure gives it. The bf16 forward gives a block a RoI and 16
+channels, a lane one channel and one bin column, and reads the features from
+the RoI's window staged in shared memory by 16-byte copies, where it fits
+(:func:`forward_stage_groups` is the rule), else from global memory. The bf16
+backward gives a block a tile of 8 x 16 and 64 channels, two a lane, sums
+only the groups of columns a bin reaches, and stores dF 16 bytes a store. A
+bf16 CUDA tensor launches them or raises; it is never sent through the f32
+kernels or a plain version. ``multilevel_roi_align.launches`` and
 ``multilevel_roi_align_backward.launches`` count the f32 launches,
 ``.launches_bf16`` the bf16 ones.
 
@@ -67,6 +74,8 @@ SOURCE = CSRC / "roi_align.cu"
 MAX_LEVELS = 4
 MAX_PW = 8  # kMaxPw of the source: bins across a pooled output
 TILE_Y, TILE_X = 8, 32  # kTileY, kTileX of the source: the backward's tile of a level
+FWD_SLAB = 16  # kFwdSlab of the source: channels of a bf16 forward block
+FWD_STAGE_BYTES = 32768  # kFwdStageBytes: a bf16 forward block's shared memory for staged windows
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' element types
 
 
@@ -247,6 +256,25 @@ def tap_windows(rois: torch.Tensor, levels: torch.Tensor, strides: Sequence[int]
                 out[idx + (1 + 2 * k,)] = min(a[0], z[0])
                 out[idx + (2 + 2 * k,)] = max(a[1], z[1])
     return out
+
+
+def forward_stage_groups(windows: np.ndarray, C: int, unit_x_stride: bool = True) -> np.ndarray:
+    """The bf16 forward kernel's staging, for RoIs with ``windows`` (B, R, 5)
+    from :func:`tap_windows`: (B, R, slabs) int, the channels that the block
+    of that RoI and slab of ``FWD_SLAB`` stages in shared memory at once (all
+    of the slab's where their windows fit ``FWD_STAGE_BYTES`` together), or 0
+    where it reads global memory instead: not one channel's window fits, or
+    the level's x stride is not 1 (channels-last features). A channel's
+    window takes its rows in 16-byte chunks, with room for a row that starts
+    7 elements past a 16-byte boundary, and channels lie 16 elements apart
+    modulo 64, so that a warp's four channels sit 8 banks apart."""
+    rows = windows[..., 2] - windows[..., 1] + 1
+    span = windows[..., 4] - windows[..., 3] + 1
+    room = rows * (8 * ((span + 14) // 8))
+    pitch = room + (80 - room % 64) % 64
+    channels = np.minimum(FWD_SLAB, C - FWD_SLAB * np.arange(-(-C // FWD_SLAB)))
+    groups = np.minimum(channels, FWD_STAGE_BYTES // (2 * pitch[..., None]))
+    return groups if unit_x_stride else np.zeros_like(groups)
 
 
 def tile_gather_model(

@@ -43,12 +43,15 @@ Run from the root of the repository. Phases, each of which raises on failure:
   4d. the bf16 RoIAlign kernels (the JAX package's Pallas kernels' own dtype)
      against their plain bf16 versions on 4b's and 4c's cases (proposal-like
      at B = 1 and at the train shape B = 2, R = 512, edges, |F| and |g| ~ 1e3,
-     C = 100 and 6, channels-last, identical RoIs): elementwise within one
-     bf16 ulp, or, for values so near 0 that the f32 sums' order alone moves
-     them further, within the f32 kernels' own gates (``_bf16_gate``); the
-     backward's two runs bit-equal, dF bf16 and NCHW-contiguous; each timed
-     by device time beside the f32 kernel on the same RoIs, with its bf16
-     bound;
+     C = 100 and 6, channels-last, identical RoIs) and on their own
+     (``bf16_edge_rois``: windows past the forward's staging room, windows
+     from odd columns of P4 and P5, whose rows are not 16-byte aligned, B = 2
+     with another level mix per image): elementwise within one bf16 ulp, or,
+     for values so near 0 that the f32 sums' order alone moves them further,
+     within the f32 kernels' own gates (``_bf16_gate``); the backward's two
+     runs bit-equal, dF bf16 and NCHW-contiguous; each timed by device time
+     beside the f32 kernel on the same RoIs, with the ratio of the two and
+     each one's fraction of its bound;
   5. drive training through its entry point: det_train on full-width YOLOX-S
      (random weights from a seed, spread as for eval), batch 8 of 640x640
      with the multiscale resize live (832x832 on these steps), 4 steps; check
@@ -1920,6 +1923,30 @@ def _edge_rois():
     return np.float32(rows)[None]
 
 
+def bf16_edge_rois():
+    """The bf16 kernels' own edge cases on the 800x1344 canvas, {name: (B,
+    R, 4) f32}: "large windows", boxes whose window takes more than the
+    forward's staging room for its 16 channels (the whole image on P5, tall
+    and wide thin boxes on P2: staged a group of channels at a time);
+    "unaligned rows", 300x280 boxes on P4 and 600x560 ones on P5 whose
+    windows start at 12 different columns each, odd ones among them (rows of
+    168 and 84 bytes, not 16-byte aligned); "two level mixes", B = 2, image
+    0's boxes 20-200 px (P2-P3), image 1's 230-900 px (P4-P5)."""
+    H, W = 800, 1344
+    large = [[0, 0, W, H], [0, 0, W, H - 40], [0, 0, 900, H], [100, 0, 112, H], [0, 390, W, 399],
+             [600, 0, 640, H], [20, 30, 900, 700]]
+    unaligned = ([[13.7 * k + 5, 40 + 9 * k, 13.7 * k + 305, 320 + 9 * k] for k in range(12)] +
+                 [[27.3 * k + 3, 20 + 5 * k, 27.3 * k + 603, 580 + 5 * k] for k in range(12)])
+    rng = np.random.RandomState(SEED + 7)
+    mix = []
+    for lo, hi in ((20, 200), (230, 900)):
+        side = np.exp(rng.uniform(np.log(lo), np.log(hi), 40))
+        x, y = rng.uniform(0, W - side), rng.uniform(0, H - np.minimum(side, H - 1))
+        mix.append(np.stack([x, y, x + side, np.minimum(y + side, H)], -1))
+    return {"large windows": np.float32(large)[None], "unaligned rows": np.float32(unaligned)[None],
+            "two level mixes": np.float32(mix)}
+
+
 def _roi_feats(gen, B, C=ROI_C):
     return [torch.randn(B, C, h, w, device="cuda", generator=gen) for h, w in ROI_LEVELS]
 
@@ -2210,7 +2237,8 @@ def roi_align_bf16_timing(feats, rois, card, name):
     log(f"[roi-bf16] forward {name}, B={rois.shape[0]} R={rois.shape[1]} C={feats[0].shape[1]}: bf16 kernel device "
         f"{kernel:.4f} ms (profiler), events {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), the kernel at "
         f"{b_ms / kernel:.3f} of it; the f32 kernel on the same RoIs {kernel32:.4f} ms device, {ms32:.4f} events "
-        f"(bound {b32:.4f}); bf16 plain {plain_ms:.3f} ms | {card}")
+        f"(bound {b32:.4f}, the kernel at {b32 / kernel32:.3f} of it); bf16 / f32 device time {kernel / kernel32:.3f}; "
+        f"bf16 plain {plain_ms:.3f} ms | {card}")
     return dict(ms=kernel, events_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=kernel32)
 
 
@@ -2237,15 +2265,18 @@ def roi_align_bwd_bf16_timing(grad, rois, card, name):
     log(f"[roi-bwd-bf16] {name}, B={grad.shape[0]} R={grad.shape[1]} C={grad.shape[-1]}: bf16 kernel device "
         f"{kernel:.4f} ms (profiler, {ops} operation a call), events {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), the "
         f"kernel at {b_ms / kernel:.3f} of it; the f32 kernel on the same RoIs {kernel32:.4f} ms device, {ms32:.4f} "
-        f"events (bound {b32:.4f}); bf16 plain {plain_ms:.3f} ms | {card}")
+        f"events (bound {b32:.4f}, the kernel at {b32 / kernel32:.3f} of it); bf16 / f32 device time "
+        f"{kernel / kernel32:.3f}; bf16 plain {plain_ms:.3f} ms | {card}")
     return dict(ms=kernel, events_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=kernel32)
 
 
 def phase_roi_align_bf16(card):
     """4d. The bf16 RoIAlign forward and backward against their plain versions on phase 4b's and
     4c's cases (proposal-like at B = 1 and 2, edges, |F| and |g| ~ 1e3, C = 100 and 6,
-    channels-last features, identical RoIs), then timed beside the f32 kernels at the eval shape
-    (B = 1, R = 1000) and the train shape (B = 2, R = 512). Returns the report entries."""
+    channels-last features, identical RoIs) and on ``bf16_edge_rois`` (large windows and rows off
+    16 bytes at C = 256, 100 and 6, channels-last features, two level mixes), then timed beside the
+    f32 kernels at the eval shape (B = 1, R = 1000), the train shape (B = 2, R = 512) and on
+    identical RoIs. Returns the report entries."""
     rng, gen = np.random.RandomState(SEED + 4), torch.Generator(device="cuda").manual_seed(SEED + 4)
     edges = torch.from_numpy(_edge_rois()).cuda()
     worst = 0.0
@@ -2263,12 +2294,24 @@ def phase_roi_align_bf16(card):
     worst = max(worst, _check_roi_align_bf16("channels-last F", feats, torch.from_numpy(_proposal_rois(rng, 1, 300)).cuda()))
     cases = roi_align_bwd_cases(SEED + 5)
     worst_bwd = max(_check_roi_align_bwd_bf16(name, g, rois) for name, (g, rois) in cases.items())
-    for C in (100, 6):  # channels off the block's slab: the scalar copies of g
+    for C in (100, 6):  # channels off the block's slab: the narrower copies of g
         g = torch.randn(1, edges.shape[1], 7, 7, C, device="cuda", generator=gen)
         worst_bwd = max(worst_bwd, _check_roi_align_bwd_bf16(f"edges C={C}", g, edges))
+    for name, boxes in bf16_edge_rois().items():
+        rois = torch.from_numpy(boxes).cuda()
+        B = rois.shape[0]
+        for C in ((ROI_C, 100, 6) if name != "two level mixes" else (ROI_C,)):
+            tag = name if C == ROI_C else f"{name} C={C}"
+            worst = max(worst, _check_roi_align_bf16(tag, _roi_feats(gen, B, C), rois))
+            g = torch.randn(B, rois.shape[1], 7, 7, C, device="cuda", generator=gen)
+            worst_bwd = max(worst_bwd, _check_roi_align_bwd_bf16(tag, g, rois))
+        if name == "unaligned rows":
+            feats = [f.contiguous(memory_format=torch.channels_last) for f in _roi_feats(gen, B)]
+            worst = max(worst, _check_roi_align_bf16(f"{name}, channels-last F", feats, rois))
     fwd = roi_align_bf16_timing(_roi_feats(gen, 1), torch.from_numpy(_proposal_rois(rng, 1, ROI_R)).cuda(), card,
                                 "eval shape")
     fwd_train = roi_align_bf16_timing(_roi_feats(gen, FRCNN_TRAIN_B), cases["proposal-like"][1], card, "train shape")
+    roi_align_bf16_timing(_roi_feats(gen, FRCNN_TRAIN_B), cases["identical RoIs"][1], card, "identical RoIs")
     bwd = roi_align_bwd_bf16_timing(*cases["proposal-like"], card, "proposal-like")
     roi_align_bwd_bf16_timing(*cases["identical RoIs"], card, "identical RoIs")
     keys = ("plain_ms", "bound_ms", "bound_by")

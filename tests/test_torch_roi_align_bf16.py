@@ -215,3 +215,116 @@ def test_bf16_backward_kernel_matches_plain_on_gpu(c):
         for leaf, w in zip(leaves, want):
             assert leaf.grad.dtype == torch.bfloat16
             assert_within_ulp(leaf.grad.cpu(), w.cpu(), case, floor)
+
+
+# -- the bf16 kernels' own edge cases, at Faster R-CNN's 800x1344 canvas ------------------------
+
+
+def _edge_windows(name, C=256):
+    """``chip_smoke.bf16_edge_rois()[name]``, its level ids, the windows of
+    its RoIs on P2-P5 of 800x1344 (``tap_windows``) and the forward's staging
+    groups for NCHW features at ``C`` channels."""
+    from chip_smoke import ROI_LEVELS, ROI_STRIDES, bf16_edge_rois
+    from basedet_tpu_torch.ops.roi_align_kernel import forward_stage_groups, tap_windows
+
+    rois = torch.from_numpy(bf16_edge_rois()[name])
+    levels = roi_level_assignment(rois, 2, 5)
+    windows = tap_windows(rois, levels, ROI_STRIDES, ROI_LEVELS, (7, 7))
+    return rois, levels, windows, forward_stage_groups(windows, C)
+
+
+def test_bf16_edge_rois_reach_the_cases_they_name():
+    """The RoI sets that ``chip_smoke.py`` and the ``cuda`` tests below hold
+    the bf16 kernels to on the card: large windows staged a group of
+    channels at a time, windows from odd columns of P4 and P5 (rows of 168
+    and 84 bytes, which no 16-byte copy starts on), and two images with
+    different levels."""
+    from chip_smoke import ROI_LEVELS
+
+    _, levels, windows, groups = _edge_windows("large windows")
+    assert set(levels.flatten().tolist()) >= {0, 1, 3}
+    assert int(groups[..., 0].min()) < 8 and int(groups[..., 0].max()) == 16  # 5 channels a group: 4 rounds
+    _, levels, windows, groups = _edge_windows("unaligned rows")
+    for level in (2, 3):
+        assert ROI_LEVELS[level][1] * 2 % 16 != 0
+        first = windows[..., 3][levels.numpy() == level]
+        assert len(set((first % 2).tolist())) == 2 and len(set(first.tolist())) >= 8
+    assert (groups == 16).all()  # every channel at once: the alignment is all that is tested
+    _, levels, _, _ = _edge_windows("two level mixes")
+    assert set(levels[0].tolist()) == {0, 1} and set(levels[1].tolist()) == {2, 3}
+
+
+def test_forward_stages_every_window_of_a_detectors_levels():
+    """``forward_stage_groups``, the bf16 forward's staging rule: at 800x1344
+    with NCHW features every RoI, proposal-like or edge case, stages its
+    window (global memory only where not one channel's window fits); a slab
+    whose 16 windows do not fit at once stages fewer channels a round, and
+    the last slab of C = 100 (4 channels) takes the whole-P5 box at once;
+    channels-last features are read from global memory."""
+    from chip_smoke import ROI_LEVELS, ROI_STRIDES, _proposal_rois
+    from basedet_tpu_torch.ops.roi_align_kernel import FWD_SLAB, FWD_STAGE_BYTES, forward_stage_groups, tap_windows
+
+    rois = torch.from_numpy(_proposal_rois(np.random.RandomState(0), 2, 512))
+    levels = roi_level_assignment(rois, 2, 5)
+    windows = tap_windows(rois, levels, ROI_STRIDES, ROI_LEVELS, (7, 7))
+    groups = forward_stage_groups(windows, 256)
+    assert groups.shape == (2, 512, 256 // FWD_SLAB) and (groups >= 1).all()
+    assert (groups == FWD_SLAB).mean() > 0.9
+    _, _, windows, groups = _edge_windows("large windows")
+    rows, span = windows[..., 2] - windows[..., 1] + 1, windows[..., 4] - windows[..., 3] + 1
+    assert ((groups >= 1) & (groups <= FWD_SLAB)).all()
+    few = groups[..., 0] < FWD_SLAB  # six of the seven boxes: 2-4 rounds
+    assert few.sum() == 6 and (FWD_SLAB * rows * span * 2 > FWD_STAGE_BYTES / 2)[few].all()
+    last = forward_stage_groups(windows, 100)[..., -1]
+    assert (last == 4).all()
+    assert not forward_stage_groups(windows, 256, unit_x_stride=False).any()
+
+
+def _full_size_case(name, C, channels_last, seed=8):
+    """bf16 features P2-P5 of 800x1344 on the card (NCHW or channels-last),
+    ``bf16_edge_rois()[name]`` and their level ids."""
+    from chip_smoke import ROI_LEVELS, bf16_edge_rois
+
+    rois = torch.from_numpy(bf16_edge_rois()[name]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feats = [torch.randn(rois.shape[0], C, h, w, device="cuda", generator=gen).bfloat16() for h, w in ROI_LEVELS]
+    if channels_last:
+        feats = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    return feats, rois, roi_level_assignment(rois, 2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels-last"])
+@pytest.mark.parametrize("c", [256, 100, 6, 7])  # 7: g's rows copied element by element
+@pytest.mark.parametrize("name", ["large windows", "unaligned rows", "two level mixes"])
+def test_bf16_kernels_on_the_edge_cases_on_gpu(name, c, layout):
+    """The bf16 forward kernel against the plain bf16 forward on the full
+    canvas: windows staged a group of channels at a time, rows off 16 bytes,
+    two level mixes, C off the slab, channels-last features (read from
+    global memory); one bf16 launch a call. The backward kernel (NCHW only:
+    it reads g, not the features) against the plain backward: dF bf16,
+    NCHW-contiguous, two runs bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the bf16 RoIAlign kernels have no CPU mode")
+    from chip_smoke import ROI_STRIDES
+
+    feats, rois, levels = _full_size_case(name, c, layout == "channels-last")
+    before = multilevel_roi_align.launches_bf16
+    got = multilevel_roi_align(feats, rois, levels, ROI_STRIDES)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align.launches_bf16 == before + 1 and got.dtype == torch.bfloat16
+    want = multilevel_roi_align_plain(feats, rois, levels, ROI_STRIDES)
+    floor = ROI_FWD_RTOL * max(1.0, max(float(f.float().abs().max()) for f in feats))
+    assert_within_ulp(got.cpu(), want.cpu(), f"{name} C={c} {layout}", floor)
+    if layout != "nchw":
+        return
+    g = torch.randn(*rois.shape[:2], 7, 7, c, generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda").bfloat16()
+    sizes = [f.shape[-2:] for f in feats]
+    got = multilevel_roi_align_backward(g, rois, levels, ROI_STRIDES, sizes)
+    again = multilevel_roi_align_backward(g, rois, levels, ROI_STRIDES, sizes)
+    want = multilevel_roi_align_backward_plain(g, rois, levels, ROI_STRIDES, sizes)
+    floor = ROI_BWD_RTOL * max(1.0, max(float(w.float().abs().max()) for w in want))
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous() and torch.equal(a, b)
+        assert_within_ulp(a.cpu(), w.cpu(), f"{name} C={c} backward", floor)
