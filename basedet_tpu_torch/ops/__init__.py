@@ -18,8 +18,8 @@ from .roi_align_kernel import (
     multilevel_roi_align_backward,
     pool_rois_multilevel,
 )
-from .scatter_rows import row_segments, scatter_rows_plain
-from .scatter_rows_kernel import gather_rows_batched, scatter_rows
+from .scatter_rows import row_segments, scatter_rows_plain, segment_rows_plain
+from .scatter_rows_kernel import gather_rows_batched, scatter_rows, segment_rows
 
 __all__ = ["NEG_INF", "batched_nms_padded", "box_iou", "box_iou_plain", "fused_gemm_stats", "fused_gemm_stats_backward",
            "fused_gemm_stats_backward_plain", "fused_gemm_stats_plain", "gather_rows_batched",
@@ -27,4 +27,5 @@ __all__ = ["NEG_INF", "batched_nms_padded", "box_iou", "box_iou_plain", "fused_g
            "multilevel_roi_align", "multilevel_roi_align_backward",
            "multilevel_roi_align_backward_plain", "multilevel_roi_align_plain", "nms_keep",
            "nms_keep_plain", "nms_padded", "pool_rois_multilevel", "roi_level_assignment",
-           "row_segments", "scatter_rows", "scatter_rows_plain", "stats_to_moments"]
+           "row_segments", "scatter_rows", "scatter_rows_plain", "segment_rows", "segment_rows_plain",
+           "stats_to_moments"]

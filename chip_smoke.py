@@ -142,15 +142,20 @@ Run from the root of the repository. Phases, each of which raises on failure:
  14. CenterNet R50-DCNv2 (full width, random weights from a seed with BN,
      biases and the DCN offset branches spread) through det_train: batch 16
      of 512x512, 4 steps; check that the scatter kernel ran three times per
-     step (once per DCN stage, in the backward) and its plain version never,
-     the losses are finite and the checkpoints written; keep the first
-     step's three scatter calls;
+     step (once per DCN stage, in the backward), its segmentation as often,
+     and its plain version never, the losses are finite and the checkpoints
+     written; keep the first step's three scatter calls;
  15. hold the scatter kernel to its plain version within SCATTER_RTOL of the
      sum of |values| per element on those three calls (the step's own row
      ids and cotangents, f32 and cast to bf16) and on edge cases (all
-     entries on one row, empty rows, out-of-range indices, N and D off the
-     tile, D = 12, B = 1), two kernel runs bit-equal each time; time each
-     stage's call, its sort glue, the plain version and index_add_;
+     entries on one row, rows of ~115 entries, empty rows, out-of-range
+     indices, N and D off the tile, D = 12, B = 1, bf16 at D = 13 and 256),
+     two kernel runs bit-equal each time; the segmentation kernels equal to
+     row_segments (ids and starts), and on bf16 values the bf16 output
+     bit-equal to the plain f32 sum cast; time each stage's call as the f32
+     and the --amp step make it (f32 values to f32, bf16 to bf16), its
+     kernels' device time apart (no sort kernel in a call), the bound, the
+     plain version and index_add_ (bf16: of the values in f32, then cast);
  16. det_test on its dumped weights over 8 requests of one 512x512 image;
  17. card against CPU on a batch of 2 at full width: eval head outputs and
      detections, then one train forward and backward: losses, gradient
@@ -2826,50 +2831,67 @@ def phase_frcnn_timing(model, card):
 # -- CenterNet R50-DCNv2 and the row scatter (kernel #9) ----------------------------------------
 
 def scatter_edges(rng):
-    """Edge cases of kernel #9, on the CPU: name -> (idx (B, N) int32, values (B, N, D), R)."""
+    """Edge cases of kernel #9, on the CPU: name -> (idx (B, N) int32, values (B, N, D), R). Rows of up to
+    32 entries (one chunk of ranks), 33-1024 (several) and more (the walk) take every way the
+    segmentation orders a row."""
     def case(B, N, R, D, lo=0, hi=None, dtype=torch.float32):
         idx = torch.from_numpy(rng.randint(lo, R if hi is None else hi, (B, N)).astype(np.int32))
         return idx, torch.from_numpy(rng.randn(B, N, D).astype(np.float32)).to(dtype), R
 
     cases = {
         "all entries on one row": case(2, 2304, 289, 256),
+        "about 115 entries a row (20 of 289 used)": case(2, 2304, 289, 256, 0, 20),
         "rows that receive nothing (10 of 1089 used)": case(2, 9216, 1089, 128, 0, 10),
         "indices out of range, negative and >= R": case(2, 5000, 500, 128, -600, 1100),
         "N and D off the tile (N 1001, D 1030)": case(2, 1001, 77, 1030),
         "D = 12": case(2, 2304, 289, 12),
         "B = 1, stage 3's shape": case(1, 36864, 4225, 512),
         "bf16, D = 13": case(2, 3000, 300, 13, dtype=torch.bfloat16),
+        "bf16, D = 256, indices out of range": case(2, 2304, 289, 256, -20, 309, dtype=torch.bfloat16),
     }
     cases["all entries on one row"][0].fill_(7)
     return cases
 
 
 def check_scatter_case(idx, values, n_rows):
-    """Kernel #9 run twice and its plain version on one case on the card: the two kernel runs
-    give the same bits, and each output element lies within SCATTER_RTOL of the sum of the
-    |values| that land on it. Returns (worst share of that tolerance, max |kernel - plain|)."""
-    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
-    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+    """Kernel #9 run twice and its plain version on one case on the card: the segmentation kernels
+    give ``row_segments``' ids and starts, the two kernel runs give the same bits, and each output
+    element lies within SCATTER_RTOL of the sum of the |values| that land on it; on bf16 values the
+    bf16 output (run twice) is the plain f32 sum cast to bf16, bit for bit. Returns (worst share of
+    that tolerance, max |kernel - plain|)."""
+    from basedet_tpu_torch.ops.scatter_rows import row_segments, scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows, segment_rows
 
+    order, starts = row_segments(idx, n_rows)
+    ids, got = segment_rows(idx, n_rows)
+    m = int(starts[-1])
+    check(torch.equal(got.long(), starts) and torch.equal(ids[:m].long(), order[:m]),
+          f"the segmentation kernels differ from row_segments on {tuple(values.shape)} into {n_rows} rows")
     out = scatter_rows(idx, values, n_rows)
     again = scatter_rows(idx, values, n_rows)
     torch.cuda.synchronize()
     check(torch.equal(out.view(torch.int32), again.view(torch.int32)),
           f"two runs of the scatter kernel differ on {tuple(values.shape)}")
     plain = scatter_rows_plain(idx, values, n_rows)
+    if values.dtype == torch.bfloat16:
+        low = [scatter_rows(idx, values, n_rows, out_dtype=torch.bfloat16) for _ in range(2)]
+        want = plain.to(torch.bfloat16).view(torch.int16)
+        check(all(t.dtype == torch.bfloat16 and torch.equal(t.view(torch.int16), want) for t in low),
+              f"the bf16 output differs from the plain f32 sum cast to bf16 on {tuple(values.shape)}")
     mag = scatter_rows_plain(idx, values.float().abs(), n_rows)
     err = (out - plain).abs()
     ratio = torch.where(err > 0, err / (SCATTER_RTOL * mag), torch.zeros_like(err))
     return float(ratio.max()) if ratio.numel() else 0.0, float(err.max()) if err.numel() else 0.0
 
 
-def scatter_bound(idx, values, n_rows):
-    """(ms, "bytes" or "operations"): idx and values read once, the (B, R, D) f32 output written
-    once; one add per value whose index lands in [0, R)."""
+def scatter_bound(idx, values, n_rows, out_dtype=torch.float32):
+    """(ms, "bytes" or "operations"): idx and values read once, the (B, R, D) output written once
+    in ``out_dtype``; one add per value whose index lands in [0, R)."""
     B, N, D = values.shape
     landing = int(((idx >= 0) & (idx < n_rows)).sum())
-    return bound(idx.numel() * 4 + values.numel() * values.element_size() + B * n_rows * D * 4,
-                 landing * D)
+    out_size = torch.empty(0, dtype=out_dtype).element_size()
+    return bound(idx.numel() * idx.element_size() + values.numel() * values.element_size()
+                 + B * n_rows * D * out_size, landing * D)
 
 
 @torch.no_grad()
@@ -2933,7 +2955,7 @@ def phase_cnet_train(out_dir, weights):
     from basedet_tpu_torch.layers.blocks import deformable
     from basedet_tpu_torch.models.det.centernet import CenterNet
     from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
-    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows, segment_rows
     from basedet_tpu_torch.tools import det_train
 
     kept = []
@@ -2954,17 +2976,18 @@ def phase_cnet_train(out_dir, weights):
     with recording(CenterNet, "get_losses", keep_losses) as losses, \
             recording(deformable, "gather_rows_batched", keep_gather), \
             recording(deformable, "bilinear_sample_batched", sampling) as taps, iou_counted("CenterNet det_train"):
-        scatter_rows.launches, scatter_rows_plain.calls = 0, 0
+        scatter_rows.launches, segment_rows.launches, scatter_rows_plain.calls = 0, 0, 0
         t0 = time.perf_counter()
         trainer = det_train.main(["-f", CNET_CONFIG, "--device", "cuda", *_cnet_train_opts(out_dir, weights)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches, plain_calls = scatter_rows.launches, scatter_rows_plain.calls
+        launches, segments, plain_calls = scatter_rows.launches, segment_rows.launches, scatter_rows_plain.calls
 
     steps = trainer.state.step
     ckpt = os.path.join(out_dir, "cnet_ckpt")
     check(steps == 4 and len(losses) == 4, f"CenterNet det_train took {steps} steps, not 4")
     check(launches == 3 * steps, f"the scatter kernel launched {launches} times in {steps} steps, not 3 each")
+    check(segments == launches, f"the row segmentation ran {segments} times for {launches} scatter launches")
     check(plain_calls == 0, f"the plain scatter ran {plain_calls} times on the main path")
     check_iou_counts("CenterNet det_train", 0)
     check(all(math.isfinite(v) for step in losses for v in step.values()), f"non-finite losses {losses}")
@@ -2990,21 +3013,62 @@ def phase_cnet_train(out_dir, weights):
           f"the offsets did not spread the taps: {taps[:3]}")
     per_step = "; ".join(", ".join(f"{k} {v:.4f}" for k, v in step.items()) for step in losses)
     log(f"[cnet-train] det_train CenterNet R50-DCNv2, 4 steps of {CNET_B} images {CNET_IMAGE[0]}x{CNET_IMAGE[1]}, "
-        f"f32, in {seconds:.2f} s; scatter kernel launches {launches}, plain calls {plain_calls}; lr "
+        f"f32, in {seconds:.2f} s; scatter kernel launches {launches}, segmentations {segments}, plain calls "
+        f"{plain_calls}; lr "
         f"{trainer.meters['lr'].latest:.4g}; losses per step: {per_step}; checkpoints latest.pt, epoch_1.pt, "
         f"dumped_model.pt written")
     return launches, cases, os.path.join(ckpt, "dumped_model.pt")
 
 
+SEGMENT_KERNELS = ("count_rows", "scan_rows", "place_rows", "order_rows", "Memset")  # #9's segmentation
+
+
+def scatter_call_timing(name, idx, values, rows, card):
+    """One stage's call as the step makes it (f32 values to an f32 table, bf16 to a bf16 one): events
+    for the call; from the profiler, the device time of the segmentation, the scatter kernel and any
+    other operation (a cast; a sort would fail the check); the bound; the plain version; and
+    ``index_add_`` (atomics, not deterministic; the port never calls it), for bf16 of the values in
+    f32 with the cast to bf16 counted."""
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+
+    B, N, D = values.shape
+    out_dtype = values.dtype
+    key = torch.where((idx >= 0) & (idx < rows), idx.long() + torch.arange(B, device="cuda")[:, None] * rows,
+                      B * rows).flatten()
+    flat = values.view(B * N, D)
+
+    def library():
+        table = torch.zeros(B * rows + 1, D, device="cuda").index_add_(0, key, flat.float())
+        return table[:B * rows].to(out_dtype)
+
+    call = lambda: scatter_rows(idx, values, rows, out_dtype=out_dtype)
+    _, ops, found = device_kernels(call, 10, names=("scatter_rows_kernel",) + SEGMENT_KERNELS[:4])
+    sorts = [k for k in found if "sort" in k.lower()]
+    check(not sorts, f"a sort ran inside #9's call on {name}: {sorts}")
+    seg = sum(v for k, v in found.items() if any(n in k for n in SEGMENT_KERNELS))
+    kernel = sum(v for k, v in found.items() if "scatter_rows_kernel" in k)
+    t = dict(ms=cuda_ms(call, reps=20, warmup=3), segment_ms=seg, kernel_ms=kernel,
+             other_ms=sum(found.values()) - seg - kernel, ops=ops,
+             plain_ms=cuda_ms(lambda: scatter_rows_plain(idx, values, rows, out_dtype), reps=3, warmup=1),
+             library_ms=cuda_ms(library, reps=20, warmup=3))
+    t["bound_ms"], t["bound_by"] = scatter_bound(idx, values, rows, out_dtype)
+    device = seg + kernel + t["other_ms"]
+    log(f"[scatter] {name} {tuple(values.shape)} {str(values.dtype)[6:]} -> ({B}, {rows}, {D}) "
+        f"{str(out_dtype)[6:]}: call {t['ms']:.4f} ms (events); device {device:.4f} ms in {ops} operations "
+        f"(profiler): segmentation {seg:.4f}, scatter kernel {kernel:.4f}, other {t['other_ms']:.4f}; bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), the device time at {t['bound_ms'] / device:.3f} of it; plain "
+        f"{t['plain_ms']:.4f}, index_add_{' of f32 values + cast' if out_dtype == torch.bfloat16 else ''} "
+        f"{t['library_ms']:.4f} | {card}")
+    return t
+
+
 def phase_scatter_kernel(card, stages):
     """Kernel #9 against its plain version on the first train step's three calls (the step's own
     row ids and cotangents, f32, and the same cast to bf16) and on edge cases, two kernel runs
-    bit-equal each time; then each stage timed: kernel (with its sort glue), the glue alone, the
-    plain version and ``index_add_`` (atomics, not deterministic; the port never calls it), and
-    summed over the three calls of a step."""
-    from basedet_tpu_torch.ops.scatter_rows import row_segments, scatter_rows_plain
-    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
-
+    bit-equal each time, the segmentation equal to ``row_segments`` and the bf16 output to the plain
+    f32 sum cast; then each stage timed in f32 and in bf16 (``scatter_call_timing``) and summed over
+    the three calls of a step. Returns the f32 step's numbers with the bf16 step's under "bf16"."""
     cases = list(stages) + [(f"{name} bf16", idx, values.bfloat16(), rows) for name, idx, values, rows in stages]
     cases += [(name, idx.cuda(), values.cuda(), rows)
               for name, (idx, values, rows) in scatter_edges(np.random.RandomState(SEED + 9)).items()]
@@ -3014,36 +3078,31 @@ def phase_scatter_kernel(card, stages):
         worst, worst_err = max(worst, ratio), max(worst_err, err)
         log(f"[scatter] {name}: {tuple(values.shape)} {str(values.dtype)[6:]} into {rows} rows: max |kernel - "
             f"plain| {err:.3e}, {ratio:.3f} of the tolerance (SCATTER_RTOL {SCATTER_RTOL:.3e} x sum |values| "
-            f"per element); two kernel runs bit-equal")
+            f"per element); two kernel runs bit-equal; segmentation equal to row_segments"
+            f"{'; bf16 output bit-equal to the plain sum cast' if values.dtype == torch.bfloat16 else ''}")
         check(ratio <= 1.0, f"scatter kernel against its plain version on {name}: {ratio:.3f} of the tolerance")
 
-    step = dict(ms=0.0, glue=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    by = []
-    for name, idx, values, rows in stages:
-        B, N, D = values.shape
-        key = torch.where((idx >= 0) & (idx < rows), idx.long() + torch.arange(B, device="cuda")[:, None] * rows,
-                          B * rows).flatten()
-        flat = values.view(B * N, D)
-
-        def library():
-            return torch.zeros(B * rows + 1, D, device="cuda").index_add_(0, key, flat)
-
-        t = dict(ms=cuda_ms(lambda: scatter_rows(idx, values, rows), reps=20, warmup=3),
-                 glue=cuda_ms(lambda: row_segments(idx, rows), reps=20, warmup=3),
-                 plain_ms=cuda_ms(lambda: scatter_rows_plain(idx, values, rows), reps=3, warmup=1),
-                 library_ms=cuda_ms(library, reps=20, warmup=3))
-        t["bound_ms"], b = scatter_bound(idx, values, rows)
-        by.append(b)
-        for k in step:
-            step[k] += t[k]
-        log(f"[scatter] {name} {tuple(values.shape)} -> ({B}, {rows}, {D}): kernel {t['ms']:.4f} ms (of which the "
-            f"sort glue {t['glue']:.4f}), bound {t['bound_ms']:.4f} ms ({b}), plain {t['plain_ms']:.4f}, "
-            f"index_add_ {t['library_ms']:.4f} | {card}")
-    log(f"[scatter] per train step at batch {CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]} (3 calls): kernel "
-        f"{step['ms']:.4f} ms (sort glue {step['glue']:.4f}), bound {step['bound_ms']:.4f} ms, plain "
-        f"{step['plain_ms']:.4f}, index_add_ {step['library_ms']:.4f}; worst case {worst:.3f} of the tolerance | {card}")
-    return dict(max_abs_err=worst_err, ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
-                bound_by=max(set(by), key=by.count), library_ms=step["library_ms"])
+    keys = ("ms", "segment_ms", "kernel_ms", "other_ms", "plain_ms", "library_ms", "bound_ms")
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        step, by = dict.fromkeys(keys, 0.0), []
+        for name, idx, values, rows in stages:
+            t = scatter_call_timing(name, idx, values.to(dtype), rows, card)
+            by.append(t["bound_by"])
+            for k in keys:
+                step[k] += t[k]
+        device = step["segment_ms"] + step["kernel_ms"] + step["other_ms"]
+        log(f"[scatter] per train step at batch {CNET_B} of {CNET_IMAGE[0]}x{CNET_IMAGE[1]}, "
+            f"{str(dtype)[6:]} (3 calls): call {step['ms']:.4f} ms (events); device {device:.4f} ms: segmentation "
+            f"{step['segment_ms']:.4f}, scatter kernel {step['kernel_ms']:.4f}, other {step['other_ms']:.4f}; bound "
+            f"{step['bound_ms']:.4f} ms, the device time at {step['bound_ms'] / device:.3f} of it; plain "
+            f"{step['plain_ms']:.4f}, index_add_ {step['library_ms']:.4f}; worst case {worst:.3f} of the tolerance "
+            f"| {card}")
+        steps[dtype] = dict(step, device_ms=device, bound_by=max(set(by), key=by.count))
+    f32, bf16 = steps[torch.float32], steps[torch.bfloat16]
+    numbers = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+    return dict(max_abs_err=worst_err, **{k: f32[k] for k in numbers}, bound_by=f32["bound_by"],
+                bf16={k: bf16[k] for k in numbers})
 
 
 def phase_cnet_slice(out_dir, weights):
@@ -3809,8 +3868,8 @@ def kernel_counts(path):
     from basedet_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from basedet_tpu_torch.ops.roi_align import multilevel_roi_align_backward_plain, multilevel_roi_align_plain
     from basedet_tpu_torch.ops.roi_align_kernel import multilevel_roi_align, multilevel_roi_align_backward
-    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain
-    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows
+    from basedet_tpu_torch.ops.scatter_rows import scatter_rows_plain, segment_rows_plain
+    from basedet_tpu_torch.ops.scatter_rows_kernel import scatter_rows, segment_rows
 
     pairs = {"nms_keep": (nms_keep, nms_keep_plain), "dynamic_k_matching": (dynamic_k_matching, dynamic_k_matching_plain),
              "multilevel_roi_align": (multilevel_roi_align, multilevel_roi_align_plain),
@@ -3820,7 +3879,8 @@ def kernel_counts(path):
                                                     multilevel_roi_align_backward_plain),
              "fused_gemm_stats": (fused_gemm_stats, fused_gemm_stats_plain),
              "fused_gemm_stats_backward": (fused_gemm_stats_backward, fused_gemm_stats_backward_plain),
-             "scatter_rows": (scatter_rows, scatter_rows_plain)}
+             "scatter_rows": (scatter_rows, scatter_rows_plain),
+             "segment_rows": (segment_rows, segment_rows_plain)}
     for kernel, plain in pairs.values():
         kernel.launches, plain.calls = 0, 0
     with iou_counted(path):
@@ -3830,8 +3890,9 @@ def kernel_counts(path):
 
 
 def check_counts(path, expected):
-    """Each kernel launched as ``expected`` says (0 where it does not say) on ``path``, every plain
-    version never."""
+    """Each kernel launched as ``expected`` says (0 where it does not say; #9's segmentation as often as
+    #9) on ``path``, every plain version never."""
+    expected = {**expected, "segment_rows": expected.get("scatter_rows", 0)}
     counts = DATA_COUNTS[path]
     for name, (launches, plain) in counts.items():
         check(launches == expected.get(name, 0), f"{path}: {name} launched {launches} times, not "
@@ -7154,6 +7215,7 @@ def main():
     }, {
         "name": "scatter_rows", "route": "cuda", "source": "basedet_tpu_torch/csrc/scatter_rows.cu",
         "replaces": "basedet_tpu/ops/scatter_onehot.py:117", **entry(scatter_by_path, scatter),
+        "bf16": scatter["bf16"],
     }, {
         "name": "box_iou", "route": "cuda", "source": "basedet_tpu_torch/csrc/iou.cu",
         "replaces": "basedet_tpu/ops/iou_pallas.py:37", **entry(iou_by_path, iou),

@@ -367,12 +367,12 @@ def test_gradients_track_a_float64_run_of_the_port(tiny, monkeypatch):
     within GRAD_RTOL, so the distance between the two is rounding."""
     from basedet_tpu_torch.ops import scatter_rows_kernel
 
-    def scatter64(idx, values, n_rows):
+    def scatter64(idx, values, n_rows, out_dtype=torch.float64):  # the backward asks for the table's dtype
         B, N, D = values.shape
         key = torch.where((idx >= 0) & (idx < n_rows), idx.long() + torch.arange(B)[:, None] * n_rows,
                           B * n_rows).flatten()
         out = torch.zeros(B * n_rows + 1, D, dtype=values.dtype).index_add_(0, key, values.reshape(-1, D))
-        return out[:-1].view(B, n_rows, D)
+        return out[:-1].view(B, n_rows, D).to(out_dtype)
 
     monkeypatch.setattr(scatter_rows_kernel, "scatter_rows", scatter64)
     port = port_with(tiny["variables"], tiny["cfg"]).train()
