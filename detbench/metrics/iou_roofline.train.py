@@ -1,0 +1,6 @@
+"""The pairwise-IoU kernel's share of its roofline in a train step."""
+from core import readers
+
+
+def read(tr):
+    return readers.roofline_share(tr, "iou")

@@ -1,0 +1,6 @@
+"""Kernel launches an inference batch, from the traced stretch's device records."""
+from core import readers
+
+
+def read(tr):
+    return readers.launches_per_step(tr)
